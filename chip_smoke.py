@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root.  Phases, each of which ends the run with a
+non-zero exit code when it fails:
+
+1. environment: the card's name and power limit (nvidia-smi), torch and
+   CUDA versions; TF32 switched off for fp32 matmuls;
+2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc);
+3. kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm`` at every
+   projection role of full-width chatglm3-6b (blocks of the shipped bitmap
+   plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4 and
+   1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in fp32
+   and bf16, each held to max|y - y_plain| <= 1e-4 max|y_plain| + 1e-5,
+   timed beside its plain version, its bound on an H100 SXM and one
+   ``torch.matmul`` over the decompressed weight;
+4. serving: full-width chatglm3-6b (all 28 layers),
+   random weights from a seeded generator, through
+   ``repro_torch.launch.serve.generate`` on the shipped bitmap plan and on
+   the shipped N:M plan (batch 4, prompt 128, 16 generated tokens), with
+   the kernels' launch counts read around each run, and compressed prefill
+   logits held against the dense model on the same pruned weights at fp32.
+
+The line before the last is one JSON object describing every kernel; the
+last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+port's sources beside this script, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
+# outside the tensor cores — the kernels' arithmetic type
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+TOL_REL, TOL_ABS = 1e-4, 1e-5
+BATCH, PROMPT, GEN = 4, 128, 16
+M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _time_ms(fn, reps: int, flush) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls timed with CUDA
+    events, each after a write of ``flush`` (larger than the 50 MB L2), so
+    every call finds its weights cold, as a serving layer does."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def phase_environment() -> str:
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0].strip()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    return card
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    print(f"[build] {len(libs)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          f"{', '.join(p.name for p in libs.values())}")
+    for name, log in build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+class _Acc:
+    """Per-kernel accumulation of the kernel-vs-plain phase."""
+
+    def __init__(self):
+        self.max_abs_err = 0.0
+        self.sums: dict[tuple, dict[str, float]] = {}
+
+    def add(self, key, err, ms, plain_ms, lib_ms, nbytes, flops):
+        """Record one case; ``key`` None keeps it out of the sums (a
+        case the serving path does not run)."""
+        self.max_abs_err = max(self.max_abs_err, err)
+        if key is None:
+            return
+        s = self.sums.setdefault(key, dict(ms=0.0, plain_ms=0.0,
+                                           library_ms=0.0, bytes=0.0,
+                                           flops=0.0))
+        s["ms"] += ms
+        s["plain_ms"] += plain_ms
+        s["library_ms"] += lib_ms
+        s["bytes"] += nbytes
+        s["flops"] += flops
+
+
+def _check(name, y, y_plain) -> float:
+    import torch
+    err = (y - y_plain).abs().max().item()
+    scale = y_plain.abs().max().item()
+    if not torch.isfinite(y).all() or err > TOL_REL * scale + TOL_ABS:
+        _fail(f"{name}: max|y - y_plain| = {err} > {TOL_REL} * {scale} "
+              f"+ {TOL_ABS}")
+    return err
+
+
+def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
+    import torch
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sparse import masks
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    plan = shipped_plan(cfg, "bitmap")
+    acc = {"bitmap_spmm": _Acc(), "nm_spmm": _Acc()}
+    print(f"[kernels] tolerance max|y - y_plain| <= {TOL_REL} max|y_plain| "
+          f"+ {TOL_ABS}; times are device ms with a cold L2, on {card}")
+
+    def run(kname, label, m, dtype, n, kernel, plain, w_dense, nbytes_w,
+            flops_per_row, x_cols, main_path):
+        x = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+        y = kernel(x)
+        y_plain = plain(x)
+        torch.cuda.synchronize()
+        err = _check(f"{kname} {label} M={m} {dtype}", y, y_plain)
+        reps = 10 if m <= M_DECODE else 5
+        ms = _time_ms(lambda: kernel(x), reps, flush)
+        plain_ms = _time_ms(lambda: plain(x), reps, flush)
+        lib_ms = _time_ms(lambda: torch.matmul(x.float(), w_dense), reps,
+                          flush)
+        k = y.shape[1]
+        nbytes = nbytes_w + m * x_cols * x.element_size() + m * k * 4
+        flops = flops_per_row * m
+        bound, by = _bound_ms(nbytes, flops)
+        acc[kname].add((m, dtype) if main_path else None, err, ms,
+                       plain_ms, lib_ms, nbytes, flops)
+        print(f"[kernels] {kname} {label} M={m} x={str(dtype)[6:]}: "
+              f"err {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"library {lib_ms:.4f} ms bound {bound:.4f} ms ({by})")
+
+    for role in cfg.matmul_roles():
+        op = plan.for_role(role.role)
+        bn, bk = op.choice.block_n, op.choice.block_k
+        w = torch.randn((role.n, role.k), generator=gen, device=dev) \
+            / math.sqrt(role.n)
+        cases = [("d0.5", masks.block_prune(w, bn, bk, 0.5))]
+        if role.role == "attn.wk":
+            cases.append(("d0", torch.zeros_like(w)))
+        for tag, wp in cases:
+            c = ops.compress_bitmap(wp, bn, bk)
+            nnzb = int(c.counts.sum())
+            rows_used = int(torch.unique(c.row_ids[:nnzb]).numel())
+            nbytes_w = nnzb * bn * bk * 4 + (2 * c.counts.numel() + nnzb) * 4
+            for m in (M_DECODE, M_PREFILL):
+                for dtype in (torch.float32, torch.bfloat16):
+                    run("bitmap_spmm", f"{role.role} ({bn}x{bk} {tag})", m,
+                        dtype, role.n,
+                        lambda x, c=c: ops.bitmap_spmm(x, c),
+                        lambda x, c=c: ref.bitmap_spmm_ref(
+                            x, c.blocks, c.counts, c.row_ids, c.n, c.k),
+                        wp, nbytes_w, 2.0 * nnzb * bn * bk, rows_used * bn,
+                        tag == "d0.5")
+        for n_sel in (2, 1):
+            wp = masks.nm_prune(w, n_sel, 4)
+            c = ops.compress_nm(wp, n_sel, 4)
+            nbytes_w = c.values.numel() * 4 + c.indices.numel()
+            for m in (M_DECODE, M_PREFILL):
+                for dtype in (torch.float32, torch.bfloat16):
+                    run("nm_spmm", f"{role.role} ({n_sel}:4)", m, dtype,
+                        role.n, lambda x, c=c: ops.nm_spmm(x, c),
+                        lambda x, c=c: ref.nm_spmm_ref(
+                            x, c.values, c.indices, c.n_sel, c.m_group),
+                        wp, nbytes_w, 2.0 * c.values.numel(), role.n,
+                        n_sel == 2)
+        del w
+    return acc
+
+
+def phase_serving(cfg, card: str, dev) -> dict[str, int]:
+    import torch
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+
+    expected = 7 * cfg.n_layers * (1 + GEN)
+    launches: dict[str, int] = {}
+    print(f"[serve] chatglm3-6b d_model={cfg.d_model} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} n_layers={cfg.n_layers} batch={BATCH} "
+          f"prompt={PROMPT} gen={GEN}")
+    for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
+        full_plan = shipped_plan(cfg, kind)
+        t0 = time.perf_counter()
+        params = Model(cfg).init(seed=0, device=dev)
+        cm, pruned = serve.compressed_model(cfg, params, full_plan,
+                                            device=dev)
+        del params
+        torch.cuda.synchronize()
+        print(f"[serve {kind}] init + prune + compress "
+              f"{time.perf_counter() - t0:.2f} s; store ratio "
+              f"{cm.store.achieved_ratio():.6f}; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        pg = torch.Generator(device=dev).manual_seed(2)
+        prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                                device=dev)
+
+        # warm-up (cuBLAS handles, allocator), then the counted run
+        cm.generate(pruned, prompts[:, :8], 2, device=dev)
+        ops.reset_launch_counts()
+        toks, t_prefill, t_gen = cm.generate(pruned, prompts, GEN,
+                                             device=dev)
+        counts = ops.launch_counts()
+        launches[kname] = counts[kname]
+        print(f"[serve {kind}] launch counts {counts} (expected {kname} = "
+              f"7 * {cfg.n_layers} * (1 + {GEN}) = {expected})")
+        if counts[kname] != expected or sum(counts.values()) != expected:
+            _fail(f"{kind}: launch counts {counts}, expected {expected} "
+                  f"launches of {kname} only")
+        if toks.shape != (BATCH, GEN) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab)).all()):
+            _fail(f"{kind}: tokens out of range: {toks.tolist()}")
+        logits, _ = cm.prefill(pruned, prompts, PROMPT)
+        if not bool(torch.isfinite(logits).all()):
+            _fail(f"{kind}: non-finite bf16 prefill logits")
+        print(f"[serve {kind}] prefill {1e3 * t_prefill:.2f} ms "
+              f"({serve._rate(BATCH * PROMPT, t_prefill):.1f} tok/s); "
+              f"decode {1e3 * t_gen / GEN:.3f} ms/token "
+              f"({serve._rate(BATCH * GEN, t_gen):.1f} tok/s) — bf16 "
+              f"compute, on {card}")
+        print(f"[serve {kind}] sample tokens {toks[0].tolist()}")
+        del logits
+
+        # fp32: compressed vs the dense model on the same pruned weights
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            lc, _ = cm.prefill(pruned, prompts, PROMPT)
+            ld, _ = Model(cfg).prefill(pruned, prompts, PROMPT)
+            err = (lc - ld).abs().max().item()
+            scale = ld.abs().max().item()
+            agree = (lc.argmax(-1) == ld.argmax(-1)).float().mean().item()
+            del lc, ld
+            tc, _, _ = cm.generate(pruned, prompts, GEN, device=dev)
+            td, _, _ = serve.generate(Model(cfg), pruned, prompts, GEN,
+                                      PROMPT + GEN, device=dev)
+            tok_agree = (tc == td).float().mean().item()
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        print(f"[serve {kind}] fp32 compressed vs dense prefill logits: "
+              f"max abs err {err:.3e} (bound 1e-3 * {scale:.3e}); greedy "
+              f"agreement: prefill argmax {agree:.4f}, generated tokens "
+              f"{tok_agree:.4f}")
+        if not err <= 1e-3 * scale:
+            _fail(f"{kind}: fp32 compressed logits differ from dense by "
+                  f"{err} > 1e-3 * {scale}")
+        del cm, pruned
+        torch.cuda.empty_cache()
+    return launches
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this run needs a GPU")
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        _fail(f"the port's sources are not at {SRC}")
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+
+    card = phase_environment()
+    phase_build()
+    cfg = get_config("chatglm3-6b")
+    dev = torch.device("cuda", 0)
+    acc = phase_kernels(cfg, card, dev)
+    launches = phase_serving(cfg, card, dev)
+
+    sources = {"bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
+                               "src/repro/kernels/bitmap_spmm.py:125"),
+               "nm_spmm": ("src/repro_torch/csrc/nm_spmm.cu",
+                           "src/repro/kernels/nm_spmm.py:135")}
+    kernels = []
+    for name, a in acc.items():
+        # the main path's shapes: one layer's seven projections with bf16
+        # activations, at a decode step and at the prefill
+        entry = {"name": name, "route": "cuda", "source": sources[name][0],
+                 "replaces": sources[name][1], "launches": launches[name],
+                 "max_abs_err": a.max_abs_err}
+        for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
+            s = a.sums[(m, torch.bfloat16)]
+            bound, by = _bound_ms(s["bytes"], s["flops"])
+            shape = {"ms": s["ms"], "plain_ms": s["plain_ms"],
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": s["library_ms"]}
+            if key == "decode":
+                entry.update(shape)
+                entry["at"] = (f"sum over the 7 roles of one layer, "
+                               f"M={m}, x bf16")
+            else:
+                entry["prefill"] = dict(shape, at=f"same, M={m}")
+        kernels.append(entry)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

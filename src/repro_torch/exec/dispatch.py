@@ -1,0 +1,172 @@
+"""Plan-driven matmul dispatch: compressed kernels inside the real model.
+
+Every FFN/attention projection of :mod:`repro_torch.models` routes through
+:func:`repro_torch.models.layers.proj`.  :class:`CompressedModel` installs
+a :class:`_Dispatcher` there and drives the dense model's own layer loops;
+the loops publish the running layer's index
+(:func:`repro_torch.models.layers.layer_ctx`) and the dispatcher looks up
+that layer's entry in the :class:`~repro_torch.exec.compress.CompressedStore`
+and calls the matching kernel (``bitmap_spmm`` / ``nm_spmm``: the CUDA
+kernel for CUDA tensors, the plain version for CPU tensors).  Dense-kind
+and unplanned roles fall through to the dense matmul.
+
+:func:`instrument` collects per-role :class:`OpCounters`; eager PyTorch
+records once per (layer, role) call, like the reference's unrolled
+per-layer forward.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Iterator, Optional
+
+import torch
+
+from repro_torch.exec.compress import CompressedStore
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+# ---------------------------------------------------------------------------
+# Measured traffic counters
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class OpCounters:
+    """Accumulated measured traffic of one dispatch role."""
+
+    calls: int = 0
+    w_fetch_bits: float = 0.0     # payload + metadata, realized encoding
+    x_bits: float = 0.0
+    y_bits: float = 0.0
+    macs: float = 0.0             # useful MACs (compressed operand elems × M)
+    decode_ops: float = 0.0       # metadata units decoded (blocks / indices)
+
+
+_ACTIVE_COUNTERS: Optional[dict[str, OpCounters]] = None
+
+
+@contextlib.contextmanager
+def instrument() -> Iterator[dict[str, OpCounters]]:
+    """Collect per-role :class:`OpCounters` for every dispatched
+    projection inside the context."""
+    global _ACTIVE_COUNTERS
+    prev = _ACTIVE_COUNTERS
+    counters: dict[str, OpCounters] = {}
+    _ACTIVE_COUNTERS = counters
+    try:
+        yield counters
+    finally:
+        _ACTIVE_COUNTERS = prev
+
+
+def _record(role: str, x2: torch.Tensor, y_k: int, w_bits: float,
+            macs: float, decode_ops: float) -> None:
+    if _ACTIVE_COUNTERS is None:
+        return
+    c = _ACTIVE_COUNTERS.setdefault(role, OpCounters())
+    c.calls += 1
+    c.w_fetch_bits += w_bits
+    c.x_bits += float(x2.numel() * x2.element_size() * 8)
+    c.y_bits += float(x2.shape[0] * y_k * 32)        # kernels emit f32
+    c.macs += macs
+    c.decode_ops += decode_ops
+
+
+# ---------------------------------------------------------------------------
+# The dispatcher (a repro_torch.models.layers.proj hook)
+# ---------------------------------------------------------------------------
+
+class _Dispatcher:
+    """Per-(layer, role) hook: the layer comes from the layer loop's
+    published index."""
+
+    def __init__(self, store: CompressedStore):
+        self.store = store
+
+    def __call__(self, x: torch.Tensor, w: torch.Tensor, role: str
+                 ) -> Optional[torch.Tensor]:
+        entry = self.store.get(L.current_layer_ctx(), role)
+        if entry is None:
+            return None                       # unplanned role: dense matmul
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        m = x2.shape[0]
+        d = entry.data
+        if entry.kind == "bitmap":
+            y = kops.bitmap_spmm(x2, d)
+            if _ACTIVE_COUNTERS is not None:  # counts.sum() syncs the card
+                nnzb = int(d.counts.sum())
+                _record(role, x2, d.k, w_bits=entry.stored_bits,
+                        macs=float(m) * nnzb * d.bn * d.bk,
+                        decode_ops=float(nnzb))
+        elif entry.kind == "nm":
+            y = kops.nm_spmm(x2, d)
+            _record(role, x2, d.k, w_bits=entry.stored_bits,
+                    macs=float(m) * d.values.numel(),
+                    decode_ops=float(d.indices.numel()))
+        else:
+            _record(role, x2, w.shape[-1], w_bits=entry.stored_bits,
+                    macs=float(m) * w.numel(), decode_ops=0.0)
+            return None                       # dense-kind: the dense matmul
+        return y.to(x.dtype).reshape(*lead, y.shape[-1])
+
+
+@contextlib.contextmanager
+def active(store: CompressedStore) -> Iterator[_Dispatcher]:
+    """Install the dispatch hook for ``store``."""
+    disp = _Dispatcher(store)
+    L.set_proj_hook(disp)
+    try:
+        yield disp
+    finally:
+        L.set_proj_hook(None)
+
+
+# ---------------------------------------------------------------------------
+# Compressed forward / serving surface
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CompressedModel:
+    """A served model: the dense :class:`~repro_torch.models.transformer.Model`
+    with every planned projection taken from a :class:`CompressedStore`.
+    Mirrors the dense model's serving surface."""
+
+    model: T.Model
+    store: CompressedStore
+
+    @property
+    def cfg(self):
+        return self.model.cfg
+
+    def hidden_states(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        with active(self.store):
+            return self.model.hidden_states(params, tokens)
+
+    def logits(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        with active(self.store):
+            return self.model.logits(params, tokens)
+
+    def prefill(self, params, tokens: torch.Tensor, max_len: int):
+        with active(self.store):
+            return self.model.prefill(params, tokens, max_len)
+
+    def init_cache(self, batch: int, max_len: int, device="cuda"):
+        return self.model.init_cache(batch, max_len, device=device)
+
+    def decode_step(self, params, cache, tokens: torch.Tensor, pos):
+        with active(self.store):
+            return self.model.decode_step(params, cache, tokens, pos)
+
+    def generate(self, params, prompts: torch.Tensor, gen: int,
+                 max_len: Optional[int] = None, **kwargs):
+        """Greedy batched generation through
+        :func:`repro_torch.launch.serve.generate`.  Returns
+        (tokens (B, gen), t_prefill_s, t_gen_s)."""
+        from repro_torch.launch import serve
+        if max_len is None:
+            max_len = prompts.shape[1] + gen
+        return serve.generate(self, params, prompts, gen, max_len, **kwargs)
