@@ -9,19 +9,27 @@ non-zero exit code when it fails:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 switched off for fp32 matmuls;
 2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc);
-3. kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm`` at every
+3. sparse kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm``, each
+   in its pipelined and its naive (``pipeline=False``) variant, at every
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
-   plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4 and
-   1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in fp32
-   and bf16, each held to max|y - y_plain| <= 1e-4 max|y_plain| + 1e-5,
-   timed beside its plain version, its bound on an H100 SXM and one
-   ``torch.matmul`` over the decompressed weight;
-4. serving: full-width chatglm3-6b (all 28 layers),
-   random weights from a seeded generator, through
-   ``repro_torch.launch.serve.generate`` on the shipped bitmap plan and on
-   the shipped N:M plan (batch 4, prompt 128, 16 generated tokens), with
-   the kernels' launch counts read around each run, and compressed prefill
-   logits held against the dense model on the same pruned weights at fp32.
+   plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4
+   and 1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in
+   fp32 and bf16: each held to max|y - y_plain| <= 1e-4 max|y_plain| +
+   1e-5, the naive result equal to the pipelined one bit for bit, timed
+   (the naive variants at bf16 only) beside the plain version, the bound
+   on an H100 SXM and one ``torch.matmul`` over the decompressed weight;
+4. flash attention vs its plain version at chatglm3-6b's attention width
+   (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
+   bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
+   plain version, the bound and ``scaled_dot_product_attention``;
+5. serving: full-width chatglm3-6b (all 28 layers), random weights from a
+   seeded generator, through ``repro_torch.launch.serve.generate`` on the
+   shipped bitmap plan and on the shipped N:M plan (batch 4, prompt 128,
+   16 generated tokens), with the kernels' launch counts read around each
+   run; the same model served again with the naive kernels
+   (``ops.pipeline_default(False)``) must give the same tokens and the
+   same bf16 prefill logits; compressed prefill logits are held against
+   the dense model on the same pruned weights at fp32.
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -41,9 +49,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores — the kernels' arithmetic type
+# outside the tensor cores — the sparse kernels' arithmetic type — and the
+# dense bf16 tensor-core rate, which bounds attention on bf16 inputs
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 TOL_REL, TOL_ABS = 1e-4, 1e-5
 BATCH, PROMPT, GEN = 4, 128, 16
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
@@ -75,8 +85,9 @@ def _time_ms(fn, reps: int, flush) -> float:
     return total / reps
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+def _bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOP_S
+              ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -108,7 +119,9 @@ def phase_build() -> None:
           f"{', '.join(p.name for p in libs.values())}")
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:       # names the entry
+                print(f"[build] {name}: {line.split()[-1]}")
+            elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -154,19 +167,30 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     plan = shipped_plan(cfg, "bitmap")
-    acc = {"bitmap_spmm": _Acc(), "nm_spmm": _Acc()}
+    acc = {name: _Acc() for name in ("bitmap_spmm", "bitmap_spmm_naive",
+                                     "nm_spmm", "nm_spmm_naive")}
     print(f"[kernels] tolerance max|y - y_plain| <= {TOL_REL} max|y_plain| "
-          f"+ {TOL_ABS}; times are device ms with a cold L2, on {card}")
+          f"+ {TOL_ABS}; naive == pipelined bit for bit; times are device "
+          f"ms with a cold L2, on {card}")
 
     def run(kname, label, m, dtype, n, kernel, plain, w_dense, nbytes_w,
             flops_per_row, x_cols, main_path):
+        """``kernel(x, pipeline)``: both variants on the same x.  The
+        naive variant computes the same function as the pipelined one,
+        so it shares its plain and library times."""
         x = torch.randn((m, n), generator=gen, device=dev).to(dtype)
-        y = kernel(x)
+        y = kernel(x, True)
+        y_naive = kernel(x, False)
         y_plain = plain(x)
         torch.cuda.synchronize()
-        err = _check(f"{kname} {label} M={m} {dtype}", y, y_plain)
+        case = f"{label} M={m} {dtype}"
+        err = _check(f"{kname} {case}", y, y_plain)
+        err_naive = _check(f"{kname}_naive {case}", y_naive, y_plain)
+        if not torch.equal(y_naive, y):
+            _fail(f"{kname} {case}: the naive result differs from the "
+                  f"pipelined one by {(y_naive - y).abs().max().item()}")
         reps = 10 if m <= M_DECODE else 5
-        ms = _time_ms(lambda: kernel(x), reps, flush)
+        ms = _time_ms(lambda: kernel(x, True), reps, flush)
         plain_ms = _time_ms(lambda: plain(x), reps, flush)
         lib_ms = _time_ms(lambda: torch.matmul(x.float(), w_dense), reps,
                           flush)
@@ -174,11 +198,21 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
         nbytes = nbytes_w + m * x_cols * x.element_size() + m * k * 4
         flops = flops_per_row * m
         bound, by = _bound_ms(nbytes, flops)
-        acc[kname].add((m, dtype) if main_path else None, err, ms,
-                       plain_ms, lib_ms, nbytes, flops)
+        key = (m, dtype) if main_path else None
+        acc[kname].add(key, err, ms, plain_ms, lib_ms, nbytes, flops)
         print(f"[kernels] {kname} {label} M={m} x={str(dtype)[6:]}: "
               f"err {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
               f"library {lib_ms:.4f} ms bound {bound:.4f} ms ({by})")
+        if dtype != torch.bfloat16:              # naive timed at bf16 only
+            a = acc[f"{kname}_naive"]
+            a.max_abs_err = max(a.max_abs_err, err_naive)
+            return
+        ms_naive = _time_ms(lambda: kernel(x, False), reps, flush)
+        acc[f"{kname}_naive"].add(key, err_naive, ms_naive, plain_ms,
+                                  lib_ms, nbytes, flops)
+        print(f"[kernels] {kname}_naive {label} M={m} x=bfloat16: "
+              f"err {err_naive:.3e} kernel {ms_naive:.4f} ms (equal to "
+              f"the pipelined result)")
 
     for role in cfg.matmul_roles():
         op = plan.for_role(role.role)
@@ -197,7 +231,7 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                 for dtype in (torch.float32, torch.bfloat16):
                     run("bitmap_spmm", f"{role.role} ({bn}x{bk} {tag})", m,
                         dtype, role.n,
-                        lambda x, c=c: ops.bitmap_spmm(x, c),
+                        lambda x, p, c=c: ops.bitmap_spmm(x, c, pipeline=p),
                         lambda x, c=c: ref.bitmap_spmm_ref(
                             x, c.blocks, c.counts, c.row_ids, c.n, c.k),
                         wp, nbytes_w, 2.0 * nnzb * bn * bk, rows_used * bn,
@@ -209,13 +243,99 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
             for m in (M_DECODE, M_PREFILL):
                 for dtype in (torch.float32, torch.bfloat16):
                     run("nm_spmm", f"{role.role} ({n_sel}:4)", m, dtype,
-                        role.n, lambda x, c=c: ops.nm_spmm(x, c),
+                        role.n,
+                        lambda x, p, c=c: ops.nm_spmm(x, c, pipeline=p),
                         lambda x, c=c: ref.nm_spmm_ref(
                             x, c.values, c.indices, c.n_sel, c.m_group),
                         wp, nbytes_w, 2.0 * c.values.numel(), role.n,
                         n_sel == 2)
         del w
     return acc
+
+
+def phase_flash(cfg, card: str, dev) -> dict:
+    """Flash attention at chatglm3-6b's attention width: BH = batch 4 x 32
+    heads, D = 128.  No serving path of either package launches the
+    kernel (their models use plain chunked attention), so its launches
+    are this phase's own."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    d = cfg.head_dim
+    bh = BATCH * cfg.n_heads
+    cases = [(bh, s, causal, dtype) for s in (128, 2048)
+             for causal in (True, False)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases.append((cfg.n_heads, 8192, True, torch.bfloat16))
+    print(f"[flash] tolerance fp32 max|o - o_plain| <= {TOL_REL} "
+          f"max|o_plain| + {TOL_ABS}; bf16 per element |o - o_plain| <= "
+          f"2^-7 |o_plain| + 2^-5 sqrt(sum_j w_j^2 v_j^2) + 1e-6 (both "
+          f"round the output to bf16 once and every softmax weight once, "
+          f"at different places: ref.flash_attention_bf16_tol); times are "
+          f"device ms with a cold L2, on {card}")
+    ops.reset_launch_counts()
+    shapes, max_err = [], 0.0
+    for n_bh, s, causal, dtype in cases:
+        q, k, v = (torch.randn((n_bh, s, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        heads = n_bh if s <= 2048 else 4      # a dense S x S score per head
+
+        def plain():
+            return torch.cat([ref.flash_attention_ref(
+                q[i:i + heads], k[i:i + heads], v[i:i + heads], causal)
+                for i in range(0, n_bh, heads)])
+
+        o = ops.flash_attention(q, k, v, causal=causal)
+        o_plain = plain()
+        diff = (o.float() - o_plain.float()).abs()
+        err = diff.max().item()
+        if dtype == torch.float32:
+            ratio = err / (TOL_REL * o_plain.float().abs().max().item()
+                           + TOL_ABS)
+        else:
+            ratio = max((diff[i:i + heads] / ref.flash_attention_bf16_tol(
+                q[i:i + heads], k[i:i + heads], v[i:i + heads],
+                o_plain[i:i + heads], causal)).max().item()
+                for i in range(0, n_bh, heads))
+        label = (f"BH={n_bh} S={s} D={d} {'causal' if causal else 'full'} "
+                 f"{str(dtype)[6:]}")
+        if not bool(torch.isfinite(o).all()) or o.dtype != dtype \
+                or not ratio <= 1.0:
+            _fail(f"flash_attention {label}: |o - o_plain| reaches {ratio} "
+                  f"of its bound (max {err})")
+        del o, o_plain, diff
+        max_err = max(max_err, err)
+        reps = 5 if s <= 2048 else 3
+        ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                      reps, flush)
+        plain_ms = _time_ms(plain, reps, flush)
+        # 4-D (1, BH, S, D) views: PyTorch picks its fused backends only
+        # for 4-D inputs
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal), reps, flush)
+        nbytes = 4 * n_bh * s * d * q.element_size()
+        flops = 4.0 * n_bh * s * s * d * (0.5 if causal else 1.0)
+        bound, by = _bound_ms(nbytes, flops, BF16_FLOP_S
+                              if dtype == torch.bfloat16 else FP32_FLOP_S)
+        shapes.append({"at": label, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": by,
+                       "library_ms": lib_ms, "max_abs_err": err,
+                       "err_over_bound": ratio})
+        if (n_bh, s, causal, dtype) == (bh, 2048, True, torch.bfloat16):
+            head = shapes[-1]
+        print(f"[flash] {label}: err {err:.3e} ({ratio:.3f} of its bound) "
+              f"kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms library {lib_ms:.4f} ms "
+              f"bound {bound:.4f} ms ({by})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    launches = ops.launch_counts()["flash_attention"]
+    print(f"[flash] {launches} launches in this phase")
+    return {"shapes": shapes, "head": head, "max_abs_err": max_err,
+            "launches": launches}
 
 
 def phase_serving(cfg, card: str, dev) -> dict[str, int]:
@@ -271,7 +391,35 @@ def phase_serving(cfg, card: str, dev) -> dict[str, int]:
               f"({serve._rate(BATCH * GEN, t_gen):.1f} tok/s) — bf16 "
               f"compute, on {card}")
         print(f"[serve {kind}] sample tokens {toks[0].tolist()}")
-        del logits
+
+        # the same model on the naive kernels: same tokens, same logits
+        naive = f"{kname}_naive"
+        with ops.pipeline_default(False):
+            cm.generate(pruned, prompts[:, :8], 2, device=dev)
+            ops.reset_launch_counts()
+            toks_n, t_prefill_n, t_gen_n = cm.generate(pruned, prompts, GEN,
+                                                       device=dev)
+            counts = ops.launch_counts()
+            logits_n, _ = cm.prefill(pruned, prompts, PROMPT)
+        launches[naive] = counts[naive]
+        print(f"[serve {kind} naive] launch counts {counts} (expected "
+              f"{naive} = {expected})")
+        if counts[naive] != expected or sum(counts.values()) != expected:
+            _fail(f"{kind} naive: launch counts {counts}, expected "
+                  f"{expected} launches of {naive} only")
+        if not torch.equal(toks_n, toks):
+            _fail(f"{kind} naive: tokens {toks_n.tolist()} differ from the "
+                  f"pipelined run's {toks.tolist()}")
+        if not torch.equal(logits_n, logits):
+            _fail(f"{kind} naive: bf16 prefill logits differ from the "
+                  f"pipelined run's by "
+                  f"{(logits_n - logits).abs().max().item()}")
+        print(f"[serve {kind} naive] prefill {1e3 * t_prefill_n:.2f} ms "
+              f"({serve._rate(BATCH * PROMPT, t_prefill_n):.1f} tok/s); "
+              f"decode {1e3 * t_gen_n / GEN:.3f} ms/token "
+              f"({serve._rate(BATCH * GEN, t_gen_n):.1f} tok/s); tokens "
+              f"and bf16 prefill logits equal to the pipelined run's")
+        del logits, logits_n
 
         # fp32: compressed vs the dense model on the same pruned weights
         L.COMPUTE_DTYPE = torch.float32
@@ -314,12 +462,20 @@ def main() -> None:
     cfg = get_config("chatglm3-6b")
     dev = torch.device("cuda", 0)
     acc = phase_kernels(cfg, card, dev)
+    flash = phase_flash(cfg, card, dev)
     launches = phase_serving(cfg, card, dev)
 
-    sources = {"bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
-                               "src/repro/kernels/bitmap_spmm.py:125"),
-               "nm_spmm": ("src/repro_torch/csrc/nm_spmm.cu",
-                           "src/repro/kernels/nm_spmm.py:135")}
+    sources = {
+        "bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
+                        "src/repro/kernels/bitmap_spmm.py:125"),
+        "bitmap_spmm_naive": ("src/repro_torch/csrc/bitmap_spmm.cu",
+                              "src/repro/kernels/bitmap_spmm.py:189"),
+        "nm_spmm": ("src/repro_torch/csrc/nm_spmm.cu",
+                    "src/repro/kernels/nm_spmm.py:135"),
+        "nm_spmm_naive": ("src/repro_torch/csrc/nm_spmm.cu",
+                          "src/repro/kernels/nm_spmm.py:167"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:87")}
     kernels = []
     for name, a in acc.items():
         # the main path's shapes: one layer's seven projections with bf16
@@ -340,6 +496,18 @@ def main() -> None:
             else:
                 entry["prefill"] = dict(shape, at=f"same, M={m}")
         kernels.append(entry)
+    # flash: headline shape BH=128 S=2048 causal bf16; every shape listed
+    head = flash["head"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": sources["flash_attention"][0],
+        "replaces": sources["flash_attention"][1],
+        "launches": flash["launches"], "max_abs_err": flash["max_abs_err"],
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "at")},
+        "note": "no serving path of either package launches it; launches "
+                "are the flash phase's own",
+        "shapes": flash["shapes"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

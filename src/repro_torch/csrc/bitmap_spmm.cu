@@ -1,8 +1,11 @@
 // Block-bitmap compressed matmul for Hopper (sm_90a): Y = X @ W.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/bitmap_spmm.py,
-// `_pipelined_kernel` (launched by `_bitmap_spmm_pipelined`, the default
-// path of repro.kernels.ops.bitmap_spmm).
+// Two entries, one per Pallas TPU kernel of src/repro/kernels/bitmap_spmm.py:
+//   bitmap_spmm_{f32,bf16}        replaces `_pipelined_kernel` (launched by
+//                                 `_bitmap_spmm_pipelined`, the default path
+//                                 of repro.kernels.ops.bitmap_spmm);
+//   bitmap_spmm_naive_{f32,bf16}  replaces `_kernel` (launched by
+//                                 `bitmap_spmm_pallas` with pipeline=False).
 //
 // Format (the B(N1)-B(K1)-None(N2,K2) bitmap, pre-decoded to CSC):
 //   blocks  (nnzb, bn, bk) fp32  non-zero payload blocks, block-column major
@@ -23,10 +26,31 @@
 // planned blocks are up to 1024 x 13696 (56 MB in fp32), far beyond shared
 // memory, so the output is tiled independently of the block shape.
 //
+// The naive entry reads the TPU grid (M/bm, K/bk, t_max) for what it does:
+// its sequential third axis becomes a loop over t < t_max inside the thread
+// block, with the STATIC bound t_max (a kernel argument, the caller's
+// max-over-layers bound) instead of counts[kj].  Every step reads the block
+// at min(offsets[kj] + t, nnzb - 1) and its row id, as the TPU BlockSpec
+// index maps fetch it (so nothing reads past nnzb; density 0 stores one
+// padded zero block with all counts 0), and a step with t >= counts[kj]
+// runs no FMA.  Live steps are exactly t < counts[kj] and come first, so
+// both entries are one template: the naive instance walks the live steps
+// with kernel 1's loop (same tiling, BC chunking and FMA order: at fp32
+// the two entries are bit-identical, as the reference pins its two TPU
+// kernels) and then, under `if constexpr`, reads the masked steps'
+// blocks.  No branch sits in the FMA loop nest: versions with one (a
+// shared step function, or an `if (live)` around the FMAs) compiled to 48
+// registers with spills and ran the affected entry at twice kernel 1's
+// decode time.
+//
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor
 // cores): bytes = stored payload (nnz blocks * bn * bk * 4) + metadata
-// + x + y, against 2 * M * (nnz blocks * bn * bk) FLOPs.  Decode (M = 4) is
-// bound by the payload bytes; prefill (M = 512) by the fp32 FLOPs.
+// + x + y, against 2 * M * (nnz blocks * bn * bk) FLOPs -- the same work
+// for both entries.  Decode (M = 4) is bound by the payload bytes; prefill
+// (M = 512) by the fp32 FLOPs.  The static bound costs the naive entry
+// (t_max - counts[kj]) extra block reads per output tile, FMAs skipped:
+// nothing where every column holds t_max blocks, up to t_max / counts[kj]
+// times the payload traffic of a short column.
 //
 // What the simple design leaves on the table: every M tile re-streams the
 // payload (M = 512 reads it 8 times), loads are scalar and synchronous (no
@@ -50,13 +74,18 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
+// NAIVE = false is kernel 1; NAIVE = true adds the naive entry's masked
+// steps after the same walk over the live steps (a compile-time switch,
+// so no branch enters the FMA loop nest).  nnzb and t_max are read only
+// by the naive instance.
+template <typename T, bool NAIVE>
 __global__ void __launch_bounds__(THREADS)
 bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
                    const int* __restrict__ counts,
                    const int* __restrict__ row_ids,
                    const int* __restrict__ offsets, float* __restrict__ y,
-                   int m, int n, int k, int bn, int bk, int tk) {
+                   int m, int n, int k, int bn, int bk, int tk, int nnzb,
+                   int t_max) {
   __shared__ float xs[TM][BC + 1];
   __shared__ float ws[BC][TK];
   const int tid = threadIdx.x;
@@ -108,6 +137,30 @@ bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
     }
   }
 
+  if constexpr (NAIVE) {
+    // steps counts[kj] <= t < t_max, masked on the TPU: the block at the
+    // clamped index is still read, as the TPU index maps fetch it, and no
+    // FMA runs
+    for (int t = cnt; t < t_max; ++t) {
+      const int at = min(off + t, nnzb - 1);
+      const size_t xcol = (size_t)row_ids[at] * bn;
+      const float* wblk = blocks + (size_t)at * bn * bk + kb;
+      for (int c0 = 0; c0 < bn; c0 += BC) {
+        for (int e = tid; e < TM * BC; e += THREADS) {
+          const int i = e / BC, c = e % BC;
+          if (m0 + i < m && c0 + c < bn)
+            xs[i][c] = to_f32(x[(size_t)(m0 + i) * n + xcol + c0 + c]);
+        }
+        for (int e = tid; e < BC * TK; e += THREADS) {
+          const int c = e / TK, j = e % TK;
+          if (c0 + c < bn && j < tk)
+            ws[c][j] = wblk[(size_t)(c0 + c) * bk + j];
+        }
+        __syncthreads();
+      }
+    }
+  }
+
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty + 16 * i;
@@ -120,18 +173,22 @@ bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
   }
 }
 
-template <typename T>
+bool bad_shape(int m, int n, int k, int bn, int bk, int tk) {
+  return m <= 0 || n <= 0 || k <= 0 || bn <= 0 || bk <= 0 || tk <= 0 ||
+         tk > TK || bk % tk || k % bk || n % bn;
+}
+
+template <typename T, bool NAIVE>
 int launch(const void* x, const void* blocks, const void* counts,
            const void* row_ids, const void* offsets, void* y, int m, int n,
-           int k, int bn, int bk, int tk, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || bn <= 0 || bk <= 0 || tk <= 0 ||
-      tk > TK || bk % tk || k % bk || n % bn)
+           int k, int bn, int bk, int tk, int nnzb, int t_max, void* stream) {
+  if (bad_shape(m, n, k, bn, bk, tk) || (NAIVE && (nnzb < 1 || t_max < 1)))
     return (int)cudaErrorInvalidValue;
   dim3 grid(k / tk, (m + TM - 1) / TM);
-  bitmap_spmm_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  bitmap_spmm_kernel<T, NAIVE><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)x, (const float*)blocks, (const int*)counts,
       (const int*)row_ids, (const int*)offsets, (float*)y, m, n, k, bn, bk,
-      tk);
+      tk, nnzb, t_max);
   return (int)cudaGetLastError();
 }
 
@@ -141,14 +198,33 @@ extern "C" int bitmap_spmm_f32(const void* x, const void* blocks,
                                const void* counts, const void* row_ids,
                                const void* offsets, void* y, int m, int n,
                                int k, int bn, int bk, int tk, void* stream) {
-  return launch<float>(x, blocks, counts, row_ids, offsets, y, m, n, k, bn,
-                       bk, tk, stream);
+  return launch<float, false>(x, blocks, counts, row_ids, offsets, y, m, n,
+                              k, bn, bk, tk, 0, 0, stream);
 }
 
 extern "C" int bitmap_spmm_bf16(const void* x, const void* blocks,
                                 const void* counts, const void* row_ids,
                                 const void* offsets, void* y, int m, int n,
                                 int k, int bn, int bk, int tk, void* stream) {
-  return launch<__nv_bfloat16>(x, blocks, counts, row_ids, offsets, y, m, n,
-                               k, bn, bk, tk, stream);
+  return launch<__nv_bfloat16, false>(x, blocks, counts, row_ids, offsets, y,
+                                      m, n, k, bn, bk, tk, 0, 0, stream);
+}
+
+extern "C" int bitmap_spmm_naive_f32(const void* x, const void* blocks,
+                                     const void* counts, const void* row_ids,
+                                     const void* offsets, void* y, int m,
+                                     int n, int k, int bn, int bk, int tk,
+                                     int nnzb, int t_max, void* stream) {
+  return launch<float, true>(x, blocks, counts, row_ids, offsets, y, m, n, k,
+                             bn, bk, tk, nnzb, t_max, stream);
+}
+
+extern "C" int bitmap_spmm_naive_bf16(const void* x, const void* blocks,
+                                      const void* counts, const void* row_ids,
+                                      const void* offsets, void* y, int m,
+                                      int n, int k, int bn, int bk, int tk,
+                                      int nnzb, int t_max, void* stream) {
+  return launch<__nv_bfloat16, true>(x, blocks, counts, row_ids, offsets, y,
+                                     m, n, k, bn, bk, tk, nnzb, t_max,
+                                     stream);
 }

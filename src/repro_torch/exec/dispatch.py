@@ -7,12 +7,14 @@ the loops publish the running layer's index
 (:func:`repro_torch.models.layers.layer_ctx`) and the dispatcher looks up
 that layer's entry in the :class:`~repro_torch.exec.compress.CompressedStore`
 and calls the matching kernel (``bitmap_spmm`` / ``nm_spmm``: the CUDA
-kernel for CUDA tensors, the plain version for CPU tensors).  Dense-kind
-and unplanned roles fall through to the dense matmul.
+kernel for CUDA tensors, the plain version for CPU tensors; the pipelined
+or naive variant as :func:`repro_torch.kernels.ops.resolve_pipeline`
+says).  Dense-kind and unplanned roles fall through to the dense matmul.
 
 :func:`instrument` collects per-role :class:`OpCounters`; eager PyTorch
 records once per (layer, role) call, like the reference's unrolled
-per-layer forward.
+per-layer forward.  :func:`kernel_guard` turns injected kernel faults into
+per-role dense fallbacks.
 """
 
 from __future__ import annotations
@@ -76,15 +78,66 @@ def _record(role: str, x2: torch.Tensor, y_k: int, w_bits: float,
 
 
 # ---------------------------------------------------------------------------
+# Kernel-failure guard
+# ---------------------------------------------------------------------------
+
+_KERNEL_GUARD = None
+
+
+@contextlib.contextmanager
+def kernel_guard(sink) -> Iterator[None]:
+    """Per-role dense fallback for injected kernel faults.
+
+    While active, a :class:`~repro_torch.kernels.ops.KernelFault` (a
+    failure injected through
+    :func:`repro_torch.kernels.ops.kernel_fault_hook`) raised by a
+    compressed kernel call inside the dispatcher is reported to
+    ``sink(role, exc)`` and that projection falls through to the dense
+    matmul over the (pruned) weight, instead of failing the forward.  The
+    port dispatches eagerly, so the sink hears of every failing call (per
+    layer and step; the reference's hears once per trace).  Any other
+    exception, a kernel that fails to build or launch among them, always
+    propagates: the card never serves a projection through the plain
+    matmul in its kernel's place."""
+    global _KERNEL_GUARD
+    prev = _KERNEL_GUARD
+    _KERNEL_GUARD = sink
+    try:
+        yield
+    finally:
+        _KERNEL_GUARD = prev
+
+
+def _guarded_kernel(role: str, fn) -> Optional[torch.Tensor]:
+    """Run one kernel dispatch under the active guard (if any)."""
+    if _KERNEL_GUARD is None:
+        return fn()
+    try:
+        return fn()
+    except kops.KernelFault as e:
+        _KERNEL_GUARD(role, e)
+        return None
+
+
+# ---------------------------------------------------------------------------
 # The dispatcher (a repro_torch.models.layers.proj hook)
 # ---------------------------------------------------------------------------
 
 class _Dispatcher:
     """Per-(layer, role) hook: the layer comes from the layer loop's
-    published index."""
+    published index.
+
+    Bitmap roles run with one static bound per role, the max over layers
+    of the blocks in any block-column (the reference's unrolled
+    dispatcher's ``t_max``): the naive kernel's loop bound."""
 
     def __init__(self, store: CompressedStore):
         self.store = store
+        self._t_max: dict[str, int] = {}
+        for e in store:
+            if e.kind == "bitmap":
+                self._t_max[e.role] = max(self._t_max.get(e.role, 1),
+                                          e.data.max_per_col)
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, role: str
                  ) -> Optional[torch.Tensor]:
@@ -96,14 +149,19 @@ class _Dispatcher:
         m = x2.shape[0]
         d = entry.data
         if entry.kind == "bitmap":
-            y = kops.bitmap_spmm(x2, d)
+            y = _guarded_kernel(role, lambda: kops.bitmap_spmm(
+                x2, d, t_max=self._t_max[role]))
+            if y is None:                     # guarded kernel failure: dense
+                return None
             if _ACTIVE_COUNTERS is not None:  # counts.sum() syncs the card
                 nnzb = int(d.counts.sum())
                 _record(role, x2, d.k, w_bits=entry.stored_bits,
                         macs=float(m) * nnzb * d.bn * d.bk,
                         decode_ops=float(nnzb))
         elif entry.kind == "nm":
-            y = kops.nm_spmm(x2, d)
+            y = _guarded_kernel(role, lambda: kops.nm_spmm(x2, d))
+            if y is None:                     # guarded kernel failure: dense
+                return None
             _record(role, x2, d.k, w_bits=entry.stored_bits,
                     macs=float(m) * d.values.numel(),
                     decode_ops=float(d.indices.numel()))

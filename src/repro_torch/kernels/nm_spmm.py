@@ -1,9 +1,12 @@
-"""Launch wrapper of the N:M CUDA kernel (``csrc/nm_spmm.cu``).
+"""Launch wrapper of the N:M CUDA kernels (``csrc/nm_spmm.cu``).
 
-Port of the Pallas TPU kernel ``repro.kernels.nm_spmm``
-(``_pipelined_kernel`` + ``_decode_tile``).  The wrapper checks device,
-dtype, shape and contiguity, allocates the output and launches on
-PyTorch's current stream; the source's note states the design and bound.
+Ports of the two Pallas TPU kernels of ``repro.kernels.nm_spmm``:
+``pipeline=True`` launches the port of ``_pipelined_kernel`` +
+``_decode_tile`` (decodes next to the FMA), ``pipeline=False`` the port of
+the naive ``_kernel`` (expands each stripe to a dense tile, then multiplies
+it densely).  The wrapper checks device, dtype, shape and contiguity,
+allocates the output and launches on PyTorch's current stream; the
+source's note states the designs and bound.
 """
 
 from __future__ import annotations
@@ -14,25 +17,27 @@ import torch
 
 from repro_torch.kernels import build
 
-#: largest group the kernel stages (``XC`` in the source)
+#: largest group the kernels stage (``XC`` in the source)
 MAX_M_GROUP = 32
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _fn(x_dtype: torch.dtype):
+def _fn(x_dtype: torch.dtype, pipeline: bool):
     lib = build.library("nm_spmm")
-    fn = lib.nm_spmm_bf16 if x_dtype == torch.bfloat16 else lib.nm_spmm_f32
+    name = "nm_spmm" if pipeline else "nm_spmm_naive"
+    fn = getattr(lib, f"{name}_bf16" if x_dtype == torch.bfloat16
+                 else f"{name}_f32")
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-           n_sel: int, m_group: int) -> torch.Tensor:
+           n_sel: int, m_group: int, pipeline: bool = True) -> torch.Tensor:
     """Y = X @ expand(values, indices) on the card.  x: (M, N) fp32 or
     bf16; values (N·n_sel/m_group, K) fp32; indices the same shape, int8.
-    Returns (M, K) fp32."""
+    Returns (M, K) fp32.  ``pipeline=False`` launches the naive entry."""
     m, n = x.shape
     rows, k = values.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -53,9 +58,9 @@ def launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     y = torch.empty((m, k), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _fn(x.dtype)(x.data_ptr(), values.data_ptr(),
-                           indices.data_ptr(), y.data_ptr(), m, n, k, n_sel,
-                           m_group, stream)
+        err = _fn(x.dtype, pipeline)(x.data_ptr(), values.data_ptr(),
+                                     indices.data_ptr(), y.data_ptr(), m, n,
+                                     k, n_sel, m_group, stream)
     if err:
         raise RuntimeError(f"nm_spmm kernel launch failed: CUDA error {err}")
     return y

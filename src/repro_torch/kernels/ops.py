@@ -1,24 +1,46 @@
-"""Public wrappers of the sparse kernels.
+"""Public wrappers of the kernels, with the knobs and hooks around them.
 
-``bitmap_spmm(x, w)`` / ``nm_spmm(x, w)`` launch the hand-written CUDA
-kernel when ``x`` lies on a CUDA device — or raise, there is no fallback —
-and run the plain PyTorch version of :mod:`repro_torch.kernels.ref` when
-``x`` lies on the CPU.  Each wrapper adds one to its launch count where it
-launches its kernel, and nowhere else (:func:`launch_counts`), so a run can
-show that its main path went through the kernels.
+``bitmap_spmm(x, w)`` / ``nm_spmm(x, w)`` / ``flash_attention(q, k, v)``
+launch the hand-written CUDA kernel when their input lies on a CUDA device
+— or raise, there is no fallback — and run the plain PyTorch version of
+:mod:`repro_torch.kernels.ref` when it lies on the CPU.  Each wrapper adds
+one to its kernel's launch count where it launches the kernel, and nowhere
+else (:func:`launch_counts`), so a run can show that its main path went
+through the kernels.
+
+The knobs and hooks are those of ``repro.kernels.ops``:
+
+* ``pipeline`` picks the sparse kernels' variant: the pipelined ports
+  (default) or the naive ports (``pipeline=False``); ``pipeline=None``
+  resolves through :func:`resolve_pipeline`, whose default
+  :func:`pipeline_default` switches for whole serving paths.  Both
+  variants compute the same function, so on the CPU both run the same
+  plain version.
+* :func:`kernel_fault_hook` is called as ``fn(kind)`` before every sparse
+  dispatch on either device; what it raises surfaces as a
+  :class:`KernelFault` (fault injection for the serving guard).
+* :func:`kernel_dispatch_hook` is called as ``fn(kind, seconds)`` after
+  every dispatch.
+
+The reference's TPU tile knobs (``bm``, ``bn``, ``bk`` of the sparse
+wrappers) have no counterpart: the CUDA tiles are the kernels' own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import torch
 
 from repro_torch.kernels import bitmap_spmm as _bitmap_cuda
+from repro_torch.kernels import flash_attention as _flash_cuda
 from repro_torch.kernels import nm_spmm as _nm_cuda
 from repro_torch.kernels import ref
 
-_LAUNCHES = {"bitmap_spmm": 0, "nm_spmm": 0}
+_LAUNCHES = {"bitmap_spmm": 0, "bitmap_spmm_naive": 0, "nm_spmm": 0,
+             "nm_spmm_naive": 0, "flash_attention": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -29,6 +51,97 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel variant knob
+# ---------------------------------------------------------------------------
+
+_PIPELINE_DEFAULT = True
+
+
+def resolve_pipeline(pipeline: bool | None) -> bool:
+    """Resolve the dispatch-level ``pipeline`` knob (None → default)."""
+    return _PIPELINE_DEFAULT if pipeline is None else bool(pipeline)
+
+
+@contextlib.contextmanager
+def pipeline_default(on: bool):
+    """Temporarily change what ``pipeline=None`` resolves to, so whole
+    serving paths, which never thread the knob, run the naive kernels."""
+    global _PIPELINE_DEFAULT
+    prev = _PIPELINE_DEFAULT
+    _PIPELINE_DEFAULT = bool(on)
+    try:
+        yield
+    finally:
+        _PIPELINE_DEFAULT = prev
+
+
+# ---------------------------------------------------------------------------
+# Hooks
+# ---------------------------------------------------------------------------
+
+_FAULT_HOOK = None
+
+
+class KernelFault(RuntimeError):
+    """A kernel failure injected through :func:`kernel_fault_hook`."""
+
+
+@contextlib.contextmanager
+def kernel_fault_hook(fn):
+    """Install a hook called as ``fn(kind)`` at every sparse-kernel dispatch
+    (``kind`` ∈ {"bitmap", "nm"}), before the kernel or plain version runs;
+    an exception from it is raised as a :class:`KernelFault` chained to it,
+    where a real launch failure surfaces.
+    :func:`repro_torch.exec.dispatch.kernel_guard` turns such injected
+    faults, and only those, into per-role dense fallbacks."""
+    global _FAULT_HOOK
+    prev = _FAULT_HOOK
+    _FAULT_HOOK = fn
+    try:
+        yield
+    finally:
+        _FAULT_HOOK = prev
+
+
+def _fault_check(kind: str) -> None:
+    if _FAULT_HOOK is None:
+        return
+    try:
+        _FAULT_HOOK(kind)
+    except Exception as e:
+        raise KernelFault(f"{kind}: {e}") from e
+
+
+_DISPATCH_HOOK = None
+
+
+@contextlib.contextmanager
+def kernel_dispatch_hook(fn):
+    """Install a hook called as ``fn(kind, seconds)`` after every kernel
+    dispatch (``kind`` ∈ {"bitmap", "nm", "flash"}).  ``seconds`` is the
+    host-side time of the call: PyTorch launches asynchronously, so on a
+    CUDA device it is the launch cost, not the kernel's device time (time
+    that with CUDA events); on the CPU it includes the plain version's
+    execution.  Zero cost uninstalled: one ``None`` check per dispatch."""
+    global _DISPATCH_HOOK
+    prev = _DISPATCH_HOOK
+    _DISPATCH_HOOK = fn
+    try:
+        yield
+    finally:
+        _DISPATCH_HOOK = prev
+
+
+def _dispatch(kind: str, fn, *args):
+    if _DISPATCH_HOOK is None:
+        return fn(*args)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _DISPATCH_HOOK(kind, time.perf_counter() - t0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -67,14 +180,35 @@ def compress_bitmap(w: torch.Tensor, bn: int = 128, bk: int = 128
         max_per_col=int(counts.max()) if counts.numel() else 1)
 
 
-def bitmap_spmm(x: torch.Tensor, w: BitmapCompressed) -> torch.Tensor:
-    """Y = X @ W_blocksparse, (M, K) float32."""
+def _bitmap(x: torch.Tensor, w: BitmapCompressed, t_max: int,
+            pipeline: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.bitmap_spmm_ref(x, w.blocks, w.counts, w.row_ids, w.n,
                                    w.k)
-    y = _bitmap_cuda.launch(x, w.blocks, w.counts, w.row_ids, w.offsets, w.k)
-    _LAUNCHES["bitmap_spmm"] += 1
+    y = _bitmap_cuda.launch(x, w.blocks, w.counts, w.row_ids, w.offsets,
+                            w.k, t_max=t_max, pipeline=pipeline)
+    _LAUNCHES["bitmap_spmm" if pipeline else "bitmap_spmm_naive"] += 1
     return y
+
+
+def bitmap_spmm(x: torch.Tensor, w: BitmapCompressed,
+                t_max: int | None = None,
+                pipeline: bool | None = None) -> torch.Tensor:
+    """Y = X @ W_blocksparse, (M, K) float32.
+
+    ``t_max`` (default ``w.max_per_col``, at least 1) is the naive
+    variant's static bound on the blocks walked per block-column; a layer
+    loop passes its per-role max over layers.  A bound below
+    ``w.max_per_col`` would drop blocks, so the naive variant refuses it
+    (the reference's naive kernel silently truncates).  The pipelined
+    variant walks ``counts[kj]`` and ignores ``t_max``."""
+    _fault_check("bitmap")
+    t_max = max(int(w.max_per_col if t_max is None else t_max), 1)
+    pipe = resolve_pipeline(pipeline)
+    if not pipe and t_max < w.max_per_col:
+        raise ValueError(f"bitmap_spmm: t_max={t_max} is below the longest "
+                         f"block-column ({w.max_per_col} blocks)")
+    return _dispatch("bitmap", _bitmap, x, w, t_max, pipe)
 
 
 # ---------------------------------------------------------------------------
@@ -104,10 +238,53 @@ def compress_nm(w: torch.Tensor, n_sel: int = 2, m_group: int = 4
                         n_sel=n_sel, m_group=m_group)
 
 
-def nm_spmm(x: torch.Tensor, w: NMCompressed) -> torch.Tensor:
-    """Y = X @ expand(values, indices), (M, K) float32."""
+def _nm(x: torch.Tensor, w: NMCompressed, pipeline: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.nm_spmm_ref(x, w.values, w.indices, w.n_sel, w.m_group)
-    y = _nm_cuda.launch(x, w.values, w.indices, w.n_sel, w.m_group)
-    _LAUNCHES["nm_spmm"] += 1
+    y = _nm_cuda.launch(x, w.values, w.indices, w.n_sel, w.m_group,
+                        pipeline=pipeline)
+    _LAUNCHES["nm_spmm" if pipeline else "nm_spmm_naive"] += 1
     return y
+
+
+def nm_spmm(x: torch.Tensor, w: NMCompressed,
+            pipeline: bool | None = None) -> torch.Tensor:
+    """Y = X @ expand(values, indices), (M, K) float32."""
+    _fault_check("nm")
+    return _dispatch("nm", _nm, x, w, resolve_pipeline(pipeline))
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    o = _flash_cuda.launch(q, k, v, causal)
+    _LAUNCHES["flash_attention"] += 1
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, bq: int = 128, bk: int = 128
+                    ) -> torch.Tensor:
+    """softmax(Q Kᵀ/√D) V over q (BH, Sq, D), k / v (BH, Skv, D), batch and
+    heads flattened (a GQA repeat is the caller's); returns (BH, Sq, D) in
+    q's type.  The causal mask is aligned top-left (key ``j`` visible to
+    query ``i`` iff ``j <= i``), as the reference kernel's.
+
+    ``bq`` / ``bk`` are the reference's TPU tiles: the calls it refuses
+    (Sq not a multiple of ``min(bq, Sq)``, Skv not a multiple of
+    ``min(bk, Skv)``) raise ``ValueError`` here too, so both accept the
+    same calls; the CUDA kernel's tiles are its own."""
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} must be (BH, S, D)")
+    sq, skv = q.shape[1], k.shape[1]
+    tq, tk = min(bq, sq), min(bk, skv)
+    if tq < 1 or tk < 1 or sq % tq or skv % tk:
+        raise ValueError(f"flash_attention: Sq={sq} / Skv={skv} are not "
+                         f"multiples of the tiles ({tq}, {tk})")
+    return _dispatch("flash", _flash, q, k, v, causal)

@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the sparse kernels, and the compressors.
+"""Plain PyTorch versions of the kernels, and the compressors.
 
-The plain versions compute the same function as the CUDA kernels from the
-same compressed operands, by decompressing to a dense weight and running
-one fp32 matmul (x is converted to fp32 exactly, as ``jnp.dot`` promotes
-bf16 × f32).  The wrappers in :mod:`repro_torch.kernels.ops` use them for
-CPU tensors; tests and ``chip_smoke.py`` hold the kernels against them.
+The sparse plain versions compute the same function as the CUDA kernels
+from the same compressed operands, by decompressing to a dense weight and
+running one fp32 matmul (x is converted to fp32 exactly, as ``jnp.dot``
+promotes bf16 × f32); the pipelined and naive kernel variants share them.
+:func:`flash_attention_ref` is dense softmax attention with the flash
+kernel's masking and rounding.  The wrappers in
+:mod:`repro_torch.kernels.ops` use them for CPU tensors; tests and
+``chip_smoke.py`` hold the kernels against them.
 
 The compressors run on any device and give arrays equal, element for
 element, to the reference's host compressors (``compress_bitmap_host`` /
@@ -14,7 +17,12 @@ weight has no non-zero block, and the stable descending magnitude order.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+#: the flash kernel's mask value (finite, as the TPU kernel's)
+NEG_INF = -1e30
 
 
 def bitmap_dense(blocks: torch.Tensor, counts: torch.Tensor,
@@ -58,6 +66,56 @@ def nm_spmm_ref(x: torch.Tensor, wc: torch.Tensor, idx: torch.Tensor,
     """Y = X @ expand(wc, idx).  x: (M, N) → (M, K) float32."""
     return torch.matmul(x.float(),
                         nm_expand_ref(wc, idx, n_sel, m_group).float())
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """softmax(Q Kᵀ/√D) V for q (BH, Sq, D), k/v (BH, Skv, D) → q.dtype.
+
+    Scores in fp32; the causal mask is aligned TOP-LEFT, key ``j`` visible
+    to query ``i`` iff ``j <= i``, as the flash kernel masks
+    (``repro/kernels/flash_attention.py:51-55``) — not the reference
+    oracle's bottom-right ``tril(k=Skv-Sq)``; the two agree when Sq == Skv.
+    The weights are cast to ``v.dtype`` before the PV product, which
+    accumulates in fp32."""
+    w = _softmax_weights(q, k, causal).to(v.dtype)
+    return torch.einsum("bqk,bkd->bqd", w.float(), v.float()).to(q.dtype)
+
+
+def _softmax_weights(q: torch.Tensor, k: torch.Tensor,
+                     causal: bool) -> torch.Tensor:
+    """fp32 softmax(Q Kᵀ/√D), causal mask aligned top-left."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        sq, skv = s.shape[-2:]
+        mask = torch.ones((sq, skv), dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~mask, NEG_INF)
+    return torch.softmax(s, dim=-1)
+
+
+def flash_attention_bf16_tol(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o_plain: torch.Tensor,
+                             causal: bool = True) -> torch.Tensor:
+    """Per-element bound on ``|o − o_plain|`` between a bf16 flash kernel
+    and :func:`flash_attention_ref` (``o_plain``) on the same inputs:
+    ``2⁻⁷·|o_plain| + 2⁻⁵·√(Σⱼ wⱼ² vⱼ²) + 1e-6``, w the fp32 weights.
+
+    bf16 keeps 8 significant bits.  Both versions round the output once,
+    so the two outputs differ by at most one ulp, ≤ 2⁻⁷·|o|, beyond what
+    they differ before rounding.  Both round every weight once, at
+    different places (this version the normalised weight, a flash kernel
+    ``exp(s − m)`` against its running max), so a weight's two roundings
+    differ by a relative error of at most 2⁻⁷ with a standard deviation
+    of at most 0.41·2⁻⁷, independently of the other weights: ``Σ w v``
+    moves by at most 0.41·2⁻⁷·√(Σ w² v²) in one standard deviation.  The
+    bound allows ten of those, where the worst case, 2⁻⁷·Σ w|v|, would
+    allow a typical output's own size at long context."""
+    w = _softmax_weights(q, k, causal)
+    noise = torch.einsum("bqk,bkd->bqd", w.square(),
+                         v.float().square()).sqrt()
+    return 2.0 ** -7 * o_plain.float().abs() + 2.0 ** -5 * noise + 1e-6
 
 
 # ---------------------------------------------------------------------------

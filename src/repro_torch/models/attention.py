@@ -2,12 +2,14 @@
 KV cache, and the prefill / decode attention blocks.
 
 Plain PyTorch mirroring the reference's numerics: score products in the
-compute dtype, softmax statistics in fp32, ``NEG_INF = -1e30`` masking,
-and the probabilities cast to the compute dtype before the PV product.
+compute dtype, scaled by ``1/√D`` rounded to that dtype (:func:`_scale`),
+softmax statistics in fp32, ``NEG_INF = -1e30`` masking, and the
+probabilities cast to the compute dtype before the PV product.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -28,6 +30,15 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         .reshape(b, s, h * n_rep, d)
 
 
+@functools.lru_cache(maxsize=None)
+def _scale(d: int, dtype: torch.dtype) -> float:
+    """``1/√d`` rounded to ``dtype``.  The reference multiplies its scores
+    (in the compute dtype) by a weakly typed Python float, which JAX
+    rounds to that dtype first; PyTorch would multiply by the fp32
+    constant, so at bf16 some scores would land one ulp off."""
+    return torch.tensor(1.0 / math.sqrt(d), dtype=dtype).item()
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_chunk: int = 512, kv_chunk: int = 512
                       ) -> torch.Tensor:
@@ -37,7 +48,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Sq, H, D); k/v: (B, Skv, H, D) (same H after GQA repeat)."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, q.dtype)
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, skv)
     dev = q.device
@@ -82,7 +93,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, H, D); caches: (B, S, H, D); ``length``: number of valid cache
     positions — a scalar, or (B,) per-row lengths."""
     b, s, h, d = k_cache.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, q.dtype)
     valid = _valid_mask(s, length)                       # (1 | B, S)
     scores = torch.einsum("bhd,bshd->bhs", q, k_cache) * scale
     scores = torch.where(valid[:, None, :], scores,

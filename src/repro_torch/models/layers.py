@@ -16,7 +16,6 @@ import math
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
@@ -153,10 +152,18 @@ def mlp_params(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
     }
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x · σ(x)`` with ``σ(x) = 1 / (1 + exp(-x))`` as four ops, each
+    rounded to ``x``'s dtype: how XLA expands the reference's
+    ``jax.nn.silu``.  ``torch.nn.functional.silu`` rounds once, which at
+    bf16 leaves many values one ulp away from the reference's."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     g = proj(x, p["w_gate"], "ffn.w_gate")
     u = proj(x, p["w_up"], "ffn.w_up")
-    return proj(F.silu(g) * u, p["w_down"], "ffn.w_down")
+    return proj(silu(g) * u, p["w_down"], "ffn.w_down")
 
 
 def attn_params(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:

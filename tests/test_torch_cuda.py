@@ -67,6 +67,84 @@ def test_nm_kernel_matches_plain(card, m, n, k, n_sel, m_group, dtype):
     _close(y, ref.nm_spmm_ref(x, c.values, c.indices, n_sel, m_group))
 
 
+@pytest.mark.parametrize("m,n,k,bn,bk,density", [
+    (1, 48, 40, 12, 20, 0.5), (70, 856 * 2, 192, 856, 96, 0.5),
+    (5, 64, 32, 16, 8, 0.0), (3, 64, 64, 16, 16, 1.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bitmap_naive_equals_pipelined(card, m, n, k, bn, bk, density,
+                                       dtype):
+    """Same FMA order: bit for bit, with a static bound above the longest
+    block-column too."""
+    rng = np.random.default_rng(m + n + k + 1)
+    c = ops.compress_bitmap(_block_sparse(rng, n, k, bn, bk, density)
+                            .to(card), bn, bk)
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)) \
+        .to(card, dtype)
+    y = ops.bitmap_spmm(x, c)
+    for t_max in (None, c.max_per_col + 3):
+        y_naive = ops.bitmap_spmm(x, c, t_max=t_max, pipeline=False)
+        torch.cuda.synchronize()
+        assert torch.equal(y_naive, y)
+    assert ops.launch_counts()["bitmap_spmm"] == 1
+    assert ops.launch_counts()["bitmap_spmm_naive"] == 2
+
+
+@pytest.mark.parametrize("m,n,k,n_sel,m_group", [
+    (1, 32, 24, 2, 4), (70, 128, 100, 1, 4), (4, 96, 64, 3, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_naive_equals_pipelined(card, m, n, k, n_sel, m_group, dtype):
+    """Ascending n, kept values and exact zeros: bit for bit."""
+    rng = np.random.default_rng(m + n + k + 1)
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(card)
+    c = ops.compress_nm(w, n_sel, m_group)
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)) \
+        .to(card, dtype)
+    y_naive = ops.nm_spmm(x, c, pipeline=False)
+    _close(y_naive, ref.nm_spmm_ref(x, c.values, c.indices, n_sel, m_group))
+    assert torch.equal(y_naive, ops.nm_spmm(x, c))
+    assert ops.launch_counts()["nm_spmm_naive"] == 1
+
+
+# bh, sq, skv, d: the reference's test shapes, Sq != Skv, ragged tiles
+# (the kernel's own tiles are 64), D up to 256
+@pytest.mark.parametrize("bh,sq,skv,d", [
+    (2, 64, 64, 32), (4, 128, 128, 64), (1, 32, 32, 128), (3, 96, 96, 16),
+    (2, 32, 64, 32), (3, 100, 70, 48), (1, 130, 130, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(card, bh, sq, skv, d, causal, dtype):
+    """fp32 to 1e-4·max + 1e-5; bf16 per element to
+    ``ref.flash_attention_bf16_tol`` (both round the output and every
+    softmax weight to bf16 once, at different places)."""
+    rng = np.random.default_rng(bh + sq + skv + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d))
+                                .astype(np.float32)).to(card, dtype)
+               for s in (sq, skv, skv))
+    o = ops.flash_attention(q, k, v, causal=causal, bq=sq, bk=skv)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert ops.launch_counts()["flash_attention"] == 1
+    o_plain = ref.flash_attention_ref(q, k, v, causal)
+    diff = (o.float() - o_plain.float()).abs()
+    if dtype == torch.float32:
+        tol = 1e-4 * o_plain.abs().max() + 1e-5
+    else:
+        tol = ref.flash_attention_bf16_tol(q, k, v, o_plain, causal)
+    assert bool((diff <= tol).all()), (diff - tol).max().item()
+
+
+def test_flash_wrapper_refuses_bad_operands(card):
+    q = torch.ones(1, 8, 16, device=card)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[:, ::2], q[:, ::2], q[:, ::2])
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.ones(1, 8, 300, device=card),
+                            torch.ones(1, 8, 300, device=card),
+                            torch.ones(1, 8, 300, device=card))
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
 def test_wrappers_refuse_bad_operands(card):
     c = ops.compress_nm(torch.ones(8, 4, device=card))
     with pytest.raises(TypeError):
@@ -87,3 +165,45 @@ def test_serving_entry_points_accept_the_default_device(card):
     toks, _, _ = cm.generate(pruned, torch.zeros(2, 4, dtype=torch.long), 2)
     assert toks.shape == (2, 2) and toks.device.type == "cuda"
     assert ops.launch_counts()["bitmap_spmm"] == 7 * cfg.n_layers * 3
+
+
+def test_kernel_guard_raises_when_a_kernel_fails_to_build(card,
+                                                          monkeypatch):
+    """The guard demotes only injected faults: on the card a kernel that
+    does not build raises, and nothing is served by the plain matmul."""
+    from repro_torch import exec as texec
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+    cfg = get_config("chatglm3-6b").reduced()
+    cm, pruned = serve.compressed_model(cfg, Model(cfg).init(seed=0))
+
+    def no_build(name):
+        raise RuntimeError(f"{name}: nvcc failed")
+
+    monkeypatch.setattr(build, "library", no_build)
+    ops.reset_launch_counts()
+    failed = []
+    with texec.kernel_guard(lambda role, e: failed.append(role)), \
+            pytest.raises(RuntimeError, match="nvcc failed"):
+        cm.generate(pruned, torch.zeros(2, 4, dtype=torch.long), 2)
+    assert failed == []
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_naive_serving_launches_only_the_naive_kernel(card):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+    cfg = get_config("chatglm3-6b").reduced()
+    cm, pruned = serve.compressed_model(cfg, Model(cfg).init(seed=0))
+    prompts = torch.zeros(2, 4, dtype=torch.long)
+    toks, _, _ = cm.generate(pruned, prompts, 2)
+    ops.reset_launch_counts()
+    with ops.pipeline_default(False):
+        toks_naive, _, _ = cm.generate(pruned, prompts, 2)
+    assert torch.equal(toks_naive, toks)
+    assert ops.launch_counts() == {
+        "bitmap_spmm": 0, "bitmap_spmm_naive": 7 * cfg.n_layers * 3,
+        "nm_spmm": 0, "nm_spmm_naive": 0, "flash_attention": 0}

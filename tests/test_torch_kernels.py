@@ -137,9 +137,14 @@ def test_cpu_path_launches_no_kernel():
     w = torch.from_numpy(_block_sparse_w(np.random.default_rng(0), 32, 16,
                                          8, 8, 0.5))
     x = torch.ones(2, 32)
-    ops.bitmap_spmm(x, ops.compress_bitmap(w, 8, 8))
-    ops.nm_spmm(x, ops.compress_nm(w))
-    assert ops.launch_counts() == {"bitmap_spmm": 0, "nm_spmm": 0}
+    for pipeline in (True, False):
+        ops.bitmap_spmm(x, ops.compress_bitmap(w, 8, 8), pipeline=pipeline)
+        ops.nm_spmm(x, ops.compress_nm(w), pipeline=pipeline)
+    q = torch.ones(1, 4, 8)
+    ops.flash_attention(q, q, q)
+    assert ops.launch_counts() == {
+        "bitmap_spmm": 0, "bitmap_spmm_naive": 0, "nm_spmm": 0,
+        "nm_spmm_naive": 0, "flash_attention": 0}
 
 
 def test_build_without_nvcc_raises(monkeypatch):

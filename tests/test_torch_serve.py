@@ -5,7 +5,9 @@ through its JSON) and the same weights (the reference's ``Model.init``
 through numpy).  The reference runs as its own serving tests run it
 (tests/test_serve.py): Pallas kernels in interpret mode, fp32 compute.
 Logits are held to 1e-4 (test_serve.py:91-143); greedy tokens must be
-identical.
+identical.  Both kernel variants are served (``pipeline_default(False)``
+switches both packages to the naive kernels), and the kernel-failure
+guard is held against the reference's.
 """
 
 import json
@@ -23,11 +25,15 @@ from repro.core.engine import EngineConfig
 from repro.core.sparsity import NM, BlockBernoulli
 from repro.models import attention as rattn
 from repro.models import layers as RL
+from repro.exec import dispatch as rdispatch
+from repro.kernels import ops as rkops
 from repro.models.transformer import Model as RModel
 from repro_torch import exec as texec
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.exec import dispatch
 from repro_torch.exec import plans as tplans
+from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Model
@@ -53,6 +59,10 @@ def _tokens(vocab, b=2, s=8, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, s))
 
 
+def _fail(kind):
+    raise RuntimeError(f"injected kernel failure: {kind}")
+
+
 @pytest.fixture(scope="module", params=["bitmap", "nm"])
 def served(request, fp32):
     """The reference's compressed serving artifacts and the port's model
@@ -71,6 +81,15 @@ def served(request, fp32):
     rgen, _, _ = rcm.generate(rpruned, jnp.asarray(toks, jnp.int32), GEN)
     with rexec.instrument() as rcounters:
         rcm.hidden_states_unrolled(rpruned, jnp.asarray(toks, jnp.int32))
+    with rkops.pipeline_default(False):
+        rlogits_naive, _ = rcm.prefill(rpruned, jnp.asarray(toks, jnp.int32),
+                                       12)
+        rgen_naive, _, _ = rcm.generate(rpruned, jnp.asarray(toks, jnp.int32),
+                                        GEN)
+    rguard = []
+    with rkops.kernel_fault_hook(_fail), \
+            rexec.kernel_guard(lambda role, e: rguard.append(role)):
+        rcm.prefill(rpruned, jnp.asarray(toks, jnp.int32), 12)
 
     params = params_from_numpy(jax.tree.map(np.asarray, rparams), "cpu")
     tplan = texec.ExecPlan.from_json(plan.to_json())
@@ -78,7 +97,8 @@ def served(request, fp32):
     return dict(kind=kind, cfg=cfg, rcm=rcm, rpruned=rpruned, toks=toks,
                 rlogits=np.asarray(rlogits), rgen=np.asarray(rgen),
                 rcounters=rcounters, plan=plan, cm=cm, pruned=pruned,
-                params=params)
+                params=params, rlogits_naive=np.asarray(rlogits_naive),
+                rgen_naive=np.asarray(rgen_naive), rguard=set(rguard))
 
 
 def test_prune_params_matches_reference_exactly(served):
@@ -199,6 +219,107 @@ def test_dispatch_returns_the_activation_dtype(served):
     np.testing.assert_allclose(y.float().numpy(),
                                (x.float() @ w).to(torch.bfloat16).float()
                                .numpy(), rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# naive kernels, kernel guard
+# ---------------------------------------------------------------------------
+
+def test_naive_prefill_logits_match_reference(served):
+    with ops.pipeline_default(False):
+        logits, _ = served["cm"].prefill(
+            served["pruned"], torch.from_numpy(served["toks"]), 12)
+    np.testing.assert_allclose(logits.numpy(), served["rlogits_naive"],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_naive_greedy_tokens_match_reference(served):
+    with ops.pipeline_default(False):
+        toks, _, _ = served["cm"].generate(
+            served["pruned"], torch.from_numpy(served["toks"]), GEN,
+            device="cpu")
+    np.testing.assert_array_equal(toks.numpy(), served["rgen_naive"])
+
+
+def test_pipeline_default_reaches_every_kernel_call(served, monkeypatch):
+    """Serving never threads the knob: ``pipeline_default`` alone picks
+    the variant of every sparse call, and bitmap calls carry the role's
+    static bound."""
+    calls = []
+    bitmap, nm = ops._bitmap, ops._nm
+    monkeypatch.setattr(ops, "_bitmap", lambda x, w, t_max, pipeline: (
+        calls.append((pipeline, t_max)), bitmap(x, w, t_max, pipeline))[1])
+    monkeypatch.setattr(ops, "_nm", lambda x, w, pipeline: (
+        calls.append((pipeline, None)), nm(x, w, pipeline))[1])
+    cm, pruned = served["cm"], served["pruned"]
+    toks = torch.from_numpy(served["toks"])
+    with ops.pipeline_default(False):
+        cm.prefill(pruned, toks, 12)
+    naive = calls[:]
+    cm.prefill(pruned, toks, 12)
+    sparse = [op for op in served["plan"].ops
+              if op.choice.kind in ("bitmap", "nm")]
+    assert len(naive) == len(calls) - len(naive) \
+        == len(sparse) * served["cfg"].n_layers > 0
+    assert {p for p, _ in naive} == {False}
+    assert {p for p, _ in calls[len(naive):]} == {True}
+    t_max = dispatch._Dispatcher(cm.store)._t_max
+    assert {t for _, t in naive} <= set(t_max.values()) | {None}
+
+
+def test_dispatcher_t_max_matches_reference(served):
+    """The per-role max-over-layers bound (reference dispatch.py:200-207)."""
+    t_max = dispatch._Dispatcher(served["cm"].store)._t_max
+    assert t_max == rdispatch._Dispatcher(served["rcm"].store)._t_max
+    assert set(t_max) == {op.role for op in served["plan"].ops
+                          if op.choice.kind == "bitmap"}
+
+
+def test_fault_hook_propagates_without_kernel_guard(served):
+    with ops.kernel_fault_hook(_fail), \
+            pytest.raises(ops.KernelFault, match="injected kernel failure"):
+        served["cm"].prefill(served["pruned"],
+                             torch.from_numpy(served["toks"]), 12)
+
+
+def test_kernel_guard_lets_build_and_launch_failures_raise(served,
+                                                           monkeypatch):
+    """Only injected faults are demoted to dense: a kernel that fails to
+    build or launch raises under the guard too, and the sink hears
+    nothing."""
+    def broken(*args):
+        raise RuntimeError("kernel build failed")
+
+    monkeypatch.setattr(ops, "_bitmap", broken)
+    monkeypatch.setattr(ops, "_nm", broken)
+    failed = []
+    with texec.kernel_guard(lambda role, e: failed.append(role)), \
+            pytest.raises(RuntimeError, match="kernel build failed"):
+        served["cm"].prefill(served["pruned"],
+                             torch.from_numpy(served["toks"]), 12)
+    assert failed == []
+
+
+def test_kernel_guard_demotes_failing_roles_to_dense(served):
+    """Every sparse role fails: the sink hears of the same roles as the
+    reference's guard (the port once per layer, the reference once per
+    trace, so sets are compared), nothing is recorded for a failed call,
+    and the forward is the dense model's bit for bit."""
+    cm, pruned = served["cm"], served["pruned"]
+    toks = torch.from_numpy(served["toks"])
+    failed = []
+    with ops.kernel_fault_hook(_fail), texec.instrument() as counters, \
+            texec.kernel_guard(lambda role, e: failed.append((role, e))):
+        logits, _ = cm.prefill(pruned, toks, 12)
+    sparse = {op.role for op in served["plan"].ops
+              if op.choice.kind in ("bitmap", "nm")}
+    assert {r for r, _ in failed} == served["rguard"] == sparse
+    assert len(failed) == len(sparse) * served["cfg"].n_layers
+    assert all(isinstance(e, ops.KernelFault)
+               and "injected kernel failure" in str(e) for _, e in failed)
+    assert not set(counters) & sparse
+    dense, _ = Model(served["cfg"]).prefill(pruned, toks, 12)
+    assert torch.equal(logits, dense)
 
 
 # ---------------------------------------------------------------------------
