@@ -14,10 +14,12 @@ non-zero exit code when it fails:
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
    plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4
    and 1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in
-   fp32 and bf16: each held to max|y - y_plain| <= 1e-4 max|y_plain| +
-   1e-5, the naive result equal to the pipelined one bit for bit, timed
-   (the naive variants at bf16 only) beside the plain version, the bound
-   on an H100 SXM and one ``torch.matmul`` over the decompressed weight;
+   fp32 and bf16 (with each N:M role's split of the reduction at M = 4:
+   slices, grid, partials' bytes): each held to max|y - y_plain| <= 1e-4
+   max|y_plain| + 1e-5, the naive result equal to the pipelined one bit
+   for bit, timed (the naive variants at bf16 only) beside the plain
+   version, the bound on an H100 SXM and one ``torch.matmul`` over the
+   decompressed weight;
 4. flash attention vs its plain version at chatglm3-6b's attention width
    (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
    bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
@@ -29,7 +31,10 @@ non-zero exit code when it fails:
    run; the same model served again with the naive kernels
    (``ops.pipeline_default(False)``) must give the same tokens and the
    same bf16 prefill logits; compressed prefill logits are held against
-   the dense model on the same pruned weights at fp32.
+   the dense model on the same pruned weights at fp32.  A CUDA-only
+   ``torch.profiler`` trace of 4 decode steps per plan gives the device's
+   busy time, its idle share of the untraced decode step and the kernels
+   that take the most time.
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -56,6 +61,7 @@ FP32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
 TOL_REL, TOL_ABS = 1e-4, 1e-5
 BATCH, PROMPT, GEN = 4, 128, 16
+TRACE_STEPS = 4              # decode steps in the serving trace
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
 
 
@@ -161,6 +167,7 @@ def _check(name, y, y_plain) -> float:
 def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
     import torch
     from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import nm_spmm as nm_cuda
     from repro_torch.kernels import ops, ref
     from repro_torch.sparse import masks
 
@@ -240,6 +247,14 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
             wp = masks.nm_prune(w, n_sel, 4)
             c = ops.compress_nm(wp, n_sel, 4)
             nbytes_w = c.values.numel() * 4 + c.indices.numel()
+            slices, length = nm_cuda.split_plan(M_DECODE, role.n, role.k,
+                                                n_sel, 4)
+            tiles = -(-role.k // nm_cuda.SMALL_M_TILE_K)
+            part = slices * M_DECODE * role.k * 4 if slices > 1 else 0
+            print(f"[kernels] nm_spmm {role.role} ({n_sel}:4) M={M_DECODE}: "
+                  f"{slices} slices of {length} groups, grid {tiles} x "
+                  f"{slices} = {tiles * slices} blocks, partials {part} B "
+                  f"(round trip {2 * part / nbytes_w:.2%} of the payload)")
             for m in (M_DECODE, M_PREFILL):
                 for dtype in (torch.float32, torch.bfloat16):
                     run("nm_spmm", f"{role.role} ({n_sel}:4)", m, dtype,
@@ -338,6 +353,42 @@ def phase_flash(cfg, card: str, dev) -> dict:
             "launches": launches}
 
 
+def _trace_decode(cm, pruned, prompts, label: str, step_ms: float) -> None:
+    """Device time of ``TRACE_STEPS`` decode steps from a CUDA-only
+    ``torch.profiler`` trace, and the kernels that take the most of it.
+    The idle share is taken against ``step_ms``, the untraced decode
+    ms/token of the same run: the profiler slows the host, so the traced
+    step's host time is printed only beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    logits, cache = cm.prefill(pruned, prompts, PROMPT + TRACE_STEPS)
+    tok = logits[:, -1].argmax(dim=-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(PROMPT, PROMPT + TRACE_STEPS):
+            logits, cache = cm.decode_step(pruned, cache, tok, t)
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TRACE_STEPS
+    kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0), reverse=True)
+    if not kernels:
+        print(f"[serve {label}] trace: the profiler saw no device time; "
+              f"idle share not measured")
+        return
+    busy = sum(us for us, _, _ in kernels) / 1e3 / TRACE_STEPS
+    print(f"[serve {label}] trace of {TRACE_STEPS} decode steps: device "
+          f"busy {busy:.3f} ms/step, idle share {1 - busy / step_ms:.4f} "
+          f"of the untraced {step_ms:.3f} ms/token; "
+          f"{sum(c for _, c, _ in kernels)} device ops; host clock under "
+          f"the profiler {1e3 * wall:.3f} ms/step")
+    for us, count, name in kernels[:6]:
+        print(f"[serve {label}]   {us / 1e3 / TRACE_STEPS:.4f} ms/step "
+              f"{count // TRACE_STEPS} calls/step  {name[:90]}")
+
+
 def phase_serving(cfg, card: str, dev) -> dict[str, int]:
     import torch
     from repro_torch.exec.plans import shipped_plan
@@ -391,6 +442,7 @@ def phase_serving(cfg, card: str, dev) -> dict[str, int]:
               f"({serve._rate(BATCH * GEN, t_gen):.1f} tok/s) — bf16 "
               f"compute, on {card}")
         print(f"[serve {kind}] sample tokens {toks[0].tolist()}")
+        _trace_decode(cm, pruned, prompts, kind, 1e3 * t_gen / GEN)
 
         # the same model on the naive kernels: same tokens, same logits
         naive = f"{kname}_naive"

@@ -1,13 +1,16 @@
 // N:M structured sparse matmul for Hopper (sm_90a): Y = X @ expand(V, I).
 //
-// Two entries, one per Pallas TPU kernel of src/repro/kernels/nm_spmm.py:
-//   nm_spmm_{f32,bf16}        replaces `_pipelined_kernel` with
-//                             `_decode_tile` (launched by
-//                             `_nm_spmm_pipelined`, the default path of
-//                             repro.kernels.ops.nm_spmm);
-//   nm_spmm_naive_{f32,bf16}  replaces `_kernel` with `_decode_tile`
-//                             (launched by `nm_spmm_pallas` with
-//                             pipeline=False).
+// Two kernels, one per Pallas TPU kernel of src/repro/kernels/nm_spmm.py:
+//   nm_spmm_{f32,bf16}          replace `_pipelined_kernel` with
+//   nm_spmm_small_m_{f32,bf16}  `_decode_tile` (launched by
+//                               `_nm_spmm_pipelined`, the default path of
+//                               repro.kernels.ops.nm_spmm): the first at
+//                               prefill, the second at decode;
+//   nm_spmm_naive_{f32,bf16}    replaces `_kernel` with `_decode_tile`
+//                               (launched by `nm_spmm_pallas` with
+//                               pipeline=False).
+// The wrapper (repro_torch/kernels/nm_spmm.py) picks the entry and the
+// summation order; the entries only refuse what they cannot run.
 //
 // Format: along N (the reduction dim) every group of m_group rows keeps
 // n_sel values.  values (N*n_sel/m_group, K) fp32 and indices (same shape,
@@ -15,45 +18,82 @@
 // fp32 or bf16, converted to fp32 exactly; y (M, K) fp32.  Any
 // n_sel:m_group with m_group <= 32 (plans serve 2:4 and 1:4).
 //
-// Design.  Each thread block owns one TM x TK output tile in registers
-// (4 x 4 values per thread) and loops over the groups along N in runs of
-// gc = 32 / m_group groups.  For each run it stages the x slice (TM rows x
-// gc*m_group columns) and the (values, indices) rows of the run in shared
-// memory, then decodes next to the FMA: a kept value at position p of
-// group g multiplies x[row, g*m_group + p], read from shared memory.  The
-// TPU kernel expands each tile to a dense operand by compares only to feed
-// its matrix unit a dense tile; CUDA cores need no dense operand, so the
-// port skips the zeros instead of multiplying them.  Out-of-range
-// positions contribute nothing (as with the reference's compare-expand).
-// No atomics: deterministic.
+// Summation order, shared by both kernels (the host function
+// repro_torch.kernels.nm_spmm.split_plan picks S and L and passes them in):
+// the groups along N are cut into S consecutive slices of L groups, the
+// last one ragged; L is a multiple of gc = 32 / m_group, so a slice
+// boundary falls on a run boundary.  Each output's slice partial is summed
+// from 0 in ascending n over the slice's kept entries (stored in ascending
+// position), and the partials are added left to right, s = 0 .. S-1, by
+// nm_reduce_kernel from a workspace (S, M, K) fp32 that the wrapper
+// allocates.  S = 1 at prefill (M > 16, or K not a multiple of 4): one
+// slice, written straight to y, no workspace.  No atomics: deterministic.
 //
-// The naive entry is the TPU naive kernel's design read for the card: the
-// same output tiles and runs of gc groups (the TPU's N stripes), but each
-// run's (values, indices) rows are EXPANDED into a dense shared-memory tile
-// of gc*m_group rows by position compares -- dense[g*m + p][j] = sum over
-// the group's n_sel entries of (index == p ? value : 0), the TPU
-// `_decode_tile` -- and the tile is then multiplied densely, zeros
-// included, in ascending n.  A kept value times x plus exact zeros gives
-// the pipelined entry's sum bit for bit on finite inputs (indices are
-// stored in ascending position order), as the reference pins its two TPU
-// kernels equal.  Its cost is the TPU design's: m_group / n_sel times the
-// FMAs (2x at 2:4, 4x at 1:4) plus the expansion.
+// Pipelined prefill entry (nm_spmm_*).  Each thread block owns one
+// TM x TK output tile in registers (4 x 4 values per thread) and loops over
+// the groups along N in runs of gc groups.  For each run it stages the x
+// slice (TM rows x gc*m_group columns) and the (values, indices) rows of
+// the run in shared memory, then decodes next to the FMA: a kept value at
+// position p of group g multiplies x[row, g*m_group + p], read from shared
+// memory.  The TPU kernel expands each tile to a dense operand by compares
+// only to feed its matrix unit a dense tile; CUDA cores need no dense
+// operand, so the port skips the zeros instead of multiplying them.
+// Out-of-range positions contribute nothing (as with the reference's
+// compare-expand).
+//
+// Pipelined decode entry (nm_spmm_small_m_*, M <= 16, K % 4 == 0):
+// nm_spmm_small_m_kernel.  At
+// M = 4 the work is a stream of the payload with 8 FLOPs per kept entry,
+// so the design is about bytes in flight.  The grid is (ceil(K/SK_TK), S):
+// a block of SK_THREADS threads owns SK_TK output columns of one slice, and
+// a thread owns 4 adjacent columns x all MT rows in registers, MT = M
+// rounded up to 1, 2, 4, 8 or 16 (a template parameter: no dead rows in
+// the FMA nest; padded rows of x are staged as zeros and masked at the
+// store).  The block stages its slice of x once in shared memory as fp32,
+// column-major ([column][MT]), so the MT values one kept entry needs are
+// MT/4 16-byte shared loads; every lane of a warp reads the same kept row,
+// so its at most m_group distinct x columns lie in one 32-word window:
+// broadcast, no bank conflicts.  Per kept row a thread loads one float4 of
+// values and one 32-bit word of four int8 indices (read-only path);
+// neighbouring threads read neighbouring addresses, and SK_ROWS rows are
+// loaded per batch, the next batch issued before the current one's FMAs.
+// Ragged K and the tail of a slice are masked in the loads (a dead row is
+// value 0 at an invalid position) and the store, never around the FMAs.
+//
+// Naive entry: the TPU naive kernel's design read for the card, the same
+// output tiles and runs of gc groups (the TPU's N stripes) as the prefill
+// entry, but each run's (values, indices) rows are EXPANDED into a dense
+// shared-memory tile of gc*m_group rows by position compares --
+// dense[g*m + p][j] = sum over the group's n_sel entries of (index == p ?
+// value : 0), the TPU `_decode_tile` -- and the tile is then multiplied
+// densely, zeros included, in ascending n.  With S > 1 it writes its
+// accumulator to the workspace at each slice boundary and restarts it from
+// 0, and the same reduce kernel adds the partials.  A kept value times x
+// plus exact zeros gives the pipelined entry's sum bit for bit on finite
+// inputs, as the reference pins its two TPU kernels equal.  Its cost is the
+// TPU design's: m_group / n_sel times the FMAs (2x at 2:4, 4x at 1:4) plus
+// the expansion; it takes no split parallelism.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor
 // cores): bytes = values (4 B) + indices (1 B) per kept entry + x + y,
 // against 2 * M * (kept entries) FLOPs -- the same useful work for both
-// entries.  Decode (M = 4) is bound by the payload bytes; prefill
-// (M = 512) by the fp32 FLOPs.
+// entries.  Decode (M = 4) is bound by the payload bytes (509.9 MB per
+// chatglm3-6b layer at 2:4: 0.152 ms); prefill (M = 512) by the fp32
+// FLOPs.  The partials' round trip (2 * S * M * K * 4 bytes, mostly in L2)
+// is kept under 10 % of the payload at decode.
 //
-// What the simple design leaves on the table: the payload is re-streamed
-// once per 64-row M tile, loads are scalar and synchronous, the indices
-// travel as int8 instead of 2-bit fields, the data-dependent shared-memory
-// reads of x can bank-conflict, and 2:4 in bf16 could run on the sparse
-// tensor cores (mma.sp) after a repack of the indices at compress time.
+// What the design leaves on the table: the decode loads are synchronous
+// register loads, not cp.async/TMA rings; the indices travel as int8
+// instead of 2-bit fields; the prefill entry re-streams the payload once
+// per 64-row M tile with scalar loads; and 2:4 in bf16 could run on the
+// sparse tensor cores (mma.sp) after a repack of the indices at compress
+// time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -61,6 +101,13 @@ constexpr int TM = 64;        // output rows per thread block
 constexpr int TK = 64;        // output columns per thread block
 constexpr int XC = 32;        // x columns (and compressed rows) per run
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+constexpr int SK_MAX_M = 16;             // largest M (MT) of the small-M entry
+constexpr int SK_THREADS = 64;           // threads of a small-M block
+constexpr int SK_TK = 4 * SK_THREADS;    // its output columns
+constexpr int SK_ROWS = 8;               // kept rows per load batch
+constexpr int SK_SMEM = 48 * 1024;       // its x slice, bytes at most
+constexpr int RED_THREADS = 256;         // threads of a reduce block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -141,13 +188,170 @@ nm_spmm_kernel(const T* __restrict__ x, const float* __restrict__ values,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// The next SK_ROWS kept rows, of which `left` are in the slice: one float4
+// of values and one word of four int8 indices each; vp / ip step to the
+// row after.  Rows past the slice's end are masked here: value 0 at
+// position 0xff, which no group has.
+__device__ __forceinline__ void load_rows(const float4*& vp, const int*& ip,
+                                          int step, int left,
+                                          float4 (&v)[SK_ROWS],
+                                          int (&p)[SK_ROWS]) {
+#pragma unroll
+  for (int u = 0; u < SK_ROWS; ++u) {
+    v[u] = u < left ? __ldg(vp) : make_float4(0.f, 0.f, 0.f, 0.f);
+    p[u] = u < left ? __ldg(ip) : -1;
+    vp += step;
+    ip += step;
+  }
+}
+
+// The MT staged x values of one slice column.
+template <int MT>
+__device__ __forceinline__ void load_x(const float* xc, float (&xv)[MT]) {
+  if constexpr (MT == 1) {
+    xv[0] = xc[0];
+  } else if constexpr (MT == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(xc);
+    xv[0] = t.x;
+    xv[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < MT; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(xc + i);
+      xv[i] = t.x;
+      xv[i + 1] = t.y;
+      xv[i + 2] = t.z;
+      xv[i + 3] = t.w;
+    }
+  }
+}
+
+// Small-M entry (M <= SK_MAX_M): the partial of slice blockIdx.y over
+// output columns [4 * thread, +4) of tile blockIdx.x, into out + slice *
+// M * K (out is y itself when S = 1).  Needs K % 4 == 0, values 16-byte
+// and indices 4-byte aligned.
+template <typename T, int MT>
+__global__ void __launch_bounds__(SK_THREADS)
+nm_spmm_small_m_kernel(const T* __restrict__ x,
+                       const float* __restrict__ values,
+                       const int8_t* __restrict__ indices,
+                       float* __restrict__ out, int m, int n, int k,
+                       int n_sel, int m_group, int slice_groups) {
+  extern __shared__ float4 xs4[];
+  float* xs = reinterpret_cast<float*>(xs4);   // [slice column][MT], fp32
+  const int groups = n / m_group;
+  const int g0 = blockIdx.y * slice_groups;
+  const int gcur = min(slice_groups, groups - g0);
+  const int xw = gcur * m_group;               // x columns of this slice
+  const int rows = gcur * n_sel;               // kept rows of this slice
+  const int col = blockIdx.x * SK_TK + 4 * threadIdx.x;
+  const int lcol = min(col, k - 4);            // dead columns read a live one
+  const size_t at0 = (size_t)g0 * n_sel * k + lcol;
+  const float4* vp = reinterpret_cast<const float4*>(values + at0);
+  const int* ip = reinterpret_cast<const int*>(indices + at0);  // next row
+  const int step = k / 4;                      // one row, in 16 B / 4 B units
+  float4 v[SK_ROWS];
+  int p[SK_ROWS];
+  load_rows(vp, ip, step, rows, v, p);         // in flight while x is staged
+
+  const size_t xbase = (size_t)g0 * m_group;
+  for (int e = threadIdx.x; e < MT * xw; e += SK_THREADS) {
+    const int i = e / xw, c = e - i * xw;
+    xs[c * MT + i] = i < m ? to_f32(x[(size_t)i * n + xbase + c]) : 0.f;
+  }
+  __syncthreads();
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  int grp = 0, slot = 0;                       // group and slot of row q0
+  for (int q0 = 0; q0 < rows; q0 += SK_ROWS) {
+    float4 vn[SK_ROWS];
+    int pn[SK_ROWS];
+    load_rows(vp, ip, step, rows - q0 - SK_ROWS, vn, pn);   // next batch
+#pragma unroll
+    for (int u = 0; u < SK_ROWS; ++u) {
+      const int base = grp * m_group;
+      const float b4[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned pj = ((unsigned)p[u] >> (8 * j)) & 0xffu;
+        const bool ok = pj < (unsigned)m_group;
+        const float b = ok ? b4[j] : 0.f;
+        float xv[MT];
+        load_x<MT>(xs + (ok ? base + (int)pj : 0) * MT, xv);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) acc[i][j] = fmaf(xv[i], b, acc[i][j]);
+      }
+      const bool next = ++slot == n_sel;       // row q0+u+1 starts a group
+      slot = next ? 0 : slot;
+      grp += next;
+    }
+#pragma unroll
+    for (int u = 0; u < SK_ROWS; ++u) {
+      v[u] = vn[u];
+      p[u] = pn[u];
+    }
+  }
+
+  if (col < k) {
+    float* o = out + (size_t)blockIdx.y * m * k + col;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      if (i < m)
+        *reinterpret_cast<float4*>(o + (size_t)i * k) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// y = ws[0] + ws[1] + ... + ws[S-1], left to right, four outputs a thread.
+__global__ void __launch_bounds__(RED_THREADS)
+nm_reduce_kernel(const float4* __restrict__ ws, float4* __restrict__ y,
+                 int slices, int mk4) {
+  const int e = blockIdx.x * RED_THREADS + threadIdx.x;
+  if (e >= mk4) return;
+  float4 a = __ldg(ws + e);
+#pragma unroll 8
+  for (int s = 1; s < slices; ++s) {            // loads overlap, adds in order
+    const float4 b = __ldg(ws + (size_t)s * mk4 + e);
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  y[e] = a;
+}
+
+__device__ __forceinline__ void store_tile(const float (&acc)[4][4],
+                                           float* __restrict__ out, int m0,
+                                           int k0, int m, int k, int tx,
+                                           int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + tx + 16 * j;
+      if (col < k) out[(size_t)row * k + col] = acc[i][j];
+    }
+  }
+}
+
+// SPLIT: write the accumulator to out + s * M * K at the end of slice s
+// (every slice_groups groups) and restart it from 0; else write y once.
+// The minimum of one block per SM lets ptxas take the ~90 registers the
+// loop nest needs; without it, it packs 64 and spills 12 bytes.
+template <typename T, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, 1)
 nm_spmm_naive_kernel(const T* __restrict__ x,
                      const float* __restrict__ values,
                      const int8_t* __restrict__ indices,
-                     float* __restrict__ y, int m, int n, int k, int n_sel,
-                     int m_group) {
+                     float* __restrict__ out, int m, int n, int k, int n_sel,
+                     int m_group, int slice_groups) {
   __shared__ float xs[TM][XC + 1];
   __shared__ float vs[XC][TK];
   __shared__ int8_t is[XC][TK];
@@ -165,6 +369,7 @@ nm_spmm_naive_kernel(const T* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
+  [[maybe_unused]] int slice = 0;          // slice of the current run
   for (int g0 = 0; g0 < groups; g0 += gc) {
     const int gcur = min(gc, groups - g0);
     const int xw = gcur * m_group;
@@ -217,67 +422,107 @@ nm_spmm_naive_kernel(const T* __restrict__ x,
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
-  }
-
+    if constexpr (SPLIT) {
+      if (g0 + gcur == min(groups, (slice + 1) * slice_groups)) {  // end
+        store_tile(acc, out + (size_t)slice * m * k, m0, k0, m, k, tx, ty);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= m) continue;
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      if (col < k) y[(size_t)row * k + col] = acc[i][j];
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        ++slice;
+      }
     }
   }
+  if constexpr (!SPLIT) store_tile(acc, out, m0, k0, m, k, tx, ty);
 }
 
+template <typename T, int MT>
+void launch_small_m(dim3 grid, int smem, cudaStream_t stream, const void* x,
+                    const void* values, const void* indices, float* out,
+                    int m, int n, int k, int n_sel, int m_group,
+                    int slice_groups) {
+  nm_spmm_small_m_kernel<T, MT><<<grid, SK_THREADS, smem, stream>>>(
+      (const T*)x, (const float*)values, (const int8_t*)indices, out, m, n, k,
+      n_sel, m_group, slice_groups);
+}
+
+enum Entry { PREFILL, SMALL_M, NAIVE };
+
+// ws: the (slices, M, K) fp32 workspace when slices > 1 (unused else).
+// Refuses (cudaErrorInvalidValue) a split the entry cannot follow: the
+// prefill entry takes one slice, the naive one slices of whole runs, and
+// the reduce kernel K % 4 == 0.
 template <typename T>
 int launch(const void* x, const void* values, const void* indices, void* y,
-           int m, int n, int k, int n_sel, int m_group, bool naive,
-           void* stream) {
+           void* ws, int m, int n, int k, int n_sel, int m_group, int slices,
+           int slice_groups, Entry entry, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || m_group < 1 || m_group > XC ||
-      n_sel < 1 || n_sel > m_group || n % m_group)
+      n_sel < 1 || n_sel > m_group || n % m_group || slice_groups < 1)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((k + TK - 1) / TK, (m + TM - 1) / TM);
-  if (naive)
-    nm_spmm_naive_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  const int groups = n / m_group;
+  if (slices != (groups + slice_groups - 1) / slice_groups ||
+      (slices > 1 && (entry == PREFILL || k % 4)) ||
+      (entry == NAIVE && slices > 1 && slice_groups % (XC / m_group)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* out = slices > 1 ? (float*)ws : (float*)y;
+  if (entry == NAIVE) {
+    dim3 grid((k + TK - 1) / TK, (m + TM - 1) / TM);
+    if (slices > 1)
+      nm_spmm_naive_kernel<T, true><<<grid, THREADS, 0, st>>>(
+          (const T*)x, (const float*)values, (const int8_t*)indices, out, m,
+          n, k, n_sel, m_group, slice_groups);
+    else
+      nm_spmm_naive_kernel<T, false><<<grid, THREADS, 0, st>>>(
+          (const T*)x, (const float*)values, (const int8_t*)indices, out, m,
+          n, k, n_sel, m_group, slice_groups);
+  } else if (entry == SMALL_M) {
+    const int mt = m <= 1 ? 1 : m <= 2 ? 2 : m <= 4 ? 4 : m <= 8 ? 8 : 16;
+    const long smem =
+        (long)mt * std::min(slice_groups, groups) * m_group * sizeof(float);
+    if (m > SK_MAX_M || k % 4 || smem > SK_SMEM || (uintptr_t)values % 16 ||
+        (uintptr_t)indices % 4)
+      return (int)cudaErrorInvalidValue;
+    dim3 grid((k + SK_TK - 1) / SK_TK, slices);
+    void (*go)(dim3, int, cudaStream_t, const void*, const void*,
+               const void*, float*, int, int, int, int, int, int);
+    switch (mt) {
+      case 1: go = launch_small_m<T, 1>; break;
+      case 2: go = launch_small_m<T, 2>; break;
+      case 4: go = launch_small_m<T, 4>; break;
+      case 8: go = launch_small_m<T, 8>; break;
+      default: go = launch_small_m<T, 16>;
+    }
+    go(grid, (int)smem, st, x, values, indices, out, m, n, k, n_sel,
+       m_group, slice_groups);
+  } else {
+    dim3 grid((k + TK - 1) / TK, (m + TM - 1) / TM);
+    nm_spmm_kernel<T><<<grid, THREADS, 0, st>>>(
         (const T*)x, (const float*)values, (const int8_t*)indices, (float*)y,
         m, n, k, n_sel, m_group);
-  else
-    nm_spmm_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const T*)x, (const float*)values, (const int8_t*)indices, (float*)y,
-        m, n, k, n_sel, m_group);
+  }
+  int err = (int)cudaGetLastError();
+  if (err || slices == 1) return err;
+  const int mk4 = m * k / 4;
+  nm_reduce_kernel<<<(mk4 + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0,
+                     st>>>((const float4*)ws, (float4*)y, slices, mk4);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int nm_spmm_f32(const void* x, const void* values,
-                           const void* indices, void* y, int m, int n, int k,
-                           int n_sel, int m_group, void* stream) {
-  return launch<float>(x, values, indices, y, m, n, k, n_sel, m_group, false,
-                       stream);
-}
+#define NM_ENTRY(name, T, entry)                                          \
+  extern "C" int name(const void* x, const void* values, const void* indices, \
+                      void* y, void* ws, int m, int n, int k, int n_sel,      \
+                      int m_group, int slices, int slice_groups,              \
+                      void* stream) {                                         \
+    return launch<T>(x, values, indices, y, ws, m, n, k, n_sel, m_group,      \
+                     slices, slice_groups, entry, stream);                    \
+  }
 
-extern "C" int nm_spmm_bf16(const void* x, const void* values,
-                            const void* indices, void* y, int m, int n,
-                            int k, int n_sel, int m_group, void* stream) {
-  return launch<__nv_bfloat16>(x, values, indices, y, m, n, k, n_sel,
-                               m_group, false, stream);
-}
-
-extern "C" int nm_spmm_naive_f32(const void* x, const void* values,
-                                 const void* indices, void* y, int m, int n,
-                                 int k, int n_sel, int m_group,
-                                 void* stream) {
-  return launch<float>(x, values, indices, y, m, n, k, n_sel, m_group, true,
-                       stream);
-}
-
-extern "C" int nm_spmm_naive_bf16(const void* x, const void* values,
-                                  const void* indices, void* y, int m, int n,
-                                  int k, int n_sel, int m_group,
-                                  void* stream) {
-  return launch<__nv_bfloat16>(x, values, indices, y, m, n, k, n_sel,
-                               m_group, true, stream);
-}
+NM_ENTRY(nm_spmm_f32, float, PREFILL)
+NM_ENTRY(nm_spmm_bf16, __nv_bfloat16, PREFILL)
+NM_ENTRY(nm_spmm_small_m_f32, float, SMALL_M)
+NM_ENTRY(nm_spmm_small_m_bf16, __nv_bfloat16, SMALL_M)
+NM_ENTRY(nm_spmm_naive_f32, float, NAIVE)
+NM_ENTRY(nm_spmm_naive_bf16, __nv_bfloat16, NAIVE)

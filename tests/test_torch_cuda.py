@@ -53,8 +53,19 @@ def test_bitmap_kernel_matches_plain(card, m, n, k, bn, bk, density, dtype):
                                   c.k))
 
 
-@pytest.mark.parametrize("m,n,k,n_sel,m_group", [
-    (1, 32, 24, 2, 4), (70, 128, 100, 1, 4), (4, 96, 64, 3, 8)])
+# m, n, k, n_sel, m_group.  M <= 16 takes the small-M entry and, where
+# split_plan gives S > 1, the split reduction: M 1 / 2 / 4 / 8 / 16 (each
+# row template), chatglm3-6b widths (N 4096 at 2:4; N 13696 with a ragged
+# last slice; K 256, K 13696 with a half-dead last tile, ragged K 100),
+# 1:4 and 3:8.  M 17 and 70 take the unsplit prefill entry.
+NM_CASES = [
+    (1, 32, 24, 2, 4), (70, 128, 100, 1, 4), (4, 96, 64, 3, 8),
+    (1, 4096, 256, 2, 4), (4, 4096, 4096, 2, 4), (4, 13696, 4096, 2, 4),
+    (16, 13696, 256, 2, 4), (2, 4096, 13696, 2, 4), (8, 4096, 256, 1, 4),
+    (4, 4096, 100, 1, 4), (4, 2048, 256, 3, 8), (17, 4096, 100, 2, 4)]
+
+
+@pytest.mark.parametrize("m,n,k,n_sel,m_group", NM_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_nm_kernel_matches_plain(card, m, n, k, n_sel, m_group, dtype):
     rng = np.random.default_rng(m + n + k)
@@ -89,11 +100,11 @@ def test_bitmap_naive_equals_pipelined(card, m, n, k, bn, bk, density,
     assert ops.launch_counts()["bitmap_spmm_naive"] == 2
 
 
-@pytest.mark.parametrize("m,n,k,n_sel,m_group", [
-    (1, 32, 24, 2, 4), (70, 128, 100, 1, 4), (4, 96, 64, 3, 8)])
+@pytest.mark.parametrize("m,n,k,n_sel,m_group", NM_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_nm_naive_equals_pipelined(card, m, n, k, n_sel, m_group, dtype):
-    """Ascending n, kept values and exact zeros: bit for bit."""
+    """Ascending n, kept values and exact zeros, the same slices and the
+    same sum of partials: bit for bit."""
     rng = np.random.default_rng(m + n + k + 1)
     w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(card)
     c = ops.compress_nm(w, n_sel, m_group)
