@@ -8,7 +8,9 @@ non-zero exit code when it fails:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 switched off for fp32 matmuls;
-2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc);
+2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc),
+   with ptxas's registers and spills for every entry and a summary line for
+   each instance of the N:M prefill kernel;
 3. sparse kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm``, each
    in its pipelined and its naive (``pipeline=False``) variant, at every
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
@@ -18,8 +20,8 @@ non-zero exit code when it fails:
    slices, grid, partials' bytes): each held to max|y - y_plain| <= 1e-4
    max|y_plain| + 1e-5, the naive result equal to the pipelined one bit
    for bit, timed (the naive variants at bf16 only) beside the plain
-   version, the bound on an H100 SXM and one ``torch.matmul`` over the
-   decompressed weight;
+   version, the bound on an H100 SXM (with the share of it the kernel
+   reaches) and one ``torch.matmul`` over the decompressed weight;
 4. flash attention vs its plain version at chatglm3-6b's attention width
    (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
    bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
@@ -46,6 +48,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -123,12 +126,26 @@ def phase_build() -> None:
     print(f"[build] {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s: "
           f"{', '.join(p.name for p in libs.values())}")
+    prefill = []
     for name, log in build.BUILD_LOG.items():
+        entry = ""
         for line in log.splitlines():
             if "Function properties for" in line:       # names the entry
-                print(f"[build] {name}: {line.split()[-1]}")
+                entry = line.split()[-1]
+                print(f"[build] {name}: {entry}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+                if "nm_spmm_prefill_kernel" in entry:
+                    prefill.append((entry, line.strip()))
+    # one line per prefill instance: Tile<R, WM, WK, MIN_BLOCKS>, x type,
+    # 16-byte (cp.async) or plain staging
+    for entry, line in prefill:
+        r, wm, wk, minb, t, vec = re.search(
+            r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)"
+            r"Lb([01])", entry).groups()
+        print(f"[build] nm_spmm prefill Tile<{r}, {wm}, {wk}, {minb}> x "
+              f"{'bf16' if t != 'f' else 'fp32'} "
+              f"{'cp.async' if vec == '1' else 'plain'} staging: {line}")
 
 
 class _Acc:
@@ -209,7 +226,8 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
         acc[kname].add(key, err, ms, plain_ms, lib_ms, nbytes, flops)
         print(f"[kernels] {kname} {label} M={m} x={str(dtype)[6:]}: "
               f"err {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"library {lib_ms:.4f} ms bound {bound:.4f} ms ({by})")
+              f"library {lib_ms:.4f} ms bound {bound:.4f} ms ({by}; "
+              f"{bound / ms:.1%} of it reached)")
         if dtype != torch.bfloat16:              # naive timed at bf16 only
             a = acc[f"{kname}_naive"]
             a.max_abs_err = max(a.max_abs_err, err_naive)

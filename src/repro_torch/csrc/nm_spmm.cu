@@ -27,19 +27,49 @@
 // position), and the partials are added left to right, s = 0 .. S-1, by
 // nm_reduce_kernel from a workspace (S, M, K) fp32 that the wrapper
 // allocates.  S = 1 at prefill (M > 16, or K not a multiple of 4): one
-// slice, written straight to y, no workspace.  No atomics: deterministic.
+// slice, written straight to y, no partials.  No atomics: deterministic.
 //
-// Pipelined prefill entry (nm_spmm_*).  Each thread block owns one
-// TM x TK output tile in registers (4 x 4 values per thread) and loops over
-// the groups along N in runs of gc groups.  For each run it stages the x
-// slice (TM rows x gc*m_group columns) and the (values, indices) rows of
-// the run in shared memory, then decodes next to the FMA: a kept value at
-// position p of group g multiplies x[row, g*m_group + p], read from shared
-// memory.  The TPU kernel expands each tile to a dense operand by compares
-// only to feed its matrix unit a dense tile; CUDA cores need no dense
-// operand, so the port skips the zeros instead of multiplying them.
-// Out-of-range positions contribute nothing (as with the reference's
-// compare-expand).
+// Pipelined prefill entry (nm_spmm_*): nm_spmm_prefill_kernel.  At M = 512
+// the work is fp32 FMAs, one per kept entry and row.  The TPU kernel expands
+// each tile to a dense operand only to feed its matrix unit; CUDA cores need
+// no dense operand, so the port skips the zeros and gathers x per kept
+// entry.  A gathered x value feeds one FMA and is never reused from a
+// register, so what bounds the kernel is shared memory delivering x: one
+// 16-byte shared load per warp costs the SM about 4 cycles when its lanes
+// touch 4 or more distinct 16-byte words (tools/lds_bench.cu), against 4
+// warp FMAs a cycle.  The design therefore packs as many rows as it can
+// into each load:
+// - x is staged column-major in its own type.  nm_transpose_x_kernel first
+//   copies x into the workspace as (N, mp), mp = M rounded up to PF_MT,
+//   padded rows zero, so a staged x column is TM contiguous elements and one
+//   16-byte load holds 4 fp32 or 8 bf16 rows.  bf16 halves the bytes per
+//   FMA; each value is widened exactly (its 16 bits in the high half of a
+//   word), one integer instruction per value.
+// - A lane owns one output column x R rows in registers and the 32 lanes of
+//   a warp own adjacent columns.  For each kept row (ascending n) a lane
+//   reads its value and index once (masking an out-of-range position to
+//   value 0 at the group's first column, as the earlier entry did), then
+//   its column's R rows of x as R/4 (fp32) or R/8 (bf16) 16-byte loads.
+//   The lanes of a warp walk the same kept row, so they touch at most
+//   m_group x columns; a staged column is TM elements plus 16 bytes, so
+//   those columns start in different banks.
+// - Tiles (BigTile, SmallTile): R = 32 rows a lane, 4 x 2 warps, 128 x 64
+//   outputs a block; grids of fewer than 132 such blocks (K = 256 at
+//   M = 512) take R = 8, one warp row, 8 x 64 outputs, so the card fills.
+// - Staging is asynchronous and double-buffered: runs of PF_XC / m_group
+//   groups (64 x columns, 32 kept rows at 2:4) are copied by 16-byte
+//   cp.async into one of two shared-memory stages (dynamic: 86 KB in all
+//   for fp32 x at 2:4, 54 KB for bf16) while the FMAs read the other; one
+//   barrier per run.  Operands the 16-byte copies cannot take (K % 16 != 0,
+//   values or indices not 16-byte aligned) are staged by plain loads: the
+//   entry picks the way (template flag VEC) from the shape and pointers.
+// - The grid is (M tiles, K tiles) with M fastest: the M tiles of one column
+//   tile run side by side, so the payload comes from HBM about once and from
+//   L2 for the others.
+// The FMAs are the earlier entry's and the naive entry's: one fp32
+// accumulator per output from 0, fmaf(x, value, acc) over the kept entries
+// in ascending n, so the result is theirs bit for bit on finite inputs.
+// Masks sit in the loads and the store, never around the FMAs.
 //
 // Pipelined decode entry (nm_spmm_small_m_*, M <= 16, K % 4 == 0):
 // nm_spmm_small_m_kernel.  At
@@ -60,9 +90,10 @@
 // Ragged K and the tail of a slice are masked in the loads (a dead row is
 // value 0 at an invalid position) and the store, never around the FMAs.
 //
-// Naive entry: the TPU naive kernel's design read for the card, the same
-// output tiles and runs of gc groups (the TPU's N stripes) as the prefill
-// entry, but each run's (values, indices) rows are EXPANDED into a dense
+// Naive entry: the TPU naive kernel's design read for the card, 64 x 64
+// output tiles and runs of gc = 32 / m_group groups (the TPU's N stripes)
+// staged by plain loads; each run's (values, indices) rows are EXPANDED
+// into a dense
 // shared-memory tile of gc*m_group rows by position compares --
 // dense[g*m + p][j] = sum over the group's n_sel entries of (index == p ?
 // value : 0), the TPU `_decode_tile` -- and the tile is then multiplied
@@ -84,10 +115,13 @@
 //
 // What the design leaves on the table: the decode loads are synchronous
 // register loads, not cp.async/TMA rings; the indices travel as int8
-// instead of 2-bit fields; the prefill entry re-streams the payload once
-// per 64-row M tile with scalar loads; and 2:4 in bf16 could run on the
-// sparse tensor cores (mma.sp) after a repack of the indices at compress
-// time.
+// instead of 2-bit fields; the prefill entry spends a 16-byte shared load
+// per 4 (fp32 x) or 8 (bf16 x) FMAs, plus for bf16 one integer widening per
+// FMA, so it cannot pass about a quarter (fp32) or two fifths (bf16) of the
+// fp32 rate; it keeps no split of the reduction (its order is the naive
+// entry's), so the K = 256 roles fill the card only with 8-row tiles; and
+// 2:4 in bf16 could run on the sparse tensor cores (mma.sp) after a repack
+// of the indices at compress time, at another summation order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,10 +131,13 @@
 
 namespace {
 
-constexpr int TM = 64;        // output rows per thread block
-constexpr int TK = 64;        // output columns per thread block
-constexpr int XC = 32;        // x columns (and compressed rows) per run
+constexpr int TM = 64;        // naive entry: output rows per thread block
+constexpr int TK = 64;        // its output columns per thread block
+constexpr int XC = 32;        // its x columns (and compressed rows) per run
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+constexpr int PF_MT = 128;   // prefill: rows of the x copy, a multiple of it
+constexpr int PF_XC = 64;    // x columns per staged run, at most
 
 constexpr int SK_MAX_M = 16;             // largest M (MT) of the small-M entry
 constexpr int SK_THREADS = 64;           // threads of a small-M block
@@ -114,78 +151,226 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// 16 bytes global -> shared without a register; `bytes` 0 fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// xt[c * mp + i] = x[i, c] for i < m, 0 for m <= i < mp: the prefill
+// entry's column-major copy of x, in x's own type, mp a multiple of PF_MT.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-nm_spmm_kernel(const T* __restrict__ x, const float* __restrict__ values,
-               const int8_t* __restrict__ indices, float* __restrict__ y,
-               int m, int n, int k, int n_sel, int m_group) {
-  __shared__ float xs[TM][XC + 1];
-  __shared__ float vs[XC][TK];
-  __shared__ int8_t is[XC][TK];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * TK;
-  const int m0 = blockIdx.y * TM;
+__global__ void __launch_bounds__(256)
+nm_transpose_x_kernel(const T* __restrict__ x, T* __restrict__ xt, int m,
+                      int mp, int n) {
+  __shared__ T t[32][33];
+  const int c0 = blockIdx.x * 32, i0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int i = i0 + r, c = c0 + threadIdx.x;
+    t[r][threadIdx.x] = i < m && c < n ? x[(size_t)i * n + c] : T(0.f);
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int c = c0 + r;
+    if (c < n) xt[(size_t)c * mp + i0 + threadIdx.x] = t[threadIdx.x][r];
+  }
+}
+
+// A prefill tile: WM x WK warps; a lane owns one output column x R rows,
+// so a block owns TM = R * WM rows x TK = 32 * WK columns.  MIN_BLOCKS per
+// SM caps the registers at 65536 / (NT * MIN_BLOCKS).
+template <int R_, int WM_, int WK_, int MIN_BLOCKS_>
+struct Tile {
+  static constexpr int R = R_, WM = WM_, WK = WK_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int NT = 32 * WM * WK, TM = R * WM, TK = 32 * WK;
+};
+using BigTile = Tile<32, 4, 2, 2>;     // 128 x 64, 256 threads
+using SmallTile = Tile<8, 1, 2, 8>;    // 8 x 64, 64 threads: small grids
+
+// Elements of T in a staged x column: TM plus 16 bytes, so that column c
+// starts 4c words (mod 32) into the banks and the <= 8 consecutive columns
+// of one group fall in different banks.
+template <class TT, typename T>
+__host__ __device__ constexpr int x_stride() {
+  return TT::TM + 16 / (int)sizeof(T);
+}
+
+// Bytes of one stage: x (PF_XC columns), values and indices of `rows` kept
+// rows over TK columns; a block holds two.
+template <class TT, typename T>
+inline int prefill_stage_bytes(int xcols, int rows) {
+  return xcols * x_stride<TT, T>() * (int)sizeof(T) + rows * TT::TK * 5;
+}
+
+// Issue the copies of run `g0` (gcur groups) into one stage: x columns
+// [g0 * m_group, +xw) of the block's TM rows (column-major) and the run's
+// kept rows of values / indices over the block's TK columns (row-major).
+// VEC: 16-byte cp.async, columns past K zero-filled (K % 16 == 0 and
+// 16-byte aligned rows); else plain loads.
+template <class TT, typename T, bool VEC>
+__device__ __forceinline__ void stage_run(
+    T* __restrict__ xs, float* __restrict__ vs, int8_t* __restrict__ is,
+    const T* __restrict__ xt, const float* __restrict__ values,
+    const int8_t* __restrict__ indices, int mp, int k, int m0, int k0,
+    int g0, int gcur, int n_sel, int m_group) {
+  constexpr int TK = TT::TK, NT = TT::NT, EQ = 16 / (int)sizeof(T);
+  constexpr int XQ = TT::TM / EQ, XS = x_stride<TT, T>();
+  const int xw = gcur * m_group, rows = gcur * n_sel;
+  const T* xsrc = xt + (size_t)g0 * m_group * mp + m0;
+  for (int e = threadIdx.x; e < xw * XQ; e += NT) {
+    const int c = e / XQ, r = e - c * XQ;
+    cp_async16(xs + c * XS + EQ * r, xsrc + (size_t)c * mp + EQ * r, 16);
+  }
+  const size_t row0 = (size_t)g0 * n_sel * k;
+  if constexpr (VEC) {
+    constexpr int VQ = TK / 4, IQ = TK / 16;
+    for (int e = threadIdx.x; e < rows * VQ; e += NT) {
+      const int q = e / VQ, j = 4 * (e - q * VQ);
+      const bool in = k0 + j < k;
+      cp_async16(vs + q * TK + j,
+                 values + row0 + (size_t)q * k + (in ? k0 + j : 0),
+                 in ? 16 : 0);
+    }
+    for (int e = threadIdx.x; e < rows * IQ; e += NT) {
+      const int q = e / IQ, j = 16 * (e - q * IQ);
+      const bool in = k0 + j < k;
+      cp_async16(is + q * TK + j,
+                 indices + row0 + (size_t)q * k + (in ? k0 + j : 0),
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * TK; e += NT) {
+      const int q = e / TK, j = e - q * TK;
+      const bool in = k0 + j < k;
+      const size_t at = row0 + (size_t)q * k + k0 + j;
+      vs[e] = in ? values[at] : 0.f;
+      is[e] = in ? indices[at] : (int8_t)0;
+    }
+  }
+}
+
+// acc[i] += x[i] * b over the 16 staged bytes of one x column at xc: four
+// fp32 rows, or eight bf16 rows, each widened to fp32 exactly by placing
+// its 16 bits in the high half of a word.
+__device__ __forceinline__ void fma_strip(const float* xc, float b,
+                                          float* acc) {
+  const float4 t = *reinterpret_cast<const float4*>(xc);
+  acc[0] = fmaf(t.x, b, acc[0]);
+  acc[1] = fmaf(t.y, b, acc[1]);
+  acc[2] = fmaf(t.z, b, acc[2]);
+  acc[3] = fmaf(t.w, b, acc[3]);
+}
+__device__ __forceinline__ void fma_strip(const __nv_bfloat16* xc, float b,
+                                          float* acc) {
+  const uint4 t = *reinterpret_cast<const uint4*>(xc);
+  const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    acc[2 * u] = fmaf(__uint_as_float(w[u] << 16), b, acc[2 * u]);
+    acc[2 * u + 1] =
+        fmaf(__uint_as_float(w[u] & 0xffff0000u), b, acc[2 * u + 1]);
+  }
+}
+
+// Prefill entry: one TT::TM x TT::TK output tile per block, grid (M tiles,
+// K tiles) with M fastest.  xt: nm_transpose_x_kernel's (N, mp) copy of x.
+// Warp (wm, wk) owns rows [R wm, +R) and columns [32 wk, +32) of the tile.
+template <class TT, typename T, bool VEC>
+__global__ void __launch_bounds__(TT::NT, TT::MIN_BLOCKS)
+nm_spmm_prefill_kernel(const T* __restrict__ xt,
+                       const float* __restrict__ values,
+                       const int8_t* __restrict__ indices,
+                       float* __restrict__ y, int m, int mp, int n, int k,
+                       int n_sel, int m_group, int run_groups) {
+  constexpr int R = TT::R, TK = TT::TK, XS = x_stride<TT, T>();
+  constexpr int EQ = 16 / (int)sizeof(T);          // rows per 16-byte load
+  extern __shared__ float4 smem4[];
+  char* const smem = reinterpret_cast<char*>(smem4);
+  const int xbytes = run_groups * m_group * XS * (int)sizeof(T);
+  const int rows_all = run_groups * n_sel;          // kept rows of a run
+  const int stage_bytes = xbytes + rows_all * TK * 5;
   const int groups = n / m_group;
-  const int gc = XC / m_group;             // groups per staged run
+  const int runs = (groups + run_groups - 1) / run_groups;
+  const int m0 = blockIdx.x * TT::TM, k0 = blockIdx.y * TK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = (warp % TT::WK) * 32 + lane;
+  const int r0 = (warp / TT::WK) * R;
 
-  float acc[4][4];
+  float acc[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
 
-  for (int g0 = 0; g0 < groups; g0 += gc) {
-    const int gcur = min(gc, groups - g0);
-    const int xw = gcur * m_group;         // x columns of this run
-    const int vr = gcur * n_sel;           // compressed rows of this run
-    const size_t xbase = (size_t)g0 * m_group;
-    const size_t vbase = (size_t)g0 * n_sel;
-    for (int e = tid; e < TM * XC; e += THREADS) {
-      const int i = e / XC, c = e % XC;
-      float v = 0.f;
-      if (m0 + i < m && c < xw) v = to_f32(x[(size_t)(m0 + i) * n + xbase + c]);
-      xs[i][c] = v;
-    }
-    for (int e = tid; e < XC * TK; e += THREADS) {
-      const int q = e / TK, j = e % TK;
-      float v = 0.f;
-      int8_t p = 0;
-      if (q < vr && k0 + j < k) {
-        const size_t at = (vbase + q) * (size_t)k + k0 + j;
-        v = values[at];
-        p = indices[at];
-      }
-      vs[q][j] = v;
-      is[q][j] = p;
-    }
-    __syncthreads();
-    for (int q = 0; q < vr; ++q) {
-      const int base = (q / n_sel) * m_group;
+  auto issue = [&](int run) {
+    char* st = smem + (run & 1) * stage_bytes;
+    float* vs = reinterpret_cast<float*>(st + xbytes);
+    const int g0 = run * run_groups;
+    stage_run<TT, T, VEC>(reinterpret_cast<T*>(st), vs,
+                          reinterpret_cast<int8_t*>(vs + rows_all * TK), xt,
+                          values, indices, mp, k, m0, k0, g0,
+                          min(run_groups, groups - g0), n_sel, m_group);
+  };
+  issue(0);
+  cp_async_commit();
+  for (int run = 0; run < runs; ++run) {
+    cp_async_wait_all();
+    __syncthreads();       // the run has landed; the other stage is free
+    if (run + 1 < runs) issue(run + 1);  // in flight during this run's FMAs
+    cp_async_commit();
+    const char* st = smem + (run & 1) * stage_bytes;
+    const T* xb = reinterpret_cast<const T*>(st) + r0;
+    const float* vs = reinterpret_cast<const float*>(st + xbytes);
+    const unsigned char* is =
+        reinterpret_cast<const unsigned char*>(vs + rows_all * TK);
+    const int rows = min(run_groups, groups - run * run_groups) * n_sel;
+    int base = 0, slot = 0;                // group column and slot of row q
+#pragma unroll 2
+    for (int q = 0; q < rows; ++q) {
+      const unsigned p = is[q * TK + col];
+      const bool ok = p < (unsigned)m_group;
+      const float b = ok ? vs[q * TK + col] : 0.f;
+      const T* xc = xb + (base + (ok ? (int)p : 0)) * XS;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = is[q][tx + 16 * j];
-        const bool ok = (unsigned)p < (unsigned)m_group;
-        const float b = ok ? vs[q][tx + 16 * j] : 0.f;
-        const int col = ok ? base + p : 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[i][j] = fmaf(xs[ty + 16 * i][col], b, acc[i][j]);
-      }
+      for (int i = 0; i < R / EQ; ++i) fma_strip(xc + EQ * i, b, acc + EQ * i);
+      const bool next = ++slot == n_sel;   // row q+1 starts a group
+      slot = next ? 0 : slot;
+      base += next ? m_group : 0;
     }
-    __syncthreads();
   }
 
+  const int c = k0 + col;
+  if (c < k) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      if (col < k) y[(size_t)row * k + col] = acc[i][j];
+    for (int i = 0; i < R; ++i) {
+      const int row = m0 + r0 + i;
+      if (row < m) y[(size_t)row * k + c] = acc[i];
     }
   }
+}
+
+template <class TT, typename T, bool VEC>
+int launch_prefill(const T* xt, const void* values, const void* indices,
+                   float* y, int m, int mp, int n, int k, int n_sel,
+                   int m_group, int run_groups, cudaStream_t st) {
+  const int smem = 2 * prefill_stage_bytes<TT, T>(run_groups * m_group,
+                                                  run_groups * n_sel);
+  cudaError_t e = cudaFuncSetAttribute(
+      nm_spmm_prefill_kernel<TT, T, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((m + TT::TM - 1) / TT::TM, (k + TT::TK - 1) / TT::TK);
+  nm_spmm_prefill_kernel<TT, T, VEC><<<grid, TT::NT, smem, st>>>(
+      xt, (const float*)values, (const int8_t*)indices, y, m, mp, n, k, n_sel,
+      m_group, run_groups);
+  return (int)cudaGetLastError();
 }
 
 // The next SK_ROWS kept rows, of which `left` are in the slice: one float4
@@ -448,8 +633,9 @@ void launch_small_m(dim3 grid, int smem, cudaStream_t stream, const void* x,
 
 enum Entry { PREFILL, SMALL_M, NAIVE };
 
-// ws: the (slices, M, K) fp32 workspace when slices > 1 (unused else).
-// Refuses (cudaErrorInvalidValue) a split the entry cannot follow: the
+// ws: the (slices, M, K) fp32 workspace when slices > 1; for the prefill
+// entry the (N, ceil(M / PF_MT) * PF_MT) fp32 column-major copy of x;
+// unused else.  Refuses (cudaErrorInvalidValue) a split the entry cannot follow: the
 // prefill entry takes one slice, the naive one slices of whole runs, and
 // the reduce kernel K % 4 == 0.
 template <typename T>
@@ -496,10 +682,25 @@ int launch(const void* x, const void* values, const void* indices, void* y,
     go(grid, (int)smem, st, x, values, indices, out, m, n, k, n_sel,
        m_group, slice_groups);
   } else {
-    dim3 grid((k + TK - 1) / TK, (m + TM - 1) / TM);
-    nm_spmm_kernel<T><<<grid, THREADS, 0, st>>>(
-        (const T*)x, (const float*)values, (const int8_t*)indices, (float*)y,
-        m, n, k, n_sel, m_group);
+    const int mp = (m + PF_MT - 1) / PF_MT * PF_MT;
+    const int run_groups = std::max(1, PF_XC / m_group);
+    const bool vec = k % 16 == 0 && (uintptr_t)values % 16 == 0 &&
+                     (uintptr_t)indices % 16 == 0;
+    // the big tile unless its grid has fewer blocks than the card's 132 SMs
+    const bool big = (long)((m + BigTile::TM - 1) / BigTile::TM) *
+                         ((k + BigTile::TK - 1) / BigTile::TK) >= 132;
+    T* xt = (T*)ws;                          // (n, mp) in x's type
+    nm_transpose_x_kernel<T><<<dim3((n + 31) / 32, mp / 32), dim3(32, 8), 0,
+                               st>>>((const T*)x, xt, m, mp, n);
+    int (*go)(const T*, const void*, const void*, float*, int, int, int, int,
+              int, int, int, cudaStream_t) =
+        big ? (vec ? launch_prefill<BigTile, T, true>
+                   : launch_prefill<BigTile, T, false>)
+            : (vec ? launch_prefill<SmallTile, T, true>
+                   : launch_prefill<SmallTile, T, false>);
+    const int e = go(xt, values, indices, (float*)y, m, mp, n, k, n_sel,
+                     m_group, run_groups, st);
+    if (e) return e;
   }
   int err = (int)cudaGetLastError();
   if (err || slices == 1) return err;

@@ -9,7 +9,8 @@ densely).  Both follow one summation order, :func:`split_plan`: at decode
 (M ≤ 16) the reduction is split into slices whose partials a second kernel
 adds in order.  The wrapper picks the entry and the order, checks device,
 dtype, shape, contiguity and alignment, allocates the output and the
-partials' workspace and launches on PyTorch's current stream; the
+workspace (:func:`workspace_numel`: the partials at decode, a column-major
+copy of x at prefill) and launches on PyTorch's current stream; the
 source's note states the designs and bound.
 """
 
@@ -32,6 +33,9 @@ SMALL_M_TILE_K = 256
 SPLIT_MIN_BLOCKS = 4 * 132
 #: x columns of one slice at most: 48 KB of fp32 at 16 rows (``SK_SMEM``)
 SPLIT_MAX_SLICE_COLS = 768
+#: the prefill entry pads its copy of x to a multiple of this many rows
+#: (``PF_MT``)
+PREFILL_TILE_M = 128
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
@@ -119,6 +123,18 @@ def select_entry(x: torch.Tensor, values: torch.Tensor,
     return (entry, *split_plan(m, n, k, n_sel, m_group))
 
 
+def workspace_numel(entry: str, m: int, n: int, k: int, slices: int) -> int:
+    """fp32 elements of the workspace ``entry`` needs: the (S, M, K)
+    partials of a split reduction, room for the prefill entry's (N, M
+    rounded up to ``PREFILL_TILE_M``) column-major copy of x in x's own
+    type (fp32 or bf16), else none."""
+    if slices > 1:
+        return slices * m * k
+    if entry == "nm_spmm":
+        return n * _cdiv(m, PREFILL_TILE_M) * PREFILL_TILE_M
+    return 0
+
+
 def launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
            n_sel: int, m_group: int, pipeline: bool = True) -> torch.Tensor:
     """Y = X @ expand(values, indices) on the card.  x: (M, N) fp32 or
@@ -129,8 +145,9 @@ def launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     m, n = x.shape
     k = values.shape[1]
     y = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    ws = torch.empty((slices, m, k), dtype=torch.float32,
-                     device=x.device) if slices > 1 else y
+    numel = workspace_numel(entry, m, n, k, slices)
+    ws = torch.empty(numel, dtype=torch.float32, device=x.device) \
+        if numel else y
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _fn(x.dtype, entry)(x.data_ptr(), values.data_ptr(),

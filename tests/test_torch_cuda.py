@@ -5,6 +5,8 @@ and no JAX:  ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Without a CUDA device every test skips: the kernels have no CPU mode.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -57,12 +59,18 @@ def test_bitmap_kernel_matches_plain(card, m, n, k, bn, bk, density, dtype):
 # split_plan gives S > 1, the split reduction: M 1 / 2 / 4 / 8 / 16 (each
 # row template), chatglm3-6b widths (N 4096 at 2:4; N 13696 with a ragged
 # last slice; K 256, K 13696 with a half-dead last tile, ragged K 100),
-# 1:4 and 3:8.  M 17 and 70 take the unsplit prefill entry.
+# 1:4 and 3:8.  M > 16 takes the prefill entry: serving's M 512 with wk/wv's
+# K 256, M ragged against its 128-row tile (17, 33, 70, 129, 200), a long N,
+# K ragged against its 128-column tile or not a multiple of 16 (100, 130,
+# 384, 1000: staged by plain loads), 13 groups of 8 (a ragged last run) and
+# the largest group, 16:32.
 NM_CASES = [
     (1, 32, 24, 2, 4), (70, 128, 100, 1, 4), (4, 96, 64, 3, 8),
     (1, 4096, 256, 2, 4), (4, 4096, 4096, 2, 4), (4, 13696, 4096, 2, 4),
     (16, 13696, 256, 2, 4), (2, 4096, 13696, 2, 4), (8, 4096, 256, 1, 4),
-    (4, 4096, 100, 1, 4), (4, 2048, 256, 3, 8), (17, 4096, 100, 2, 4)]
+    (4, 4096, 100, 1, 4), (4, 2048, 256, 3, 8), (17, 4096, 100, 2, 4),
+    (512, 4096, 256, 2, 4), (200, 13696, 384, 2, 4), (129, 1024, 1000, 1, 4),
+    (64, 104, 64, 3, 8), (33, 256, 130, 16, 32)]
 
 
 @pytest.mark.parametrize("m,n,k,n_sel,m_group", NM_CASES)
@@ -114,6 +122,32 @@ def test_nm_naive_equals_pipelined(card, m, n, k, n_sel, m_group, dtype):
     _close(y_naive, ref.nm_spmm_ref(x, c.values, c.indices, n_sel, m_group))
     assert torch.equal(y_naive, ops.nm_spmm(x, c))
     assert ops.launch_counts()["nm_spmm_naive"] == 1
+
+
+@pytest.mark.parametrize("v_off,i_off", [(1, 0), (0, 1), (3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_prefill_takes_misaligned_operands(card, v_off, i_off, dtype):
+    """Values and indices at offsets off 16 bytes take the prefill entry's
+    plain-load staging; the result equals the 16-byte staging's bit for
+    bit."""
+    m, n, k = 70, 512, 256
+    rng = np.random.default_rng(m + n + k + v_off + i_off)
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(card)
+    c = ops.compress_nm(w, 2, 4)
+    rows = c.values.shape[0]
+    v = torch.empty(rows * k + v_off, device=card)[v_off:].view(rows, k)
+    i = torch.empty(rows * k + i_off, dtype=torch.int8,
+                    device=card)[i_off:].view(rows, k)
+    v.copy_(c.values)
+    i.copy_(c.indices)
+    assert v.data_ptr() % 16 or i.data_ptr() % 16
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)) \
+        .to(card, dtype)
+    y = ops.nm_spmm(x, c)
+    y_off = ops.nm_spmm(x, dataclasses.replace(c, values=v, indices=i))
+    torch.cuda.synchronize()
+    assert torch.equal(y_off, y)
+    assert ops.launch_counts()["nm_spmm"] == 2
 
 
 # bh, sq, skv, d: the reference's test shapes, Sq != Skv, ragged tiles
