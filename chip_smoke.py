@@ -10,15 +10,17 @@ non-zero exit code when it fails:
    CUDA versions; TF32 switched off for fp32 matmuls;
 2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc),
    with ptxas's registers and spills for every entry and a summary line for
-   each instance of the N:M prefill kernel;
+   each instance of the N:M prefill kernel and of the bitmap kernels
+   (decode MT, tiled, naive, naive split, reduce);
 3. sparse kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm``, each
    in its pipelined and its naive (``pipeline=False``) variant, at every
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
    plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4
    and 1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in
-   fp32 and bf16 (with each N:M role's split of the reduction at M = 4:
-   slices, grid, partials' bytes): each held to max|y - y_plain| <= 1e-4
-   max|y_plain| + 1e-5, the naive result equal to the pipelined one bit
+   fp32 and bf16 (with each role's split of the reduction at M = 4,
+   bitmap and N:M: slices, grid, partials' bytes): each held to
+   max|y - y_plain| <= 1e-4 max|y_plain| + 1e-5, the naive result equal
+   to the pipelined one bit
    for bit, timed (the naive variants at bf16 only) beside the plain
    version, the bound on an H100 SXM (with the share of it the kernel
    reaches) and one ``torch.matmul`` over the decompressed weight;
@@ -126,7 +128,7 @@ def phase_build() -> None:
     print(f"[build] {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s: "
           f"{', '.join(p.name for p in libs.values())}")
-    prefill = []
+    lines: dict[str, list[str]] = {}       # entry -> its ptxas lines
     for name, log in build.BUILD_LOG.items():
         entry = ""
         for line in log.splitlines():
@@ -135,17 +137,33 @@ def phase_build() -> None:
                 print(f"[build] {name}: {entry}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-                if "nm_spmm_prefill_kernel" in entry:
-                    prefill.append((entry, line.strip()))
-    # one line per prefill instance: Tile<R, WM, WK, MIN_BLOCKS>, x type,
-    # 16-byte (cp.async) or plain staging
-    for entry, line in prefill:
-        r, wm, wk, minb, t, vec = re.search(
-            r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)"
-            r"Lb([01])", entry).groups()
-        print(f"[build] nm_spmm prefill Tile<{r}, {wm}, {wk}, {minb}> x "
-              f"{'bf16' if t != 'f' else 'fp32'} "
-              f"{'cp.async' if vec == '1' else 'plain'} staging: {line}")
+                lines.setdefault(entry, []).append(line.strip())
+
+    def xt(t):
+        return "bf16" if t != "f" else "fp32"
+
+    # one summary line per instance of the redesigned entries: the N:M
+    # prefill kernel (Tile<R, WM, WK, MIN_BLOCKS>, x type, 16-byte cp.async
+    # or plain staging) and the bitmap kernels (decode MT, tiled / naive /
+    # naive split, reduce)
+    summaries = (
+        (r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)"
+         r"Lb([01])",
+         lambda r, wm, wk, minb, t, vec: (
+             f"nm_spmm prefill Tile<{r}, {wm}, {wk}, {minb}> x {xt(t)} "
+             f"{'cp.async' if vec == '1' else 'plain'} staging")),
+        (r"bitmap_spmm_small_m_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+         lambda t, mt: f"bitmap_spmm decode MT={mt} x {xt(t)}"),
+        (r"bitmap_spmm_kernelI(13__nv_bfloat16|f)Lb([01])ELb([01])E",
+         lambda t, naive, split: (
+             f"bitmap_spmm {'tiled' if naive == '0' else 'naive'}"
+             f"{' split' if split == '1' else ''} x {xt(t)}")),
+        (r"bitmap_reduce_kernel", lambda: "bitmap_spmm reduce"))
+    for entry, found in lines.items():
+        for pattern, label in summaries:
+            hit = re.search(pattern, entry)
+            if hit:
+                print(f"[build] {label(*hit.groups())}: {'; '.join(found)}")
 
 
 class _Acc:
@@ -184,6 +202,7 @@ def _check(name, y, y_plain) -> float:
 def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
     import torch
     from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import bitmap_spmm as bm_cuda
     from repro_torch.kernels import nm_spmm as nm_cuda
     from repro_torch.kernels import ops, ref
     from repro_torch.sparse import masks
@@ -252,6 +271,18 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
             nnzb = int(c.counts.sum())
             rows_used = int(torch.unique(c.row_ids[:nnzb]).numel())
             nbytes_w = nnzb * bn * bk * 4 + (2 * c.counts.numel() + nnzb) * 4
+            slices, pieces = bm_cuda.split_plan(M_DECODE, bn, bk, role.k,
+                                                c.max_per_col)
+            tiles = role.k // bk * -(-bk // bm_cuda.SMALL_M_TILE_K)
+            part = slices * M_DECODE * role.k * 4 if slices > 1 else 0
+            if nnzb:
+                print(f"[kernels] bitmap_spmm {role.role} ({bn}x{bk} {tag}) "
+                      f"M={M_DECODE}: {slices} slices of {pieces} pieces "
+                      f"(up to {pieces * bm_cuda.PIECE_ROWS} kept rows), "
+                      f"grid {tiles} x {slices} = {tiles * slices} blocks, "
+                      f"partials {part} B (round trip "
+                      f"{2 * part / (nnzb * bn * bk * 4):.2%} of the "
+                      f"payload)")
             for m in (M_DECODE, M_PREFILL):
                 for dtype in (torch.float32, torch.bfloat16):
                     run("bitmap_spmm", f"{role.role} ({bn}x{bk} {tag})", m,
@@ -400,8 +431,8 @@ def _trace_decode(cm, pruned, prompts, label: str, step_ms: float) -> None:
     print(f"[serve {label}] trace of {TRACE_STEPS} decode steps: device "
           f"busy {busy:.3f} ms/step, idle share {1 - busy / step_ms:.4f} "
           f"of the untraced {step_ms:.3f} ms/token; "
-          f"{sum(c for _, c, _ in kernels)} device ops; host clock under "
-          f"the profiler {1e3 * wall:.3f} ms/step")
+          f"{sum(c for _, c, _ in kernels) / TRACE_STEPS:.0f} device ops "
+          f"a step; host clock under the profiler {1e3 * wall:.3f} ms/step")
     for us, count, name in kernels[:6]:
         print(f"[serve {label}]   {us / 1e3 / TRACE_STEPS:.4f} ms/step "
               f"{count // TRACE_STEPS} calls/step  {name[:90]}")

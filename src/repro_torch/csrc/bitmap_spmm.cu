@@ -1,11 +1,16 @@
 // Block-bitmap compressed matmul for Hopper (sm_90a): Y = X @ W.
 //
-// Two entries, one per Pallas TPU kernel of src/repro/kernels/bitmap_spmm.py:
-//   bitmap_spmm_{f32,bf16}        replaces `_pipelined_kernel` (launched by
-//                                 `_bitmap_spmm_pipelined`, the default path
-//                                 of repro.kernels.ops.bitmap_spmm);
-//   bitmap_spmm_naive_{f32,bf16}  replaces `_kernel` (launched by
-//                                 `bitmap_spmm_pallas` with pipeline=False).
+// Two kernels, one per Pallas TPU kernel of src/repro/kernels/bitmap_spmm.py:
+//   bitmap_spmm_{f32,bf16}          replace `_pipelined_kernel` (launched by
+//   bitmap_spmm_small_m_{f32,bf16}  `_bitmap_spmm_pipelined`, the default
+//                                   path of repro.kernels.ops.bitmap_spmm):
+//                                   the first at prefill, the second at
+//                                   decode;
+//   bitmap_spmm_naive_{f32,bf16}    replaces `_kernel` (launched by
+//                                   `bitmap_spmm_pallas` with
+//                                   pipeline=False).
+// The wrapper (repro_torch/kernels/bitmap_spmm.py) picks the entry and the
+// summation order; the entries only refuse what they cannot run.
 //
 // Format (the B(N1)-B(K1)-None(N2,K2) bitmap, pre-decoded to CSC):
 //   blocks  (nnzb, bn, bk) fp32  non-zero payload blocks, block-column major
@@ -13,50 +18,92 @@
 //   offsets (K/bk,) int32        exclusive cumsum of counts
 //   row_ids (nnzb,) int32        block-row of each stored block
 // x (M, N) is fp32 or bf16 and is converted to fp32 exactly; y (M, K) fp32.
+// The kept rows of block-column kj, in stored order (block t, then row r),
+// are the rows (offsets[kj] + t) * bn + r of blocks viewed as (nnzb*bn, bk):
+// one contiguous run; kept row t * bn + r reads x column row_ids[off+t]*bn+r.
 //
-// Design.  Each thread block owns one TM x tk output tile (tk <= 64 divides
-// bk, so a tile lies in one block-column kj) and keeps it in registers,
-// 4 x 4 values per thread.  It reads its own counts[kj] / offsets[kj] /
-// row_ids and walks ONLY the non-zero blocks of its column, in the stored
-// order.  Within a block it reduces over bn in chunks of BC rows staged in
-// shared memory (x slice and payload slice), masking the ragged last chunk
-// (bn need not be a multiple of BC: 856 = 26*32 + 24) and the ragged M edge
-// (decode runs M = batch).  counts[kj] == 0 writes zeros.  No atomics, so
-// the result is deterministic.  The format block is NOT the CUDA tile:
-// planned blocks are up to 1024 x 13696 (56 MB in fp32), far beyond shared
-// memory, so the output is tiled independently of the block shape.
+// Summation order, shared by all entries (the host function
+// repro_torch.kernels.bitmap_spmm.split_plan picks S and P and passes them
+// in): each kept block's bn rows are cut into pieces of BC = 32 rows, the
+// last one ragged (856 = 26*32 + 24), and a column's pieces, in stored
+// order, into S slices of P pieces; a column with fewer kept blocks than the
+// longest has empty trailing slices, whose partials are zeros.  Each
+// output's slice partial is summed from 0 with fmaf in ascending kept-row
+// order, and the partials are added left to right, s = 0 .. S-1, by
+// bitmap_reduce_kernel from a workspace (S, M, K) fp32 that the wrapper
+// allocates.  S = 1 at prefill (M > 16), and wherever the decode entry
+// cannot take the operands: one slice, written straight to y.  No atomics:
+// deterministic.
 //
-// The naive entry reads the TPU grid (M/bm, K/bk, t_max) for what it does:
-// its sequential third axis becomes a loop over t < t_max inside the thread
+// Tiled entry (bitmap_spmm_*, the prefill path, S = 1): bitmap_spmm_kernel
+// <T, false, false>.  Each thread block owns one TM x tk output tile (tk <=
+// 64 divides bk, so a tile lies in one block-column) and keeps it in
+// registers, 4 x 4 values per thread.  It walks ONLY the non-zero blocks of
+// its column, in stored order; within a block it reduces over bn in chunks
+// of BC rows (the pieces) staged in shared memory (x slice and payload
+// slice), masking the ragged last chunk and the ragged M edge.  counts[kj]
+// == 0 writes zeros.  The format block is NOT the CUDA tile: planned blocks
+// are up to 1024 x 13696 (56 MB in fp32), far beyond shared memory.
+//
+// Decode entry (bitmap_spmm_small_m_*, M <= 16, bk % 4 == 0, blocks 16-byte
+// aligned): bitmap_spmm_small_m_kernel<T, MT>.  The shipped plans have one
+// block-column per role (bk = K), so the tiled grid gives a role K/64 blocks
+// (4 for K = 256), each walking up to 6,848 kept rows with 60 of its 64
+// tile rows idle.  At M = 4 the work is a stream of the payload with 8 FLOPs
+// per kept row and column, so this design is about bytes in flight.  The
+// grid is (column tiles of SK_TK x block-columns, S): a tile never crosses
+// a block-column, since its walk depends on counts[kj]; a ragged last tile
+// (bk = 13696 = 53.5 tiles) is masked at the load (dead threads read a live
+// column) and the store.  A block of SK_THREADS threads stages its slice of
+// x once in shared memory as fp32, column-major ([kept row][MT]), MT = M
+// rounded up to 1, 2, 4, 8 or 16 (a template parameter: no dead rows in the
+// FMA nest; padded rows are zeros, masked at the store), gathering x column
+// row_ids[off + t] * bn + r for kept row (t, r); the staged slice is padded
+// with zero rows to a multiple of SK_ROWS.  A thread owns 4 adjacent output
+// columns x MT rows in registers; per kept row it makes one 16-byte
+// read-only load of the payload, neighbouring threads on neighbouring
+// addresses, SK_ROWS rows per batch, the next batch issued before the
+// current one's FMAs.  Rows past the slice's end load zeros (mask in the
+// load) and meet zero x rows, so no branch sits in the FMA nest.
+//
+// Naive entry: the TPU grid (M/bm, K/bk, t_max) read for what it does: its
+// sequential third axis becomes a loop over t < t_max inside the thread
 // block, with the STATIC bound t_max (a kernel argument, the caller's
 // max-over-layers bound) instead of counts[kj].  Every step reads the block
 // at min(offsets[kj] + t, nnzb - 1) and its row id, as the TPU BlockSpec
 // index maps fetch it (so nothing reads past nnzb; density 0 stores one
 // padded zero block with all counts 0), and a step with t >= counts[kj]
 // runs no FMA.  Live steps are exactly t < counts[kj] and come first, so
-// both entries are one template: the naive instance walks the live steps
-// with kernel 1's loop (same tiling, BC chunking and FMA order: at fp32
-// the two entries are bit-identical, as the reference pins its two TPU
-// kernels) and then, under `if constexpr`, reads the masked steps'
-// blocks.  No branch sits in the FMA loop nest: versions with one (a
+// the naive instance walks them with the tiled entry's loop (same tiling,
+// BC chunking and FMA order) and then, under `if constexpr`, reads the
+// masked steps' blocks.  With S > 1 (SPLIT) it writes its accumulator to
+// the workspace at each slice boundary (every P chunks) and restarts it
+// from 0, then writes the column's empty trailing slices as zeros; the
+// same reduce adds the partials.  Its padded chunk rows add fmaf(0, 0, acc)
+// == acc, so it equals the pipelined entries bit for bit on finite inputs,
+// as the reference pins its two TPU kernels.  It takes no split
+// parallelism.  No branch sits in the FMA loop nest: versions with one (a
 // shared step function, or an `if (live)` around the FMAs) compiled to 48
-// registers with spills and ran the affected entry at twice kernel 1's
-// decode time.
+// registers with spills and ran at twice the decode time.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor
 // cores): bytes = stored payload (nnz blocks * bn * bk * 4) + metadata
 // + x + y, against 2 * M * (nnz blocks * bn * bk) FLOPs -- the same work
-// for both entries.  Decode (M = 4) is bound by the payload bytes; prefill
-// (M = 512) by the fp32 FLOPs.  The static bound costs the naive entry
-// (t_max - counts[kj]) extra block reads per output tile, FMAs skipped:
-// nothing where every column holds t_max blocks, up to t_max / counts[kj]
-// times the payload traffic of a short column.
+// for every entry.  Decode (M = 4) is bound by the payload bytes (407.8 MB
+// per chatglm3-6b layer at block density 0.5: 0.1220 ms); prefill (M = 512)
+// by the fp32 FLOPs.  The partials' round trip (2 * S * M * K * 4 bytes,
+// mostly in L2) is kept under 10 % of the payload at decode.  The static
+// bound costs the naive entry (t_max - counts[kj]) extra block reads per
+// output tile, FMAs skipped.
 //
-// What the simple design leaves on the table: every M tile re-streams the
-// payload (M = 512 reads it 8 times), loads are scalar and synchronous (no
-// cp.async / TMA double-buffering), decode leaves 60 of 64 tile rows idle,
-// and fp32 FMAs on CUDA cores run at 1/15 of the bf16 tensor-core rate
-// (wgmma with bf16 payload is the later step).
+// What the design leaves on the table: the decode loads are synchronous
+// register loads, not a cp.async / TMA ring; the payload is fp32 (bf16
+// would halve the decode bytes, at another rounding); the K = 256 roles
+// (wk, wv) get one column tile and at most rows / (20 M) slices under the
+// partials cap, so they stay latency-bound; the prefill entry re-streams
+// the payload for every 64-row M tile (8 times at M = 512), with scalar
+// synchronous loads, and fp32 FMAs on CUDA cores run at 1/15 of the bf16
+// tensor-core rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,26 +113,53 @@ namespace {
 
 constexpr int TM = 64;        // output rows per thread block
 constexpr int TK = 64;        // output columns per thread block (tk <= TK)
-constexpr int BC = 32;        // reduction rows staged per step
+constexpr int BC = 32;        // reduction rows staged per step: one piece
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+constexpr int SK_MAX_M = 16;            // largest M (MT) of the decode entry
+constexpr int SK_THREADS = 64;          // threads of a decode block
+constexpr int SK_TK = 4 * SK_THREADS;   // its output columns
+constexpr int SK_ROWS = 8;              // kept rows per load batch
+constexpr int SK_SMEM = 48 * 1024;      // its x slice, bytes at most
+constexpr int RED_THREADS = 256;        // threads of a reduce block
+constexpr int MAX_SLICES = 65535;       // grid.y
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// NAIVE = false is kernel 1; NAIVE = true adds the naive entry's masked
-// steps after the same walk over the live steps (a compile-time switch,
-// so no branch enters the FMA loop nest).  nnzb and t_max are read only
-// by the naive instance.
-template <typename T, bool NAIVE>
+__device__ __forceinline__ void store_tile(const float (&acc)[4][4],
+                                           float* __restrict__ out, int m0,
+                                           int k0, int m, int k, int tk,
+                                           int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = tx + 16 * j;
+      if (col < tk) out[(size_t)row * k + k0 + col] = acc[i][j];
+    }
+  }
+}
+
+// NAIVE = false is the tiled entry; NAIVE = true adds the naive entry's
+// masked steps after the same walk over the live steps (a compile-time
+// switch, so no branch enters the FMA loop nest).  SPLIT (naive only)
+// takes y as the (S, M, K) workspace: it writes partial s to y + s * M * K
+// every slice_pieces chunks, then the trailing empty slices as zeros.
+// nnzb and t_max are read only by the naive instances, slices and
+// slice_pieces only by the split one.
+template <typename T, bool NAIVE, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
 bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
                    const int* __restrict__ counts,
                    const int* __restrict__ row_ids,
                    const int* __restrict__ offsets, float* __restrict__ y,
                    int m, int n, int k, int bn, int bk, int tk, int nnzb,
-                   int t_max) {
+                   int t_max, int slices, int slice_pieces) {
   __shared__ float xs[TM][BC + 1];
   __shared__ float ws[BC][TK];
   const int tid = threadIdx.x;
@@ -103,6 +177,7 @@ bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
+  [[maybe_unused]] int slice = 0, piece = 0;   // slice, and chunks done in it
   for (int t = 0; t < cnt; ++t) {
     const size_t xcol = (size_t)row_ids[off + t] * bn;
     const float* wblk = blocks + (size_t)(off + t) * bn * bk + kb;
@@ -134,6 +209,20 @@ bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
           for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
       __syncthreads();
+      if constexpr (SPLIT) {
+        // end of slice `slice`; the last one takes any rows past its end
+        // (a caller's max_per_col below counts[kj]), never the memory after
+        if (++piece == slice_pieces && slice + 1 < slices) {
+          store_tile(acc, y + (size_t)slice * m * k, m0, k0, m, k, tk, tx,
+                     ty);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+          piece = 0;
+          ++slice;
+        }
+      }
     }
   }
 
@@ -161,70 +250,239 @@ bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
     }
   }
 
+  if constexpr (SPLIT) {
+    // the last slice, partial or empty, then the column's empty ones
+    for (; slice < slices; ++slice) {
+      store_tile(acc, y + (size_t)slice * m * k, m0, k0, m, k, tk, tx, ty);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= m) continue;
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      if (col < tk) y[(size_t)row * k + k0 + col] = acc[i][j];
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    }
+  } else {
+    store_tile(acc, y, m0, k0, m, k, tk, tx, ty);
+  }
+}
+
+// The next SK_ROWS kept rows, of which `left` are in the slice: one float4
+// each; wp steps to the row after.  Rows past the slice's end load zeros.
+__device__ __forceinline__ void load_rows(const float4*& wp, int step,
+                                          int left, float4 (&v)[SK_ROWS]) {
+#pragma unroll
+  for (int u = 0; u < SK_ROWS; ++u) {
+    v[u] = u < left ? __ldg(wp) : make_float4(0.f, 0.f, 0.f, 0.f);
+    wp += step;
+  }
+}
+
+// The MT staged x values of one kept row.
+template <int MT>
+__device__ __forceinline__ void load_x(const float* xr, float (&xv)[MT]) {
+  if constexpr (MT == 1) {
+    xv[0] = xr[0];
+  } else if constexpr (MT == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(xr);
+    xv[0] = t.x;
+    xv[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < MT; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(xr + i);
+      xv[i] = t.x;
+      xv[i + 1] = t.y;
+      xv[i + 2] = t.z;
+      xv[i + 3] = t.w;
     }
   }
 }
 
-bool bad_shape(int m, int n, int k, int bn, int bk, int tk) {
-  return m <= 0 || n <= 0 || k <= 0 || bn <= 0 || bk <= 0 || tk <= 0 ||
-         tk > TK || bk % tk || k % bk || n % bn;
+// Start of piece p among a block-column's kept rows: block p / q, row
+// (p % q) * BC, q = ceil(bn / BC) pieces a block.
+__device__ __forceinline__ int piece_row(int p, int q, int bn) {
+  return p / q * bn + p % q * BC;
 }
 
-template <typename T, bool NAIVE>
-int launch(const void* x, const void* blocks, const void* counts,
-           const void* row_ids, const void* offsets, void* y, int m, int n,
-           int k, int bn, int bk, int tk, int nnzb, int t_max, void* stream) {
-  if (bad_shape(m, n, k, bn, bk, tk) || (NAIVE && (nnzb < 1 || t_max < 1)))
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(k / tk, (m + TM - 1) / TM);
-  bitmap_spmm_kernel<T, NAIVE><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+// Decode entry (M <= SK_MAX_M): the partial of slice blockIdx.y over
+// output columns [4 * thread, +4) of column tile blockIdx.x % tiles of
+// block-column blockIdx.x / tiles, into out + slice * M * K (out is y
+// itself when S = 1).  Needs bk % 4 == 0 and blocks 16-byte aligned.
+template <typename T, int MT>
+__global__ void __launch_bounds__(SK_THREADS)
+bitmap_spmm_small_m_kernel(const T* __restrict__ x,
+                           const float* __restrict__ blocks,
+                           const int* __restrict__ counts,
+                           const int* __restrict__ row_ids,
+                           const int* __restrict__ offsets,
+                           float* __restrict__ out, int m, int n, int k,
+                           int bn, int bk, int tiles, int slice_pieces) {
+  extern __shared__ float4 xs4[];
+  float* xs = reinterpret_cast<float*>(xs4);   // [slice row][MT], fp32
+  const int kj = blockIdx.x / tiles;
+  const int cb = (blockIdx.x - kj * tiles) * SK_TK + 4 * threadIdx.x;
+  const int lcb = min(cb, bk - 4);             // dead columns read a live one
+  const int q = (bn + BC - 1) / BC;
+  const int cnt = counts[kj], off = offsets[kj];
+  const int pend = cnt * q;                    // the column's pieces
+  const int p0 = min((int)blockIdx.y * slice_pieces, pend);
+  const int p1 = min(p0 + slice_pieces, pend);
+  const int r0 = piece_row(p0, q, bn);         // kept rows [r0, r1)
+  const int rows = piece_row(p1, q, bn) - r0;
+  const int step = bk / 4;                     // one row, in float4s
+  const float4* wp = reinterpret_cast<const float4*>(
+      blocks + ((size_t)off * bn + r0) * bk + lcb);
+  float4 v[SK_ROWS];
+  load_rows(wp, step, rows, v);                // in flight while x is staged
+
+  const int rp = (rows + SK_ROWS - 1) / SK_ROWS * SK_ROWS;
+  for (int e = threadIdx.x; e < MT * rp; e += SK_THREADS) {
+    const int i = e / rp, c = e - i * rp;
+    float val = 0.f;
+    if (i < m && c < rows) {
+      const int r = r0 + c, t = r / bn;
+      val = to_f32(x[(size_t)i * n + (size_t)row_ids[off + t] * bn + r -
+                     t * bn]);
+    }
+    xs[c * MT + i] = val;
+  }
+  __syncthreads();
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int u0 = 0; u0 < rows; u0 += SK_ROWS) {
+    float4 vn[SK_ROWS];
+    load_rows(wp, step, rows - u0 - SK_ROWS, vn);     // next batch
+#pragma unroll
+    for (int u = 0; u < SK_ROWS; ++u) {
+      const float b[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+      float xv[MT];
+      load_x<MT>(xs + (u0 + u) * MT, xv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < MT; ++i) acc[i][j] = fmaf(xv[i], b[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int u = 0; u < SK_ROWS; ++u) v[u] = vn[u];
+  }
+
+  if (cb < bk) {
+    float* o = out + (size_t)blockIdx.y * m * k + (size_t)kj * bk + cb;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      if (i < m)
+        *reinterpret_cast<float4*>(o + (size_t)i * k) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// y = ws[0] + ws[1] + ... + ws[S-1], left to right, four outputs a thread.
+__global__ void __launch_bounds__(RED_THREADS)
+bitmap_reduce_kernel(const float4* __restrict__ ws, float4* __restrict__ y,
+                     int slices, int mk4) {
+  const int e = blockIdx.x * RED_THREADS + threadIdx.x;
+  if (e >= mk4) return;
+  float4 a = __ldg(ws + e);
+#pragma unroll 8
+  for (int s = 1; s < slices; ++s) {            // loads overlap, adds in order
+    const float4 b = __ldg(ws + (size_t)s * mk4 + e);
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  y[e] = a;
+}
+
+template <typename T, int MT>
+void launch_small_m(dim3 grid, int smem, cudaStream_t st, const void* x,
+                    const void* blocks, const void* counts,
+                    const void* row_ids, const void* offsets, float* out,
+                    int m, int n, int k, int bn, int bk, int tiles,
+                    int slice_pieces) {
+  bitmap_spmm_small_m_kernel<T, MT><<<grid, SK_THREADS, smem, st>>>(
       (const T*)x, (const float*)blocks, (const int*)counts,
-      (const int*)row_ids, (const int*)offsets, (float*)y, m, n, k, bn, bk,
-      tk, nnzb, t_max);
+      (const int*)row_ids, (const int*)offsets, out, m, n, k, bn, bk, tiles,
+      slice_pieces);
+}
+
+enum Entry { TILED, SMALL_M, NAIVE };
+
+// ws: the (slices, M, K) fp32 workspace when slices > 1, unused else.
+// Refuses (cudaErrorInvalidValue) what the entry cannot run: the tiled
+// entry takes one slice, the reduce kernel K % 4 == 0, the decode entry M
+// <= 16, bk % 4 == 0, 16-byte aligned blocks and a slice whose x fits
+// SK_SMEM.
+template <typename T>
+int launch(const void* x, const void* blocks, const void* counts,
+           const void* row_ids, const void* offsets, void* y, void* ws,
+           int m, int n, int k, int bn, int bk, int tk, int nnzb, int t_max,
+           int slices, int slice_pieces, Entry entry, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || bn <= 0 || bk <= 0 || tk <= 0 ||
+      tk > TK || bk % tk || k % bk || n % bn ||
+      (entry == NAIVE && (nnzb < 1 || t_max < 1)) || slices < 1 ||
+      slices > MAX_SLICES || slice_pieces < 1 ||
+      (slices > 1 && (entry == TILED || k % 4)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* out = slices > 1 ? (float*)ws : (float*)y;
+  if (entry == SMALL_M) {
+    const int mt = m <= 1 ? 1 : m <= 2 ? 2 : m <= 4 ? 4 : m <= 8 ? 8 : 16;
+    const long smem = (long)mt * slice_pieces * BC * sizeof(float);
+    if (m > SK_MAX_M || bk % 4 || smem > SK_SMEM || (uintptr_t)blocks % 16)
+      return (int)cudaErrorInvalidValue;
+    const int tiles = (bk + SK_TK - 1) / SK_TK;
+    dim3 grid(tiles * (k / bk), slices);
+    void (*go)(dim3, int, cudaStream_t, const void*, const void*,
+               const void*, const void*, const void*, float*, int, int, int,
+               int, int, int, int);
+    switch (mt) {
+      case 1: go = launch_small_m<T, 1>; break;
+      case 2: go = launch_small_m<T, 2>; break;
+      case 4: go = launch_small_m<T, 4>; break;
+      case 8: go = launch_small_m<T, 8>; break;
+      default: go = launch_small_m<T, 16>;
+    }
+    go(grid, (int)smem, st, x, blocks, counts, row_ids, offsets, out, m, n,
+       k, bn, bk, tiles, slice_pieces);
+  } else {
+    dim3 grid(k / tk, (m + TM - 1) / TM);
+    decltype(&bitmap_spmm_kernel<T, false, false>) go =
+        entry == TILED ? bitmap_spmm_kernel<T, false, false>
+        : slices > 1   ? bitmap_spmm_kernel<T, true, true>
+                       : bitmap_spmm_kernel<T, true, false>;
+    go<<<grid, THREADS, 0, st>>>((const T*)x, (const float*)blocks,
+                                 (const int*)counts, (const int*)row_ids,
+                                 (const int*)offsets, out, m, n, k, bn, bk,
+                                 tk, nnzb, t_max, slices, slice_pieces);
+  }
+  int err = (int)cudaGetLastError();
+  if (err || slices == 1) return err;
+  const int mk4 = m * k / 4;
+  bitmap_reduce_kernel<<<(mk4 + RED_THREADS - 1) / RED_THREADS, RED_THREADS,
+                         0, st>>>((const float4*)ws, (float4*)y, slices, mk4);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int bitmap_spmm_f32(const void* x, const void* blocks,
-                               const void* counts, const void* row_ids,
-                               const void* offsets, void* y, int m, int n,
-                               int k, int bn, int bk, int tk, void* stream) {
-  return launch<float, false>(x, blocks, counts, row_ids, offsets, y, m, n,
-                              k, bn, bk, tk, 0, 0, stream);
-}
+#define BITMAP_ENTRY(name, T, entry)                                         \
+  extern "C" int name(const void* x, const void* blocks, const void* counts, \
+                      const void* row_ids, const void* offsets, void* y,     \
+                      void* ws, int m, int n, int k, int bn, int bk, int tk, \
+                      int nnzb, int t_max, int slices, int slice_pieces,     \
+                      void* stream) {                                        \
+    return launch<T>(x, blocks, counts, row_ids, offsets, y, ws, m, n, k,    \
+                     bn, bk, tk, nnzb, t_max, slices, slice_pieces, entry,   \
+                     stream);                                                \
+  }
 
-extern "C" int bitmap_spmm_bf16(const void* x, const void* blocks,
-                                const void* counts, const void* row_ids,
-                                const void* offsets, void* y, int m, int n,
-                                int k, int bn, int bk, int tk, void* stream) {
-  return launch<__nv_bfloat16, false>(x, blocks, counts, row_ids, offsets, y,
-                                      m, n, k, bn, bk, tk, 0, 0, stream);
-}
-
-extern "C" int bitmap_spmm_naive_f32(const void* x, const void* blocks,
-                                     const void* counts, const void* row_ids,
-                                     const void* offsets, void* y, int m,
-                                     int n, int k, int bn, int bk, int tk,
-                                     int nnzb, int t_max, void* stream) {
-  return launch<float, true>(x, blocks, counts, row_ids, offsets, y, m, n, k,
-                             bn, bk, tk, nnzb, t_max, stream);
-}
-
-extern "C" int bitmap_spmm_naive_bf16(const void* x, const void* blocks,
-                                      const void* counts, const void* row_ids,
-                                      const void* offsets, void* y, int m,
-                                      int n, int k, int bn, int bk, int tk,
-                                      int nnzb, int t_max, void* stream) {
-  return launch<__nv_bfloat16, true>(x, blocks, counts, row_ids, offsets, y,
-                                     m, n, k, bn, bk, tk, nnzb, t_max,
-                                     stream);
-}
+BITMAP_ENTRY(bitmap_spmm_f32, float, TILED)
+BITMAP_ENTRY(bitmap_spmm_bf16, __nv_bfloat16, TILED)
+BITMAP_ENTRY(bitmap_spmm_small_m_f32, float, SMALL_M)
+BITMAP_ENTRY(bitmap_spmm_small_m_bf16, __nv_bfloat16, SMALL_M)
+BITMAP_ENTRY(bitmap_spmm_naive_f32, float, NAIVE)
+BITMAP_ENTRY(bitmap_spmm_naive_bf16, __nv_bfloat16, NAIVE)

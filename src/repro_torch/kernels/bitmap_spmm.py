@@ -2,58 +2,115 @@
 
 Ports of the two Pallas TPU kernels of ``repro.kernels.bitmap_spmm``:
 ``pipeline=True`` launches the port of ``_pipelined_kernel`` (walks
-``counts[kj]`` blocks), ``pipeline=False`` the port of the naive ``_kernel``
-(walks the static bound ``t_max``).  The wrapper checks device, dtype,
-shape and contiguity, allocates the output and launches on PyTorch's
-current stream; the source's note states the kernels' design and bound.
+``counts[kj]`` blocks: the decode entry at M ≤ 16, the tiled entry else),
+``pipeline=False`` the port of the naive ``_kernel`` (walks the static
+bound ``t_max``).  All entries follow one summation order,
+:func:`split_plan`: at decode the reduction over each block-column's kept
+rows is split into slices whose partials a second kernel adds in order.
+The wrapper picks the entry and the order (:func:`select_entry`), checks
+device, dtype, shape and contiguity, allocates the output and the
+partials' workspace (:func:`workspace_numel`) and launches on PyTorch's
+current stream; the source's note states the designs and bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 
-#: output columns of one CUDA thread block (``TK`` in the source)
+#: output columns of one tiled-entry thread block (``TK`` in the source)
 MAX_TILE_K = 64
+#: kept rows of one piece, the unit of a slice (``BC``)
+PIECE_ROWS = 32
+#: largest M that takes the decode entry and the split reduction
+SPLIT_MAX_M = 16
+#: output columns of one decode thread block (``SK_TK``)
+SMALL_M_TILE_K = 256
+#: thread blocks the split aims at: four per SM of the H100's 132
+SPLIT_MIN_BLOCKS = 4 * 132
+#: kept rows of one slice at most: 48 KB of fp32 x at 16 rows (``SK_SMEM``)
+SPLIT_MAX_SLICE_ROWS = 768
 
-_PTRS = [ctypes.c_void_p] * 6
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
-def _fn(x_dtype: torch.dtype, pipeline: bool):
-    lib = build.library("bitmap_spmm")
-    name = "bitmap_spmm" if pipeline else "bitmap_spmm_naive"
-    fn = getattr(lib, f"{name}_bf16" if x_dtype == torch.bfloat16
-                 else f"{name}_f32")
-    fn.argtypes = _PTRS + [ctypes.c_int] * (6 if pipeline else 8) \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def tile_k(bk: int) -> int:
-    """Largest divisor of ``bk`` that is ≤ 64: one CUDA tile lies in one
-    block-column."""
+    """Largest divisor of ``bk`` that is ≤ 64: one tiled-entry CUDA tile
+    lies in one block-column."""
     t = min(bk, MAX_TILE_K)
     while bk % t:
         t -= 1
     return t
 
 
-def launch(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
-           row_ids: torch.Tensor, offsets: torch.Tensor, k: int,
-           t_max: int = 1, pipeline: bool = True) -> torch.Tensor:
-    """Y = X @ W on the card.  x: (M, N) fp32 or bf16; blocks (nnzb, bn, bk)
-    fp32; counts / offsets (K/bk,) and row_ids (nnzb,) int32.  Returns
-    (M, K) fp32.  ``pipeline=False`` launches the naive entry, which walks
-    ``t_max`` (≥ 1) steps per block-column; the pipelined entry ignores
-    ``t_max``."""
+def small_m(m: int, bk: int) -> bool:
+    """Whether (M, bk) may take the decode entry and a split reduction:
+    decode shapes whose block rows are whole float4s."""
+    return m <= SPLIT_MAX_M and bk % 4 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(m: int, bn: int, bk: int, k: int, max_per_col: int
+               ) -> tuple[int, int]:
+    """``(slices, pieces_per_slice)``: the summation order of every bitmap
+    entry.  Each kept block's ``bn`` rows are cut into pieces of
+    ``PIECE_ROWS`` (the last one ragged), and a block-column's pieces, in
+    stored order, into ``slices`` slices of ``pieces_per_slice`` pieces;
+    the longest column (``max_per_col`` kept blocks, at least its
+    ``counts.max()``) fills them, shorter columns leave trailing slices
+    empty.  Each slice's partial is summed in ascending kept-row order, and
+    the partials are added left to right.  Reads host integers only.
+
+    Above ``SPLIT_MAX_M`` rows (prefill), or for bk not a multiple of 4,
+    there is one slice.  At decode the slices are as long as possible while
+    the decode grid, ``K/bk · ceil(bk/256) x slices``, reaches
+    ``SPLIT_MIN_BLOCKS``; at most ``kept rows / (20 M)`` slices keep the
+    partials' round trip (``2·S·M·K·4`` bytes) within 10 % of the payload
+    (``4·K`` bytes per kept row), and a slice holds at most
+    ``SPLIT_MAX_SLICE_ROWS`` kept rows.  Roles with few output columns
+    (K = 256) stay under the block target: the partials' share caps their
+    slices."""
+    rows = max(1, max_per_col) * bn
+    pieces = max(1, max_per_col) * _cdiv(bn, PIECE_ROWS)
+    if not small_m(m, bk):
+        return 1, pieces
+    want = _cdiv(SPLIT_MIN_BLOCKS, k // bk * _cdiv(bk, SMALL_M_TILE_K))
+    most = max(1, rows // (20 * m))
+    length = max(1, pieces // want)
+    if _cdiv(pieces, length) > most:
+        length = _cdiv(pieces, most)
+    length = min(length, SPLIT_MAX_SLICE_ROWS // PIECE_ROWS)
+    return _cdiv(pieces, length), length
+
+
+def _fn(x_dtype: torch.dtype, entry: str):
+    lib = build.library("bitmap_spmm")
+    fn = getattr(lib, f"{entry}_bf16" if x_dtype == torch.bfloat16
+                 else f"{entry}_f32")
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def select_entry(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
+                 row_ids: torch.Tensor, offsets: torch.Tensor, k: int,
+                 max_per_col: int, pipeline: bool = True
+                 ) -> tuple[str, int, int]:
+    """``(entry, slices, pieces_per_slice)`` of one call: the C entry's
+    name without its dtype suffix and :func:`split_plan`'s order.  Raises
+    on operands no entry takes.  The decode entry's 16-byte loads need
+    ``blocks`` 16-byte aligned: a misaligned view takes the tiled entry,
+    and both entries then follow one slice."""
     m, n = x.shape
     nnzb, bn, bk = blocks.shape
-    if t_max < 1:
-        raise ValueError(f"bitmap_spmm: t_max must be >= 1, got {t_max}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"bitmap_spmm: x must be float32 or bfloat16, "
                         f"got {x.dtype}")
@@ -75,15 +132,47 @@ def launch(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"bitmap_spmm: x {tuple(x.shape)} / blocks "
                          f"{tuple(blocks.shape)} / counts "
                          f"{tuple(counts.shape)} do not fit K={k}")
+    decode = small_m(m, bk) and blocks.data_ptr() % 16 == 0
+    entry = "bitmap_spmm_naive" if not pipeline else \
+        "bitmap_spmm_small_m" if decode else "bitmap_spmm"
+    if decode:
+        return (entry, *split_plan(m, bn, bk, k, max_per_col))
+    return entry, 1, max(1, max_per_col) * _cdiv(bn, PIECE_ROWS)
+
+
+def workspace_numel(m: int, k: int, slices: int) -> int:
+    """fp32 elements of the workspace: the (S, M, K) partials of a split
+    reduction, else none."""
+    return slices * m * k if slices > 1 else 0
+
+
+def launch(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
+           row_ids: torch.Tensor, offsets: torch.Tensor, k: int,
+           max_per_col: int, t_max: int = 1,
+           pipeline: bool = True) -> torch.Tensor:
+    """Y = X @ W on the card.  x: (M, N) fp32 or bf16; blocks (nnzb, bn, bk)
+    fp32; counts / offsets (K/bk,) and row_ids (nnzb,) int32; max_per_col
+    at least ``counts.max()`` (it sets the summation order, read on the
+    host: no sync).  Returns (M, K) fp32.  ``pipeline=False`` launches the
+    naive entry, which walks ``t_max`` (≥ 1) steps per block-column; the
+    pipelined entries ignore ``t_max``."""
+    if t_max < 1:
+        raise ValueError(f"bitmap_spmm: t_max must be >= 1, got {t_max}")
+    entry, slices, pieces = select_entry(x, blocks, counts, row_ids, offsets,
+                                         k, max_per_col, pipeline)
+    m, n = x.shape
+    nnzb, bn, bk = blocks.shape
     y = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    args = [x.data_ptr(), blocks.data_ptr(), counts.data_ptr(),
-            row_ids.data_ptr(), offsets.data_ptr(), y.data_ptr(), m, n, k,
-            bn, bk, tile_k(bk)]
-    if not pipeline:
-        args += [nnzb, t_max]
+    numel = workspace_numel(m, k, slices)
+    ws = torch.empty(numel, dtype=torch.float32, device=x.device) \
+        if numel else y
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _fn(x.dtype, pipeline)(*args, stream)
+        err = _fn(x.dtype, entry)(
+            x.data_ptr(), blocks.data_ptr(), counts.data_ptr(),
+            row_ids.data_ptr(), offsets.data_ptr(), y.data_ptr(),
+            ws.data_ptr(), m, n, k, bn, bk, tile_k(bk), nnzb, t_max, slices,
+            pieces, stream)
     if err:
         raise RuntimeError(f"bitmap_spmm kernel launch failed: CUDA error "
                            f"{err}")

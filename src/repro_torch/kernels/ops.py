@@ -186,7 +186,8 @@ def _bitmap(x: torch.Tensor, w: BitmapCompressed, t_max: int,
         return ref.bitmap_spmm_ref(x, w.blocks, w.counts, w.row_ids, w.n,
                                    w.k)
     y = _bitmap_cuda.launch(x, w.blocks, w.counts, w.row_ids, w.offsets,
-                            w.k, t_max=t_max, pipeline=pipeline)
+                            w.k, w.max_per_col, t_max=t_max,
+                            pipeline=pipeline)
     _LAUNCHES["bitmap_spmm" if pipeline else "bitmap_spmm_naive"] += 1
     return y
 

@@ -38,10 +38,26 @@ def _block_sparse(rng, n, k, bn, bk, density):
                             .astype(np.float32))
 
 
-# m, n, k, bn, bk, density: ragged M and reduction chunks, density 0 / 1
-@pytest.mark.parametrize("m,n,k,bn,bk,density", [
+# m, n, k, bn, bk, density.  M <= 16 with bk % 4 == 0 takes the decode
+# entry and, where split_plan gives S > 1, the split reduction: M 1 / 2 / 4
+# / 8 / 16 (each row template) at chatglm3-6b widths (bn 1024 x bk 4096,
+# bn 856 x bk 4096 with ragged pieces, bk 256, bk 13696 with a half-dead
+# last column tile), several block-columns with unequal counts (empty
+# trailing slices), density 0 and 1.  bk % 4 != 0 (30, 21) takes the
+# tiled entry with one slice, as does M > 16 (17, 70: prefill unchanged).
+BITMAP_CASES = [
     (1, 48, 40, 12, 20, 0.5), (70, 856 * 2, 192, 856, 96, 0.5),
-    (5, 64, 32, 16, 8, 0.0), (3, 64, 64, 16, 16, 1.0)])
+    (5, 64, 32, 16, 8, 0.0), (3, 64, 64, 16, 16, 1.0),
+    (1, 4096, 4096, 1024, 4096, 0.5), (2, 13696, 4096, 856, 4096, 0.5),
+    (4, 4096, 256, 1024, 256, 0.5), (4, 13696, 4096, 856, 4096, 0.5),
+    (8, 4096, 13696, 1024, 13696, 0.5), (16, 4096, 4096, 1024, 4096, 0.5),
+    (16, 13696, 256, 856, 256, 0.5), (4, 4096, 1024, 128, 256, 0.4),
+    (8, 2048, 2048, 64, 512, 0.3), (4, 2048, 512, 256, 512, 0.0),
+    (2, 2048, 512, 256, 512, 1.0), (4, 96, 60, 24, 30, 0.5),
+    (5, 80, 42, 16, 21, 0.5), (17, 4096, 4096, 1024, 4096, 0.5)]
+
+
+@pytest.mark.parametrize("m,n,k,bn,bk,density", BITMAP_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bitmap_kernel_matches_plain(card, m, n, k, bn, bk, density, dtype):
     rng = np.random.default_rng(m + n + k)
@@ -86,14 +102,12 @@ def test_nm_kernel_matches_plain(card, m, n, k, n_sel, m_group, dtype):
     _close(y, ref.nm_spmm_ref(x, c.values, c.indices, n_sel, m_group))
 
 
-@pytest.mark.parametrize("m,n,k,bn,bk,density", [
-    (1, 48, 40, 12, 20, 0.5), (70, 856 * 2, 192, 856, 96, 0.5),
-    (5, 64, 32, 16, 8, 0.0), (3, 64, 64, 16, 16, 1.0)])
+@pytest.mark.parametrize("m,n,k,bn,bk,density", BITMAP_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bitmap_naive_equals_pipelined(card, m, n, k, bn, bk, density,
                                        dtype):
-    """Same FMA order: bit for bit, with a static bound above the longest
-    block-column too."""
+    """Same slices, same FMA order in each, same sum of partials: bit for
+    bit, with a static bound above the longest block-column too."""
     rng = np.random.default_rng(m + n + k + 1)
     c = ops.compress_bitmap(_block_sparse(rng, n, k, bn, bk, density)
                             .to(card), bn, bk)
@@ -106,6 +120,61 @@ def test_bitmap_naive_equals_pipelined(card, m, n, k, bn, bk, density,
         assert torch.equal(y_naive, y)
     assert ops.launch_counts()["bitmap_spmm"] == 1
     assert ops.launch_counts()["bitmap_spmm_naive"] == 2
+
+
+def _unequal_columns(card):
+    """Four block-columns of bn 128 x bk 256 keeping 3, 0, 1 and 8 of 8
+    blocks: empty trailing slices, and a column with none."""
+    keep = np.zeros((8, 4), dtype=bool)
+    keep[[0, 3, 5], 0] = True
+    keep[6, 2] = True
+    keep[:, 3] = True
+    rng = np.random.default_rng(11)
+    mask = np.repeat(np.repeat(keep, 128, 0), 256, 1)
+    w = torch.from_numpy((rng.normal(size=(1024, 1024)) * mask)
+                         .astype(np.float32)).to(card)
+    return ops.compress_bitmap(w, 128, 256), rng
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bitmap_unequal_columns_and_an_empty_one(card, m, dtype):
+    c, rng = _unequal_columns(card)
+    assert c.counts.tolist() == [3, 0, 1, 8]
+    x = torch.from_numpy(rng.normal(size=(m, 1024)).astype(np.float32)) \
+        .to(card, dtype)
+    y = ops.bitmap_spmm(x, c)
+    _close(y, ref.bitmap_spmm_ref(x, c.blocks, c.counts, c.row_ids, c.n,
+                                  c.k))
+    for t_max in (None, 11):
+        assert torch.equal(ops.bitmap_spmm(x, c, t_max=t_max,
+                                           pipeline=False), y)
+    assert ops.launch_counts()["bitmap_spmm"] == 1
+    assert ops.launch_counts()["bitmap_spmm_naive"] == 2
+
+
+@pytest.mark.parametrize("off", [1, 3])
+@pytest.mark.parametrize("m", [4, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bitmap_takes_misaligned_blocks(card, off, m, dtype):
+    """A blocks view off 16 bytes takes the tiled entry with one slice;
+    the naive entry follows it bit for bit."""
+    n, k, bn, bk = 4096, 256, 1024, 256
+    rng = np.random.default_rng(m + off)
+    c = ops.compress_bitmap(_block_sparse(rng, n, k, bn, bk, 0.5).to(card),
+                            bn, bk)
+    nb = c.blocks.numel()
+    v = torch.empty(nb + off, device=card)[off:].view(c.blocks.shape)
+    v.copy_(c.blocks)
+    assert v.data_ptr() % 16
+    c_off = dataclasses.replace(c, blocks=v)
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)) \
+        .to(card, dtype)
+    y = ops.bitmap_spmm(x, c_off)
+    _close(y, ref.bitmap_spmm_ref(x, c.blocks, c.counts, c.row_ids, c.n,
+                                  c.k))
+    assert torch.equal(ops.bitmap_spmm(x, c_off, pipeline=False), y)
+    assert ops.launch_counts()["bitmap_spmm"] == 1
 
 
 @pytest.mark.parametrize("m,n,k,n_sel,m_group", NM_CASES)
