@@ -11,14 +11,16 @@ non-zero exit code when it fails:
 2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc),
    with ptxas's registers and spills for every entry and a summary line for
    each instance of the N:M prefill kernel and of the bitmap kernels
-   (decode MT, tiled, naive, naive split, reduce);
+   (prefill tiles, transpose, decode MT, tiled, naive, naive split,
+   reduce); a bitmap entry that spills fails the run;
 3. sparse kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm``, each
    in its pipelined and its naive (``pipeline=False``) variant, at every
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
    plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4
    and 1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in
    fp32 and bf16 (with each role's split of the reduction at M = 4,
-   bitmap and N:M: slices, grid, partials' bytes): each held to
+   bitmap and N:M: slices, grid, partials' bytes, and each bitmap role's
+   prefill tile and grid at M = 512): each held to
    max|y - y_plain| <= 1e-4 max|y_plain| + 1e-5, the naive result equal
    to the pipelined one bit
    for bit, timed (the naive variants at bf16 only) beside the plain
@@ -144,7 +146,8 @@ def phase_build() -> None:
 
     # one summary line per instance of the redesigned entries: the N:M
     # prefill kernel (Tile<R, WM, WK, MIN_BLOCKS>, x type, 16-byte cp.async
-    # or plain staging) and the bitmap kernels (decode MT, tiled / naive /
+    # or plain staging) and the bitmap kernels (prefill PTile<TY, TX, RM,
+    # RK, MIN_BLOCKS, STAGES, BC>, transpose, decode MT, tiled / naive /
     # naive split, reduce)
     summaries = (
         (r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)"
@@ -152,6 +155,14 @@ def phase_build() -> None:
          lambda r, wm, wk, minb, t, vec: (
              f"nm_spmm prefill Tile<{r}, {wm}, {wk}, {minb}> x {xt(t)} "
              f"{'cp.async' if vec == '1' else 'plain'} staging")),
+        (r"bitmap_spmm_prefill_kernelINS_5PTileILi(\d+)ELi(\d+)ELi(\d+)"
+         r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE",
+         lambda ty, tx, rm, rk, minb, stages, bc: (
+             f"bitmap_spmm prefill PTile<{ty}, {tx}, {rm}, {rk}, {minb}, "
+             f"{stages}, {bc}> ({int(ty) * int(rm)} x {int(tx) * int(rk)} "
+             f"outputs, {stages} stages of {bc} rows)")),
+        (r"bitmap_transpose_x_kernelI(13__nv_bfloat16|f)E",
+         lambda t: f"bitmap_spmm transpose x {xt(t)}"),
         (r"bitmap_spmm_small_m_kernelI(13__nv_bfloat16|f)Li(\d+)E",
          lambda t, mt: f"bitmap_spmm decode MT={mt} x {xt(t)}"),
         (r"bitmap_spmm_kernelI(13__nv_bfloat16|f)Lb([01])ELb([01])E",
@@ -164,6 +175,9 @@ def phase_build() -> None:
             hit = re.search(pattern, entry)
             if hit:
                 print(f"[build] {label(*hit.groups())}: {'; '.join(found)}")
+        if "bitmap" in entry and re.search(r"[1-9]\d* bytes spill",
+                                           " ".join(found)):
+            _fail(f"{entry} spills: {'; '.join(found)}")
 
 
 class _Acc:
@@ -283,6 +297,12 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                       f"partials {part} B (round trip "
                       f"{2 * part / (nnzb * bn * bk * 4):.2%} of the "
                       f"payload)")
+                pp = bm_cuda.prefill_plan(M_PREFILL, bk, role.k)
+                print(f"[kernels] bitmap_spmm {role.role} ({bn}x{bk} {tag}) "
+                      f"M={M_PREFILL}: prefill tile {pp.tm} x {pp.tk} "
+                      f"({'big' if pp.tile == 0 else 'small'}), grid "
+                      f"{' x '.join(map(str, pp.grid))} = "
+                      f"{math.prod(pp.grid)} blocks")
             for m in (M_DECODE, M_PREFILL):
                 for dtype in (torch.float32, torch.bfloat16):
                     run("bitmap_spmm", f"{role.role} ({bn}x{bk} {tag})", m,

@@ -3,14 +3,16 @@
 // Two kernels, one per Pallas TPU kernel of src/repro/kernels/bitmap_spmm.py:
 //   bitmap_spmm_{f32,bf16}          replace `_pipelined_kernel` (launched by
 //   bitmap_spmm_small_m_{f32,bf16}  `_bitmap_spmm_pipelined`, the default
-//                                   path of repro.kernels.ops.bitmap_spmm):
+//   bitmap_spmm_tiled_{f32,bf16}    path of repro.kernels.ops.bitmap_spmm):
 //                                   the first at prefill, the second at
-//                                   decode;
+//                                   decode, the third for operands neither
+//                                   takes;
 //   bitmap_spmm_naive_{f32,bf16}    replaces `_kernel` (launched by
 //                                   `bitmap_spmm_pallas` with
 //                                   pipeline=False).
-// The wrapper (repro_torch/kernels/bitmap_spmm.py) picks the entry and the
-// summation order; the entries only refuse what they cannot run.
+// The wrapper (repro_torch/kernels/bitmap_spmm.py) picks the entry, the
+// summation order and the prefill tile; the entries only refuse what they
+// cannot run.
 //
 // Format (the B(N1)-B(K1)-None(N2,K2) bitmap, pre-decoded to CSC):
 //   blocks  (nnzb, bn, bk) fp32  non-zero payload blocks, block-column major
@@ -33,17 +35,64 @@
 // bitmap_reduce_kernel from a workspace (S, M, K) fp32 that the wrapper
 // allocates.  S = 1 at prefill (M > 16), and wherever the decode entry
 // cannot take the operands: one slice, written straight to y.  No atomics:
-// deterministic.
+// deterministic.  Zero rows padded into a chunk add fmaf(0, 0, acc) == acc,
+// so where the entries pad does not change a sum.
 //
-// Tiled entry (bitmap_spmm_*, the prefill path, S = 1): bitmap_spmm_kernel
-// <T, false, false>.  Each thread block owns one TM x tk output tile (tk <=
-// 64 divides bk, so a tile lies in one block-column) and keeps it in
-// registers, 4 x 4 values per thread.  It walks ONLY the non-zero blocks of
-// its column, in stored order; within a block it reduces over bn in chunks
-// of BC rows (the pieces) staged in shared memory (x slice and payload
-// slice), masking the ragged last chunk and the ragged M edge.  counts[kj]
-// == 0 writes zeros.  The format block is NOT the CUDA tile: planned blocks
-// are up to 1024 x 13696 (56 MB in fp32), far beyond shared memory.
+// Prefill entry (bitmap_spmm_*, M > 16, bk % 4 == 0, blocks 16-byte
+// aligned, S = 1): bitmap_transpose_x_kernel, then
+// bitmap_spmm_prefill_kernel<Tile>.  A kept block is a DENSE bn x bk tile,
+// and kept row (t, r) multiplies one whole x column against one contiguous
+// payload row, so each x value feeds every output column of a tile and each
+// payload value every output row: the register-blocked outer product of a
+// dense SGEMM applies, over the kept rows only.  At M = 512 the work is
+// fp32 FMAs (half the dense 208.8 GFLOP of a chatglm3-6b layer at block
+// density 0.5), and what paces it is shared memory feeding them: a warp's
+// 16-byte shared load costs the SM about 4 cycles (tools/lds_bench.cu),
+// against 4 warp FMAs a cycle.
+// - x is staged transposed: the transpose kernel first copies x into the
+//   workspace as (N, mp) fp32, mp = M rounded up to PF_MT, padded rows
+//   zero (bf16 widened exactly), so one kept row's x values for an M tile
+//   are TM contiguous floats at xt[row_ids[off + t] * bn + r].
+// - A thread owns RM x RK outputs in registers: BigTile 8 x 8 (64 x 128
+//   outputs a block of 128 threads, at most 128 registers: four blocks an
+//   SM), SmallTile 4 x 4 (32 x 32, 64 threads) for grids the big tile
+//   cannot spread over the card (wk / wv, K = 256; small M).  Per kept row
+//   a thread reads its RM x values and RK payload values as RM/4 + RK/4
+//   16-byte shared loads (rows ty*4 + TY*4*g, columns tx*4 + TX*4*g) and
+//   does RM*RK FMAs: 16 FMAs a load for the big tile, where the tiled entry
+//   does 2.  A warp is 2 x 16 threads: its x loads touch 2 distinct 16-byte
+//   words (2.65 SM cycles against 4.06 at 4 or more, tools/lds_bench.cu),
+//   its payload loads 16 contiguous ones; all lanes read within one staged
+//   row, so no bank conflicts and no padding.
+// - Staging is asynchronous: chunks of BC kept rows of the column's run (a
+//   chunk may straddle a kept block: each row finds its own x column; rows
+//   past the run load zeros) are copied by 16-byte cp.async into a ring of
+//   STAGES chunks in dynamic shared memory (x: BC x TM, the payload: BC x
+//   TK floats) while the FMAs read an earlier stage; one barrier per chunk.
+//   BigTile: 4 chunks of 16 rows; SmallTile, whose blocks are too few to
+//   hide a barrier, 3 chunks of 64.
+// - The grid is (M tiles, column tiles, block-columns) with M fastest: the
+//   M tiles of one column tile run side by side, so the payload comes from
+//   HBM about once and from L2 for the others (the tiled entry streamed it
+//   once per 64-row M tile).
+// - The host function prefill_plan picks the tile from host integers: the
+//   big tile when its grid has at least 132 blocks (one per SM), else the
+//   small one.  Masks sit in the loads and the store, never around the
+//   FMAs.  Each output is summed from 0 with fmaf over its column's kept
+//   rows in stored order, as the tiled and naive entries sum it: the same
+//   bits.
+//
+// Tiled entry (bitmap_spmm_tiled_*, operands the prefill and decode entries
+// cannot take: bk % 4 != 0 or blocks off 16 bytes, S = 1):
+// bitmap_spmm_kernel<T, false, false>.  Each thread block owns one TM x tk
+// output tile (tk <= 64 divides bk, so a tile lies in one block-column) and
+// keeps it in registers, 4 x 4 values per thread.  It walks ONLY the
+// non-zero blocks of its column, in stored order; within a block it reduces
+// over bn in chunks of BC rows (the pieces) staged in shared memory (x slice
+// and payload slice), masking the ragged last chunk and the ragged M edge.
+// counts[kj] == 0 writes zeros.  The format block is NOT the CUDA tile:
+// planned blocks are up to 1024 x 13696 (56 MB in fp32), far beyond shared
+// memory.
 //
 // Decode entry (bitmap_spmm_small_m_*, M <= 16, bk % 4 == 0, blocks 16-byte
 // aligned): bitmap_spmm_small_m_kernel<T, MT>.  The shipped plans have one
@@ -91,19 +140,22 @@
 // + x + y, against 2 * M * (nnz blocks * bn * bk) FLOPs -- the same work
 // for every entry.  Decode (M = 4) is bound by the payload bytes (407.8 MB
 // per chatglm3-6b layer at block density 0.5: 0.1220 ms); prefill (M = 512)
-// by the fp32 FLOPs.  The partials' round trip (2 * S * M * K * 4 bytes,
-// mostly in L2) is kept under 10 % of the payload at decode.  The static
-// bound costs the naive entry (t_max - counts[kj]) extra block reads per
-// output tile, FMAs skipped.
+// by the fp32 FLOPs (104.4 GFLOP a layer: 1.5585 ms).  The partials' round
+// trip (2 * S * M * K * 4 bytes, mostly in L2) is kept under 10 % of the
+// payload at decode.  The static bound costs the naive entry (t_max -
+// counts[kj]) extra block reads per output tile, FMAs skipped.
 //
 // What the design leaves on the table: the decode loads are synchronous
 // register loads, not a cp.async / TMA ring; the payload is fp32 (bf16
 // would halve the decode bytes, at another rounding); the K = 256 roles
 // (wk, wv) get one column tile and at most rows / (20 M) slices under the
-// partials cap, so they stay latency-bound; the prefill entry re-streams
-// the payload for every 64-row M tile (8 times at M = 512), with scalar
-// synchronous loads, and fp32 FMAs on CUDA cores run at 1/15 of the bf16
-// tensor-core rate.
+// partials cap, so they stay latency-bound at decode, and 128 small tiles
+// at prefill (no split of the reduction there: its order is the naive
+// entry's); the prefill entry runs fp32 FMAs on CUDA cores, about as many
+// 16-byte shared loads as the SM can serve beside them, where the tensor
+// cores would run 15x the rate but round through TF32 (past the 1e-4
+// kernel-vs-plain bound and the naive entry's bits); it uses no TMA, no
+// warp specialisation and no persistent blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,6 +175,8 @@ constexpr int SK_ROWS = 8;              // kept rows per load batch
 constexpr int SK_SMEM = 48 * 1024;      // its x slice, bytes at most
 constexpr int RED_THREADS = 256;        // threads of a reduce block
 constexpr int MAX_SLICES = 65535;       // grid.y
+
+constexpr int PF_MT = 128;     // prefill: rows of the x copy, a multiple of it
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -397,6 +451,199 @@ bitmap_reduce_kernel(const float4* __restrict__ ws, float4* __restrict__ y,
   y[e] = a;
 }
 
+// 16 bytes global -> shared without a register; `bytes` 0 fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// xt[c * mp + i] = x[i, c] as fp32 for i < m, 0 for m <= i < mp: the
+// prefill entry's transposed copy of x, mp a multiple of PF_MT.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bitmap_transpose_x_kernel(const T* __restrict__ x, float* __restrict__ xt,
+                          int m, int mp, int n) {
+  __shared__ float t[32][33];
+  const int c0 = blockIdx.x * 32, i0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int i = i0 + r, c = c0 + threadIdx.x;
+    t[r][threadIdx.x] = i < m && c < n ? to_f32(x[(size_t)i * n + c]) : 0.f;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int c = c0 + r;
+    if (c < n) xt[(size_t)c * mp + i0 + threadIdx.x] = t[threadIdx.x][r];
+  }
+}
+
+// A prefill tile: TY x TX threads, each owning RM x RK outputs, so a block
+// owns TM = TY * RM rows x TK = TX * RK columns; a ring of STAGES chunks of
+// BC kept rows.  MIN_BLOCKS per SM caps the registers at 65536 / (NT *
+// MIN_BLOCKS).
+template <int TY_, int TX_, int RM_, int RK_, int MIN_BLOCKS_, int STAGES_,
+          int BC_>
+struct PTile {
+  static constexpr int TY = TY_, TX = TX_, RM = RM_, RK = RK_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_, STAGES = STAGES_, BC = BC_;
+  static constexpr int NT = TY * TX, TM = TY * RM, TK = TX * RK;
+};
+using BigTile = PTile<8, 16, 8, 8, 4, 4, 16>;    // 64 x 128, 128 threads
+using SmallTile = PTile<8, 8, 4, 4, 8, 3, 64>;   // 32 x 32, 64 threads
+
+template <class TT>
+constexpr int prefill_smem() {
+  return TT::STAGES * TT::BC * (TT::TM + TT::TK) * (int)sizeof(float);
+}
+
+// Prefill entry: the TT::TM x TT::TK output tile (blockIdx.x, blockIdx.y)
+// of block-column blockIdx.z.  xt: bitmap_transpose_x_kernel's (N, mp)
+// copy of x.  Thread (ty, tx) owns rows ty*4 + TY*4*g + (0..3) and columns
+// tx*4 + TX*4*g + (0..3) of the tile.  Needs bk % 4 == 0 and blocks
+// 16-byte aligned.
+template <class TT>
+__global__ void __launch_bounds__(TT::NT, TT::MIN_BLOCKS)
+bitmap_spmm_prefill_kernel(const float* __restrict__ xt,
+                           const float* __restrict__ blocks,
+                           const int* __restrict__ counts,
+                           const int* __restrict__ row_ids,
+                           const int* __restrict__ offsets,
+                           float* __restrict__ y, int m, int mp, int k,
+                           int bn, int bk) {
+  constexpr int TM = TT::TM, TK = TT::TK, RM = TT::RM, RK = TT::RK;
+  constexpr int BC = TT::BC;
+  constexpr int XQ = TM / 4, WQ = TK / 4;     // 16-byte copies per row
+  constexpr int STAGE = BC * (TM + TK);       // floats of one stage
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int tx = threadIdx.x % TT::TX, ty = threadIdx.x / TT::TX;
+  const int m0 = blockIdx.x * TM;
+  const int c0 = blockIdx.y * TK;             // column offset in the block
+  const int kj = blockIdx.z;
+  const int off = offsets[kj];
+  const int rows = counts[kj] * bn;           // the column's kept rows
+  const int chunks = (rows + BC - 1) / BC;
+  const float* const wcol = blocks + (size_t)off * bn * bk + c0;
+
+  // the copies of chunk `ch` into stage `ch % STAGES`: x rows of the
+  // kept rows' columns, then the payload rows; rows past the column's run
+  // and columns past bk load zeros
+  auto issue = [&](int ch) {
+    float* const xs = smem + (ch % TT::STAGES) * STAGE;
+    float* const ws = xs + BC * TM;
+    const int r0 = ch * BC;
+    const int t0 = r0 / bn;                   // kept block of row r0
+    for (int e = threadIdx.x; e < BC * XQ; e += TT::NT) {
+      const int q = e / XQ, f = e - q * XQ, r = r0 + q;
+      const bool in = r < rows;
+      int t = t0, rr = r - t0 * bn;           // kept row r is (t, rr)
+      while (rr >= bn) {
+        rr -= bn;
+        ++t;
+      }
+      const float* src =
+          in ? xt + ((size_t)row_ids[off + t] * bn + rr) * mp + m0 + 4 * f
+             : xt;
+      cp_async16(xs + q * TM + 4 * f, src, in ? 16 : 0);
+    }
+    for (int e = threadIdx.x; e < BC * WQ; e += TT::NT) {
+      const int q = e / WQ, f = e - q * WQ, r = r0 + q;
+      const bool in = r < rows && c0 + 4 * f < bk;
+      cp_async16(ws + q * TK + 4 * f,
+                 in ? wcol + (size_t)r * bk + 4 * f : blocks, in ? 16 : 0);
+    }
+  };
+
+  float acc[RM][RK];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RK; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < TT::STAGES - 1; ++s) {
+    if (s < chunks) issue(s);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<TT::STAGES - 2>();
+    __syncthreads();      // chunk ch has landed; chunk ch - 1's stage is free
+    if (ch + TT::STAGES - 1 < chunks) issue(ch + TT::STAGES - 1);
+    cp_async_commit();
+    const float* const xs = smem + (ch % TT::STAGES) * STAGE + 4 * ty;
+    const float* const ws = smem + (ch % TT::STAGES) * STAGE + BC * TM +
+                            4 * tx;
+#pragma unroll
+    for (int q = 0; q < BC; ++q) {            // ascending kept rows
+      float a[RM], b[RK];
+#pragma unroll
+      for (int g = 0; g < RM / 4; ++g) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(xs + q * TM + 4 * TT::TY * g);
+        a[4 * g] = v.x;
+        a[4 * g + 1] = v.y;
+        a[4 * g + 2] = v.z;
+        a[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int g = 0; g < RK / 4; ++g) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(ws + q * TK + 4 * TT::TX * g);
+        b[4 * g] = v.x;
+        b[4 * g + 1] = v.y;
+        b[4 * g + 2] = v.z;
+        b[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RK; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = m0 + 4 * ty + 4 * TT::TY * (i / 4) + i % 4;
+    if (row >= m) continue;
+#pragma unroll
+    for (int g = 0; g < RK / 4; ++g) {
+      const int col = c0 + 4 * tx + 4 * TT::TX * g;
+      if (col < bk)
+        *reinterpret_cast<float4*>(y + (size_t)row * k + (size_t)kj * bk +
+                                   col) =
+            make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                        acc[i][4 * g + 3]);
+    }
+  }
+}
+
+template <class TT>
+int launch_prefill(const float* xt, const void* blocks, const void* counts,
+                   const void* row_ids, const void* offsets, float* y, int m,
+                   int mp, int k, int bn, int bk, cudaStream_t st) {
+  constexpr int smem = prefill_smem<TT>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      bitmap_spmm_prefill_kernel<TT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((m + TT::TM - 1) / TT::TM, (bk + TT::TK - 1) / TT::TK,
+                  k / bk);
+  bitmap_spmm_prefill_kernel<TT><<<grid, TT::NT, smem, st>>>(
+      xt, (const float*)blocks, (const int*)counts, (const int*)row_ids,
+      (const int*)offsets, y, m, mp, k, bn, bk);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int MT>
 void launch_small_m(dim3 grid, int smem, cudaStream_t st, const void* x,
                     const void* blocks, const void* counts,
@@ -409,26 +656,47 @@ void launch_small_m(dim3 grid, int smem, cudaStream_t st, const void* x,
       slice_pieces);
 }
 
-enum Entry { TILED, SMALL_M, NAIVE };
+enum Entry { PREFILL, TILED, SMALL_M, NAIVE };
 
-// ws: the (slices, M, K) fp32 workspace when slices > 1, unused else.
-// Refuses (cudaErrorInvalidValue) what the entry cannot run: the tiled
-// entry takes one slice, the reduce kernel K % 4 == 0, the decode entry M
+// ws: the (slices, M, K) fp32 workspace when slices > 1; for the prefill
+// entry the (N, ceil(M / PF_MT) * PF_MT) fp32 transposed copy of x; unused
+// else.  tile: the prefill entry's tile, 0 BigTile, 1 SmallTile.  Refuses
+// (cudaErrorInvalidValue) what the entry cannot run: the tiled and prefill
+// entries take one slice, the reduce kernel K % 4 == 0, the decode entry M
 // <= 16, bk % 4 == 0, 16-byte aligned blocks and a slice whose x fits
-// SK_SMEM.
+// SK_SMEM, the prefill entry M > 16, bk % 4 == 0 and 16-byte aligned
+// blocks.
 template <typename T>
 int launch(const void* x, const void* blocks, const void* counts,
            const void* row_ids, const void* offsets, void* y, void* ws,
            int m, int n, int k, int bn, int bk, int tk, int nnzb, int t_max,
-           int slices, int slice_pieces, Entry entry, void* stream) {
+           int slices, int slice_pieces, int tile, Entry entry,
+           void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || bn <= 0 || bk <= 0 || tk <= 0 ||
       tk > TK || bk % tk || k % bk || n % bn ||
       (entry == NAIVE && (nnzb < 1 || t_max < 1)) || slices < 1 ||
       slices > MAX_SLICES || slice_pieces < 1 ||
-      (slices > 1 && (entry == TILED || k % 4)))
+      (slices > 1 && (entry == TILED || entry == PREFILL || k % 4)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* out = slices > 1 ? (float*)ws : (float*)y;
+  if (entry == PREFILL) {
+    if (m <= SK_MAX_M || bk % 4 || (uintptr_t)blocks % 16 || tile < 0 ||
+        tile > 1)
+      return (int)cudaErrorInvalidValue;
+    const int mp = (m + PF_MT - 1) / PF_MT * PF_MT;
+    float* xt = (float*)ws;                  // (n, mp) fp32
+    bitmap_transpose_x_kernel<T><<<dim3((n + 31) / 32, mp / 32), dim3(32, 8),
+                                   0, st>>>((const T*)x, xt, m, mp, n);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    return tile == 0 ? launch_prefill<BigTile>(xt, blocks, counts, row_ids,
+                                               offsets, out, m, mp, k, bn,
+                                               bk, st)
+                     : launch_prefill<SmallTile>(xt, blocks, counts, row_ids,
+                                                 offsets, out, m, mp, k, bn,
+                                                 bk, st);
+  }
   if (entry == SMALL_M) {
     const int mt = m <= 1 ? 1 : m <= 2 ? 2 : m <= 4 ? 4 : m <= 8 ? 8 : 16;
     const long smem = (long)mt * slice_pieces * BC * sizeof(float);
@@ -474,14 +742,16 @@ int launch(const void* x, const void* blocks, const void* counts,
                       const void* row_ids, const void* offsets, void* y,     \
                       void* ws, int m, int n, int k, int bn, int bk, int tk, \
                       int nnzb, int t_max, int slices, int slice_pieces,     \
-                      void* stream) {                                        \
+                      int tile, void* stream) {                              \
     return launch<T>(x, blocks, counts, row_ids, offsets, y, ws, m, n, k,    \
-                     bn, bk, tk, nnzb, t_max, slices, slice_pieces, entry,   \
-                     stream);                                                \
+                     bn, bk, tk, nnzb, t_max, slices, slice_pieces, tile,    \
+                     entry, stream);                                         \
   }
 
-BITMAP_ENTRY(bitmap_spmm_f32, float, TILED)
-BITMAP_ENTRY(bitmap_spmm_bf16, __nv_bfloat16, TILED)
+BITMAP_ENTRY(bitmap_spmm_f32, float, PREFILL)
+BITMAP_ENTRY(bitmap_spmm_bf16, __nv_bfloat16, PREFILL)
+BITMAP_ENTRY(bitmap_spmm_tiled_f32, float, TILED)
+BITMAP_ENTRY(bitmap_spmm_tiled_bf16, __nv_bfloat16, TILED)
 BITMAP_ENTRY(bitmap_spmm_small_m_f32, float, SMALL_M)
 BITMAP_ENTRY(bitmap_spmm_small_m_bf16, __nv_bfloat16, SMALL_M)
 BITMAP_ENTRY(bitmap_spmm_naive_f32, float, NAIVE)

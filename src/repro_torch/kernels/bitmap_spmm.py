@@ -2,21 +2,26 @@
 
 Ports of the two Pallas TPU kernels of ``repro.kernels.bitmap_spmm``:
 ``pipeline=True`` launches the port of ``_pipelined_kernel`` (walks
-``counts[kj]`` blocks: the decode entry at M ≤ 16, the tiled entry else),
-``pipeline=False`` the port of the naive ``_kernel`` (walks the static
-bound ``t_max``).  All entries follow one summation order,
-:func:`split_plan`: at decode the reduction over each block-column's kept
-rows is split into slices whose partials a second kernel adds in order.
-The wrapper picks the entry and the order (:func:`select_entry`), checks
-device, dtype, shape and contiguity, allocates the output and the
-partials' workspace (:func:`workspace_numel`) and launches on PyTorch's
-current stream; the source's note states the designs and bound.
+``counts[kj]`` blocks: the decode entry at M ≤ 16, the prefill entry
+above, the tiled entry for operands neither takes), ``pipeline=False`` the
+port of the naive ``_kernel`` (walks the static bound ``t_max``).  All
+entries follow one summation order, :func:`split_plan`: at decode the
+reduction over each block-column's kept rows is split into slices whose
+partials a second kernel adds in order.  The wrapper picks the entry and
+the order (:func:`select_entry`) and the prefill tile
+(:func:`prefill_plan`), checks device, dtype, shape and contiguity,
+allocates the output and the workspace (the partials,
+:func:`workspace_numel`, or the prefill entry's transposed x,
+:func:`xt_numel`) and launches on PyTorch's current stream; the source's
+note states the designs and bound.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -34,8 +39,17 @@ SMALL_M_TILE_K = 256
 SPLIT_MIN_BLOCKS = 4 * 132
 #: kept rows of one slice at most: 48 KB of fp32 x at 16 rows (``SK_SMEM``)
 SPLIT_MAX_SLICE_ROWS = 768
+#: (rows, columns) of the prefill entry's tiles, by index: ``BigTile``
+#: (8 x 8 outputs a thread), ``SmallTile`` (4 x 4)
+PREFILL_TILES = ((64, 128), (32, 32))
+#: a prefill grid of at least this many big tiles, one per SM of the
+#: H100's 132, takes the big tile
+PREFILL_MIN_BLOCKS = 132
+#: the prefill entry pads its transposed copy of x to a multiple of this
+#: many rows (``PF_MT``)
+PREFILL_PAD_M = 128
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -43,8 +57,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def tile_k(bk: int) -> int:
-    """Largest divisor of ``bk`` that is ≤ 64: one tiled-entry CUDA tile
-    lies in one block-column."""
+    """Largest divisor of ``bk`` that is ≤ 64: one tiled- or naive-entry
+    CUDA tile lies in one block-column."""
     t = min(bk, MAX_TILE_K)
     while bk % t:
         t -= 1
@@ -91,6 +105,32 @@ def split_plan(m: int, bn: int, bk: int, k: int, max_per_col: int
     return _cdiv(pieces, length), length
 
 
+class PrefillPlan(NamedTuple):
+    """The prefill entry's tile (an index of :data:`PREFILL_TILES`), its
+    rows and columns, and the grid: (M tiles, column tiles of a
+    block-column, block-columns)."""
+
+    tile: int
+    tm: int
+    tk: int
+    grid: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_plan(m: int, bk: int, k: int) -> PrefillPlan | None:
+    """The prefill entry's tile and grid for (M, bk, K), or None where its
+    16-byte payload copies cannot take bk (``bk % 4 != 0``).  The big tile
+    where its grid has at least :data:`PREFILL_MIN_BLOCKS` blocks, else the
+    small one.  A tile never crosses a block-column: a ragged last column
+    tile is masked.  Reads host integers only."""
+    if bk % 4:
+        return None
+    big, small = (PrefillPlan(tile, tm, tk, (_cdiv(m, tm), _cdiv(bk, tk),
+                                             k // bk))
+                  for tile, (tm, tk) in enumerate(PREFILL_TILES))
+    return big if math.prod(big.grid) >= PREFILL_MIN_BLOCKS else small
+
+
 def _fn(x_dtype: torch.dtype, entry: str):
     lib = build.library("bitmap_spmm")
     fn = getattr(lib, f"{entry}_bf16" if x_dtype == torch.bfloat16
@@ -106,9 +146,10 @@ def select_entry(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
                  ) -> tuple[str, int, int]:
     """``(entry, slices, pieces_per_slice)`` of one call: the C entry's
     name without its dtype suffix and :func:`split_plan`'s order.  Raises
-    on operands no entry takes.  The decode entry's 16-byte loads need
-    ``blocks`` 16-byte aligned: a misaligned view takes the tiled entry,
-    and both entries then follow one slice."""
+    on operands no entry takes.  The decode entry (M ≤ 16) and the prefill
+    entry (above) need ``blocks`` 16-byte aligned and bk a multiple of 4
+    (16-byte payload loads): other operands take the tiled entry, with one
+    slice."""
     m, n = x.shape
     nnzb, bn, bk = blocks.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -132,9 +173,16 @@ def select_entry(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"bitmap_spmm: x {tuple(x.shape)} / blocks "
                          f"{tuple(blocks.shape)} / counts "
                          f"{tuple(counts.shape)} do not fit K={k}")
-    decode = small_m(m, bk) and blocks.data_ptr() % 16 == 0
-    entry = "bitmap_spmm_naive" if not pipeline else \
-        "bitmap_spmm_small_m" if decode else "bitmap_spmm"
+    aligned = blocks.data_ptr() % 16 == 0
+    decode = small_m(m, bk) and aligned
+    if not pipeline:
+        entry = "bitmap_spmm_naive"
+    elif decode:
+        entry = "bitmap_spmm_small_m"
+    elif m > SPLIT_MAX_M and aligned and prefill_plan(m, bk, k) is not None:
+        entry = "bitmap_spmm"
+    else:
+        entry = "bitmap_spmm_tiled"
     if decode:
         return (entry, *split_plan(m, bn, bk, k, max_per_col))
     return entry, 1, max(1, max_per_col) * _cdiv(bn, PIECE_ROWS)
@@ -144,6 +192,12 @@ def workspace_numel(m: int, k: int, slices: int) -> int:
     """fp32 elements of the workspace: the (S, M, K) partials of a split
     reduction, else none."""
     return slices * m * k if slices > 1 else 0
+
+
+def xt_numel(m: int, n: int) -> int:
+    """fp32 elements of the prefill entry's workspace: x transposed to (N,
+    M rounded up to :data:`PREFILL_PAD_M`)."""
+    return n * _cdiv(m, PREFILL_PAD_M) * PREFILL_PAD_M
 
 
 def launch(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
@@ -163,16 +217,18 @@ def launch(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
     m, n = x.shape
     nnzb, bn, bk = blocks.shape
     y = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    numel = workspace_numel(m, k, slices)
+    prefill = entry == "bitmap_spmm"
+    numel = xt_numel(m, n) if prefill else workspace_numel(m, k, slices)
     ws = torch.empty(numel, dtype=torch.float32, device=x.device) \
         if numel else y
+    tile = prefill_plan(m, bk, k).tile if prefill else 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _fn(x.dtype, entry)(
             x.data_ptr(), blocks.data_ptr(), counts.data_ptr(),
             row_ids.data_ptr(), offsets.data_ptr(), y.data_ptr(),
             ws.data_ptr(), m, n, k, bn, bk, tile_k(bk), nnzb, t_max, slices,
-            pieces, stream)
+            pieces, tile, stream)
     if err:
         raise RuntimeError(f"bitmap_spmm kernel launch failed: CUDA error "
                            f"{err}")

@@ -55,17 +55,17 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    out = []
-    tok = logits.argmax(dim=-1)
+    out = []                      # int32 tokens, as the reference returns
+    tok = logits.argmax(dim=-1)   # int64: the next step's embedding index
     done = torch.zeros(b, dtype=torch.bool, device=dev)  # rows past EOS
     t1 = time.perf_counter()
     for t in range(plen, plen + gen):
         if eos_id is None:
-            out.append(tok)
+            out.append(tok.int())
         else:
             # a row's EOS token is emitted, later positions hold pad_id, and
             # once every row is done the remaining steps are skipped
-            out.append(torch.where(done, torch.full_like(tok, pad_id), tok))
+            out.append(torch.where(done, pad_id, tok).int())
             done |= tok == eos_id
             if bool(done.all()):
                 break
@@ -74,7 +74,7 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
     _sync(dev)
     t_gen = time.perf_counter() - t1
     if len(out) < gen:
-        out.extend([torch.full((b,), pad_id, dtype=torch.long,
+        out.extend([torch.full((b,), pad_id, dtype=torch.int32,
                                device=dev)] * (gen - len(out)))
     return torch.stack(out, dim=1), t_prefill, t_gen
 
@@ -86,7 +86,7 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
 
     ``model`` is anything with the serving surface (``prefill`` /
     ``decode_step``): the dense Model or a CompressedModel.  Returns
-    (tokens (B, gen) int64, t_prefill_s, t_gen_s).  ``eos_id`` ends rows
+    (tokens (B, gen) int32, t_prefill_s, t_gen_s).  ``eos_id`` ends rows
     early: the EOS token is emitted, later positions hold ``pad_id``, and
     decode stops once every row is done."""
     if prompt_pad_id is not None:

@@ -133,7 +133,7 @@ def _operands(m, n, k, bn, bk, off=0, nnzb=2):
     (4, 64, True, "bitmap_spmm_small_m", True),
     (16, 64, True, "bitmap_spmm_small_m", True),
     (17, 64, True, "bitmap_spmm", False),
-    (4, 30, True, "bitmap_spmm", False),
+    (4, 30, True, "bitmap_spmm_tiled", False),
     (4, 64, False, "bitmap_spmm_naive", True),
     (17, 64, False, "bitmap_spmm_naive", False),
     (4, 30, False, "bitmap_spmm_naive", False)])
@@ -141,7 +141,8 @@ def _operands(m, n, k, bn, bk, off=0, nnzb=2):
 def test_entry_and_order_follow_shape_and_alignment(m, bk, pipeline, entry,
                                                    split, off):
     """The decode entry takes M ≤ 16, bk % 4 == 0 and 16-byte aligned
-    blocks; a misaligned view takes the tiled entry, and the naive entry
+    blocks, the prefill entry M > 16 with the same; other operands (a
+    misaligned view, bk % 4 != 0) take the tiled entry, and the naive entry
     follows the pipelined entry's order on the same operands."""
     ops_ = _operands(m, 2048, 2 * bk, 1024, bk, off)
     got = bm.select_entry(*ops_, 2 * bk, 2, pipeline)
@@ -150,7 +151,7 @@ def test_entry_and_order_follow_shape_and_alignment(m, bk, pipeline, entry,
     one = (1, 2 * _cdiv(1024, PIECE))
     if off:
         assert ops_[1].data_ptr() % 16
-        want = "bitmap_spmm_naive" if not pipeline else "bitmap_spmm"
+        want = "bitmap_spmm_naive" if not pipeline else "bitmap_spmm_tiled"
         assert got == (want, *one)
         return
     plan = bm.split_plan(m, 1024, bk, 2 * bk, 2)

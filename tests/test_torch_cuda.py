@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bitmap_spmm as bm_cuda
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -44,7 +45,12 @@ def _block_sparse(rng, n, k, bn, bk, density):
 # bn 856 x bk 4096 with ragged pieces, bk 256, bk 13696 with a half-dead
 # last column tile), several block-columns with unequal counts (empty
 # trailing slices), density 0 and 1.  bk % 4 != 0 (30, 21) takes the
-# tiled entry with one slice, as does M > 16 (17, 70: prefill unchanged).
+# tiled entry with one slice.  M > 16 takes the prefill entry: M 17, 70,
+# 128, 129, 200 and 512 (ragged against both tiles' rows), chatglm3-6b's
+# roles (bn 1024 x bk 4096 / 13696 / 256, bn 856 x bk 4096), an odd bn
+# (100) with bk 200 (a ragged small-tile column), bk 1000 (a ragged
+# big-tile column) over three block-columns, unequal counts, density 0
+# and 1; bk 30 at M 129 takes the tiled entry.
 BITMAP_CASES = [
     (1, 48, 40, 12, 20, 0.5), (70, 856 * 2, 192, 856, 96, 0.5),
     (5, 64, 32, 16, 8, 0.0), (3, 64, 64, 16, 16, 1.0),
@@ -54,7 +60,13 @@ BITMAP_CASES = [
     (16, 13696, 256, 856, 256, 0.5), (4, 4096, 1024, 128, 256, 0.4),
     (8, 2048, 2048, 64, 512, 0.3), (4, 2048, 512, 256, 512, 0.0),
     (2, 2048, 512, 256, 512, 1.0), (4, 96, 60, 24, 30, 0.5),
-    (5, 80, 42, 16, 21, 0.5), (17, 4096, 4096, 1024, 4096, 0.5)]
+    (5, 80, 42, 16, 21, 0.5), (17, 4096, 4096, 1024, 4096, 0.5),
+    (512, 4096, 4096, 1024, 4096, 0.5), (512, 4096, 256, 1024, 256, 0.5),
+    (128, 4096, 13696, 1024, 13696, 0.5), (129, 13696, 4096, 856, 4096, 0.5),
+    (17, 13696, 256, 856, 256, 0.5), (33, 1000, 400, 100, 200, 0.5),
+    (512, 2048, 3000, 256, 1000, 0.5), (200, 800, 384, 100, 128, 0.0),
+    (129, 512, 256, 64, 64, 1.0), (512, 1024, 1024, 128, 256, 0.4),
+    (129, 96, 60, 24, 30, 0.5)]
 
 
 @pytest.mark.parametrize("m,n,k,bn,bk,density", BITMAP_CASES)
@@ -136,7 +148,7 @@ def _unequal_columns(card):
     return ops.compress_bitmap(w, 128, 256), rng
 
 
-@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 129, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bitmap_unequal_columns_and_an_empty_one(card, m, dtype):
     c, rng = _unequal_columns(card)
@@ -154,11 +166,12 @@ def test_bitmap_unequal_columns_and_an_empty_one(card, m, dtype):
 
 
 @pytest.mark.parametrize("off", [1, 3])
-@pytest.mark.parametrize("m", [4, 17])
+@pytest.mark.parametrize("m", [4, 17, 129, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bitmap_takes_misaligned_blocks(card, off, m, dtype):
     """A blocks view off 16 bytes takes the tiled entry with one slice;
-    the naive entry follows it bit for bit."""
+    the naive entry follows it bit for bit, and above 16 rows so does the
+    prefill entry on the aligned blocks."""
     n, k, bn, bk = 4096, 256, 1024, 256
     rng = np.random.default_rng(m + off)
     c = ops.compress_bitmap(_block_sparse(rng, n, k, bn, bk, 0.5).to(card),
@@ -170,11 +183,45 @@ def test_bitmap_takes_misaligned_blocks(card, off, m, dtype):
     c_off = dataclasses.replace(c, blocks=v)
     x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)) \
         .to(card, dtype)
+    assert bm_cuda.select_entry(x, v, c.counts, c.row_ids, c.offsets, k,
+                                c.max_per_col)[0] == "bitmap_spmm_tiled"
     y = ops.bitmap_spmm(x, c_off)
     _close(y, ref.bitmap_spmm_ref(x, c.blocks, c.counts, c.row_ids, c.n,
                                   c.k))
     assert torch.equal(ops.bitmap_spmm(x, c_off, pipeline=False), y)
-    assert ops.launch_counts()["bitmap_spmm"] == 1
+    if m > 16:
+        assert torch.equal(ops.bitmap_spmm(x, c), y)
+    assert ops.launch_counts()["bitmap_spmm"] == 1 + (m > 16)
+
+
+@pytest.mark.parametrize("m", [17, 129, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bitmap_prefill_takes_an_untileable_bk_by_the_tiled_entry(card, m,
+                                                                 dtype):
+    """bk = 30 (not whole 16-byte payload copies) takes the tiled entry;
+    its outputs equal, bit for bit, those of the prefill entry on the same
+    weight with each block-column padded by two zero columns (bk = 32):
+    the same kept blocks, the same kept rows in the same order."""
+    n, k, bn, bk = 1024, 120, 64, 30
+    rng = np.random.default_rng(m)
+    w = _block_sparse(rng, n, k, bn, bk, 0.5).to(card)
+    w32 = torch.nn.functional.pad(w.view(n, k // bk, bk), (0, 2)) \
+        .reshape(n, k // bk * 32)
+    c, c32 = ops.compress_bitmap(w, bn, bk), ops.compress_bitmap(w32, bn, 32)
+    assert torch.equal(c.counts, c32.counts)
+    assert torch.equal(c.row_ids, c32.row_ids)
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)) \
+        .to(card, dtype)
+    for cc, entry in ((c, "bitmap_spmm_tiled"), (c32, "bitmap_spmm")):
+        assert bm_cuda.select_entry(x, cc.blocks, cc.counts, cc.row_ids,
+                                    cc.offsets, cc.k,
+                                    cc.max_per_col)[0] == entry
+    y, y32 = ops.bitmap_spmm(x, c), ops.bitmap_spmm(x, c32)
+    _close(y, ref.bitmap_spmm_ref(x, c.blocks, c.counts, c.row_ids, c.n,
+                                  c.k))
+    assert torch.equal(y32.view(m, k // bk, 32)[:, :, :bk].reshape(m, k), y)
+    assert torch.equal(ops.bitmap_spmm(x, c, pipeline=False), y)
+    assert ops.launch_counts()["bitmap_spmm"] == 2
 
 
 @pytest.mark.parametrize("m,n,k,n_sel,m_group", NM_CASES)

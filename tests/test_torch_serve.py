@@ -207,6 +207,23 @@ def test_eos_pads_after_each_rows_eos(served):
     assert torch.equal(got, want), (got, want)
 
 
+@pytest.mark.parametrize("with_eos", [False, True])
+def test_generate_returns_int32_tokens_equal_to_reference(served, with_eos):
+    """Both ``generate``s return int32 tokens, equal, with and without an
+    EOS id (rows pad with ``pad_id`` after their EOS)."""
+    kw = dict(eos_id=int(served["rgen"][0, 1]), pad_id=-7) if with_eos \
+        else {}
+    rtoks, _, _ = served["rcm"].generate(
+        served["rpruned"], jnp.asarray(served["toks"], jnp.int32), GEN, **kw)
+    toks, _, _ = served["cm"].generate(
+        served["pruned"], torch.from_numpy(served["toks"]), GEN,
+        device="cpu", **kw)
+    assert rtoks.dtype == jnp.int32 and toks.dtype == torch.int32
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(rtoks))
+    if with_eos:
+        assert (toks == -7).any()
+
+
 def test_dispatch_returns_the_activation_dtype(served):
     """Kernels emit fp32; the dispatcher casts back to ``x.dtype``
     (reference dispatch.py:245), here bf16 activations."""
