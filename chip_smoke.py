@@ -10,9 +10,11 @@ non-zero exit code when it fails:
    CUDA versions; TF32 switched off for fp32 matmuls;
 2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc),
    with ptxas's registers and spills for every entry and a summary line for
-   each instance of the N:M prefill kernel and of the bitmap kernels
+   each instance of the N:M prefill kernel, of the bitmap kernels
    (prefill tiles, transpose, decode MT, tiled, naive, naive split,
-   reduce); a bitmap entry that spills fails the run;
+   reduce) and of both flash entries (FMA, tensor-core); a bitmap entry or
+   a flash tensor-core entry that spills, or a ptxas note that it
+   serialised wgmmas, fails the run;
 3. sparse kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm``, each
    in its pipelined and its naive (``pipeline=False``) variant, at every
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
@@ -29,7 +31,10 @@ non-zero exit code when it fails:
 4. flash attention vs its plain version at chatglm3-6b's attention width
    (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
    bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
-   plain version, the bound and ``scaled_dot_product_attention``;
+   plain version, the bound and ``scaled_dot_product_attention``; every
+   shape prints the entry that ran (the bf16 shapes must launch the
+   tensor-core entry, the fp32 ones the FMA entry) and the share of its
+   bound the kernel reaches;
 5. serving: full-width chatglm3-6b (all 28 layers), random weights from a
    seeded generator, through ``repro_torch.launch.serve.generate`` on the
    shipped bitmap plan and on the shipped N:M plan (batch 4, prompt 128,
@@ -146,9 +151,10 @@ def phase_build() -> None:
 
     # one summary line per instance of the redesigned entries: the N:M
     # prefill kernel (Tile<R, WM, WK, MIN_BLOCKS>, x type, 16-byte cp.async
-    # or plain staging) and the bitmap kernels (prefill PTile<TY, TX, RM,
+    # or plain staging), the bitmap kernels (prefill PTile<TY, TX, RM,
     # RK, MIN_BLOCKS, STAGES, BC>, transpose, decode MT, tiled / naive /
-    # naive split, reduce)
+    # naive split, reduce) and both flash entries (FMA per x type and
+    # column count, tensor-core per D)
     summaries = (
         (r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)"
          r"Lb([01])",
@@ -169,15 +175,24 @@ def phase_build() -> None:
          lambda t, naive, split: (
              f"bitmap_spmm {'tiled' if naive == '0' else 'naive'}"
              f"{' split' if split == '1' else ''} x {xt(t)}")),
-        (r"bitmap_reduce_kernel", lambda: "bitmap_spmm reduce"))
+        (r"bitmap_reduce_kernel", lambda: "bitmap_spmm reduce"),
+        (r"flash_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+         lambda t, dj: f"flash_attention fma entry x {xt(t)} D <= "
+                       f"{16 * int(dj)}"),
+        (r"flash_attention_tc_kernelILi(\d+)E",
+         lambda d: f"flash_attention tensor-core entry D={d}"))
     for entry, found in lines.items():
         for pattern, label in summaries:
             hit = re.search(pattern, entry)
             if hit:
                 print(f"[build] {label(*hit.groups())}: {'; '.join(found)}")
-        if "bitmap" in entry and re.search(r"[1-9]\d* bytes spill",
-                                           " ".join(found)):
+        if ("bitmap" in entry or "flash_attention_tc" in entry) \
+                and re.search(r"[1-9]\d* bytes spill", " ".join(found)):
             _fail(f"{entry} spills: {'; '.join(found)}")
+    # ptxas serialises wgmmas it cannot prove safe, at a loss it only notes
+    for line in build.BUILD_LOG.get("flash_attention", "").splitlines():
+        if "Performance Loss" in line and "wgmma" in line:
+            _fail(f"flash_attention: {line.strip()}")
 
 
 class _Acc:
@@ -344,6 +359,7 @@ def phase_flash(cfg, card: str, dev) -> dict:
     are this phase's own."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -372,7 +388,12 @@ def phase_flash(cfg, card: str, dev) -> dict:
                 q[i:i + heads], k[i:i + heads], v[i:i + heads], causal)
                 for i in range(0, n_bh, heads)])
 
+        entry = fa.select_entry(dtype, d, True)
+        fa.reset_entry_counts()
         o = ops.flash_attention(q, k, v, causal=causal)
+        if fa.entry_counts()[entry] != 1:
+            _fail(f"flash_attention BH={n_bh} S={s} {dtype}: entry counts "
+                  f"{fa.entry_counts()}, expected one launch of {entry}")
         o_plain = plain()
         diff = (o.float() - o_plain.float()).abs()
         err = diff.max().item()
@@ -404,16 +425,16 @@ def phase_flash(cfg, card: str, dev) -> dict:
         flops = 4.0 * n_bh * s * s * d * (0.5 if causal else 1.0)
         bound, by = _bound_ms(nbytes, flops, BF16_FLOP_S
                               if dtype == torch.bfloat16 else FP32_FLOP_S)
-        shapes.append({"at": label, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound, "bound_by": by,
-                       "library_ms": lib_ms, "max_abs_err": err,
-                       "err_over_bound": ratio})
+        shapes.append({"at": label, "entry": entry, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "library_ms": lib_ms,
+                       "max_abs_err": err, "err_over_bound": ratio})
         if (n_bh, s, causal, dtype) == (bh, 2048, True, torch.bfloat16):
             head = shapes[-1]
-        print(f"[flash] {label}: err {err:.3e} ({ratio:.3f} of its bound) "
-              f"kernel "
-              f"{ms:.4f} ms plain {plain_ms:.4f} ms library {lib_ms:.4f} ms "
-              f"bound {bound:.4f} ms ({by})")
+        print(f"[flash] {label}: {entry} entry, err {err:.3e} ({ratio:.3f} "
+              f"of its bound) kernel {ms:.4f} ms ({bound / ms:.1%} of the "
+              f"bound) plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound "
+              f"{bound:.4f} ms ({by})")
         del q, k, v
         torch.cuda.empty_cache()
     launches = ops.launch_counts()["flash_attention"]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bitmap_spmm as bm_cuda
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -23,6 +24,7 @@ def card():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     ops.reset_launch_counts()
+    fa.reset_entry_counts()
     return torch.device("cuda", 0)
 
 
@@ -267,10 +269,17 @@ def test_nm_prefill_takes_misaligned_operands(card, v_off, i_off, dtype):
 
 
 # bh, sq, skv, d: the reference's test shapes, Sq != Skv, ragged tiles
-# (the kernel's own tiles are 64), D up to 256
+# (the FMA entry's tiles are 64), D up to 256.  At bf16, D 64 and 128 take
+# the tensor-core entry: the second row's cases are ragged against its
+# 128-row query and 128-key tiles, Sq != Skv both ways under the top-left
+# causal mask, Skv >= 1024 (the two-stage K / V ring wraps four times or
+# more), and BH > 1 with several query tiles (heaviest first)
 @pytest.mark.parametrize("bh,sq,skv,d", [
     (2, 64, 64, 32), (4, 128, 128, 64), (1, 32, 32, 128), (3, 96, 96, 16),
-    (2, 32, 64, 32), (3, 100, 70, 48), (1, 130, 130, 200)])
+    (2, 32, 64, 32), (3, 100, 70, 48), (1, 130, 130, 200),
+    (2, 100, 70, 128), (3, 70, 200, 64), (2, 200, 130, 128),
+    (1, 1100, 1100, 128), (2, 33, 1030, 64), (6, 300, 300, 128),
+    (5, 257, 1024, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(card, bh, sq, skv, d, causal, dtype):
@@ -284,6 +293,8 @@ def test_flash_kernel_matches_plain(card, bh, sq, skv, d, causal, dtype):
     o = ops.flash_attention(q, k, v, causal=causal, bq=sq, bk=skv)
     assert o.dtype == dtype and o.shape == q.shape
     assert ops.launch_counts()["flash_attention"] == 1
+    entry = fa.select_entry(dtype, d, True)
+    assert fa.entry_counts()[entry] == 1
     o_plain = ref.flash_attention_ref(q, k, v, causal)
     diff = (o.float() - o_plain.float()).abs()
     if dtype == torch.float32:
@@ -291,6 +302,33 @@ def test_flash_kernel_matches_plain(card, bh, sq, skv, d, causal, dtype):
     else:
         tol = ref.flash_attention_bf16_tol(q, k, v, o_plain, causal)
     assert bool((diff <= tol).all()), (diff - tol).max().item()
+
+
+def test_flash_routes_bf16_to_the_tensor_core_entry(card):
+    """bf16 at D = 128 launches the tensor-core entry, fp32 and a bf16
+    operand off a 16-byte boundary the FMA entry; each result holds to the
+    plain version."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(3, 2, 256, 128))
+                         .astype(np.float32)).to(card)
+    q, k, v = x
+    o = ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert fa.entry_counts() == {"tensor_core": 1, "fma": 0}
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    o_plain = ref.flash_attention_ref(qb, kb, vb, True)
+    tol = ref.flash_attention_bf16_tol(qb, kb, vb, o_plain, True)
+    assert bool(((o.float() - o_plain.float()).abs() <= tol).all())
+    o32 = ops.flash_attention(q, k, v)
+    assert fa.entry_counts() == {"tensor_core": 1, "fma": 1}
+    _close(o32, ref.flash_attention_ref(q, k, v, True))
+    off = torch.empty(q.numel() + 1, dtype=torch.bfloat16,
+                      device=card)[1:].view(q.shape)
+    off.copy_(qb)
+    assert off.data_ptr() % 16
+    o_off = ops.flash_attention(off, kb, vb)
+    assert fa.entry_counts() == {"tensor_core": 1, "fma": 2}
+    assert bool(((o_off.float() - o_plain.float()).abs() <= tol).all())
+    assert ops.launch_counts()["flash_attention"] == 3
 
 
 def test_flash_wrapper_refuses_bad_operands(card):
