@@ -10,24 +10,26 @@ non-zero exit code when it fails:
    CUDA versions; TF32 switched off for fp32 matmuls;
 2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc),
    with ptxas's registers and spills for every entry and a summary line for
-   each instance of the N:M prefill kernel, of the bitmap kernels
-   (prefill tiles, transpose, decode MT, tiled, naive, naive split,
-   reduce) and of both flash entries (FMA, tensor-core); a bitmap entry or
-   a flash tensor-core entry that spills, or a ptxas note that it
-   serialised wgmmas, fails the run;
+   each instance of the N:M kernels (prefill tiles, naive decode MT x x
+   type x row loads, naive tiled), of the bitmap kernels (prefill tiles,
+   transpose, decode MT, tiled, naive, naive split, reduce) and of both
+   flash entries (FMA, tensor-core); an N:M or bitmap entry or a flash
+   tensor-core entry that spills, or a ptxas note that it serialised
+   wgmmas, fails the run;
 3. sparse kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm``, each
    in its pipelined and its naive (``pipeline=False``) variant, at every
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
    plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4
    and 1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in
    fp32 and bf16 (with each role's split of the reduction at M = 4,
-   bitmap and N:M: slices, grid, partials' bytes, and each bitmap role's
-   prefill tile and grid at M = 512): each held to
-   max|y - y_plain| <= 1e-4 max|y_plain| + 1e-5, the naive result equal
-   to the pipelined one bit
-   for bit, timed (the naive variants at bf16 only) beside the plain
-   version, the bound on an H100 SXM (with the share of it the kernel
-   reaches) and one ``torch.matmul`` over the decompressed weight;
+   bitmap and N:M: slices, grid, partials' bytes, the naive N:M kernel
+   that ran and its grid, read from a profiler trace and held to the
+   wrapper's ``naive_kernel``, and each bitmap role's prefill tile and grid
+   at M = 512): each held to max|y - y_plain| <= 1e-4 max|y_plain| +
+   1e-5, the naive result equal to the pipelined one bit for bit, timed
+   (the naive variants at bf16 only) beside the plain version, the bound
+   on an H100 SXM (with the share of it the kernel reaches) and one
+   ``torch.matmul`` over the decompressed weight;
 4. flash attention vs its plain version at chatglm3-6b's attention width
    (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
    bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
@@ -151,16 +153,23 @@ def phase_build() -> None:
 
     # one summary line per instance of the redesigned entries: the N:M
     # prefill kernel (Tile<R, WM, WK, MIN_BLOCKS>, x type, 16-byte cp.async
-    # or plain staging), the bitmap kernels (prefill PTile<TY, TX, RM,
-    # RK, MIN_BLOCKS, STAGES, BC>, transpose, decode MT, tiled / naive /
-    # naive split, reduce) and both flash entries (FMA per x type and
-    # column count, tensor-core per D)
+    # or plain staging), the naive N:M kernels (decode MT, x type, 16-byte
+    # or plain row loads; the tiled one per x type), the bitmap kernels
+    # (prefill PTile<TY, TX, RM, RK, MIN_BLOCKS, STAGES, BC>, transpose,
+    # decode MT, tiled / naive / naive split, reduce) and both flash
+    # entries (FMA per x type and column count, tensor-core per D)
     summaries = (
         (r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)"
          r"Lb([01])",
          lambda r, wm, wk, minb, t, vec: (
              f"nm_spmm prefill Tile<{r}, {wm}, {wk}, {minb}> x {xt(t)} "
              f"{'cp.async' if vec == '1' else 'plain'} staging")),
+        (r"nm_spmm_naive_small_m_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E",
+         lambda t, mt, vec: (
+             f"nm_spmm naive decode MT={mt} x {xt(t)} "
+             f"{'16-byte' if vec == '1' else 'plain'} row loads")),
+        (r"nm_spmm_naive_kernelI(13__nv_bfloat16|f)E",
+         lambda t: f"nm_spmm naive tiled x {xt(t)}"),
         (r"bitmap_spmm_prefill_kernelINS_5PTileILi(\d+)ELi(\d+)ELi(\d+)"
          r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE",
          lambda ty, tx, rm, rk, minb, stages, bc: (
@@ -186,7 +195,8 @@ def phase_build() -> None:
             hit = re.search(pattern, entry)
             if hit:
                 print(f"[build] {label(*hit.groups())}: {'; '.join(found)}")
-        if ("bitmap" in entry or "flash_attention_tc" in entry) \
+        if re.search(r"bitmap|nm_(spmm|reduce|transpose)|flash_attention_tc",
+                     entry) \
                 and re.search(r"[1-9]\d* bytes spill", " ".join(found)):
             _fail(f"{entry} spills: {'; '.join(found)}")
     # ptxas serialises wgmmas it cannot prove safe, at a loss it only notes
@@ -226,6 +236,28 @@ def _check(name, y, y_plain) -> float:
         _fail(f"{name}: max|y - y_plain| = {err} > {TOL_REL} * {scale} "
               f"+ {TOL_ABS}")
     return err
+
+
+def _launched(fn) -> list[tuple[str, tuple | None]]:
+    """``(kernel name, grid)`` of every kernel ``fn()`` launches, from a
+    CUDA-only ``torch.profiler`` trace (its Chrome export names each
+    kernel's grid); the trace is written into ``build/`` and removed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    path = build.BUILD_DIR / f"launched-{os.getpid()}.json"
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    try:
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        path.unlink()
+    return [(e["name"], tuple(e["args"]["grid"][:2])
+             if "grid" in e.get("args", {}) else None)
+            for e in sorted(events, key=lambda e: e.get("ts", 0))
+            if e.get("cat") == "kernel"]
 
 
 def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
@@ -339,6 +371,27 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                   f"{slices} slices of {length} groups, grid {tiles} x "
                   f"{slices} = {tiles * slices} blocks, partials {part} B "
                   f"(round trip {2 * part / nbytes_w:.2%} of the payload)")
+            # the naive kernel that runs at decode, and its grid
+            name, grid = nm_cuda.naive_kernel(M_DECODE, role.n, role.k,
+                                              n_sel, 4)
+            x = torch.randn((M_DECODE, role.n), generator=gen,
+                            device=dev).bfloat16()
+            ran = _launched(lambda: ops.nm_spmm(x, c, pipeline=False))
+            want = [name] + (["nm_reduce_kernel"] if slices > 1 else [])
+            if len(ran) != len(want) or not all(
+                    k_name in r for k_name, (r, _) in zip(want, ran)) \
+                    or ran[0][1] not in (grid, None):
+                _fail(f"nm_spmm_naive {role.role} ({n_sel}:4) M={M_DECODE}: "
+                      f"launched {ran}, expected {want} with {name} on "
+                      f"grid {grid}")
+            traced = ran[0][1]
+            short = re.search(r"nm_\w+(<[^>]*>)?", ran[0][0])[0]
+            print(f"[kernels] nm_spmm_naive {role.role} ({n_sel}:4) "
+                  f"M={M_DECODE} x=bfloat16: ran {short} on grid "
+                  f"{grid[0]} x {grid[1]} "
+                  f"({'as traced' if traced else 'the trace gives no grid'})"
+                  f"{', then nm_reduce_kernel' if slices > 1 else ''}")
+            del x
             for m in (M_DECODE, M_PREFILL):
                 for dtype in (torch.float32, torch.bfloat16):
                     run("nm_spmm", f"{role.role} ({n_sel}:4)", m, dtype,

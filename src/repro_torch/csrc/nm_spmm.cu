@@ -8,7 +8,8 @@
 //                               prefill, the second at decode;
 //   nm_spmm_naive_{f32,bf16}    replaces `_kernel` with `_decode_tile`
 //                               (launched by `nm_spmm_pallas` with
-//                               pipeline=False).
+//                               pipeline=False): a decode kernel at M <= 16
+//                               and K % 4 == 0, a tiled one else.
 // The wrapper (repro_torch/kernels/nm_spmm.py) picks the entry and the
 // summation order; the entries only refuse what they cannot run.
 //
@@ -90,20 +91,45 @@
 // Ragged K and the tail of a slice are masked in the loads (a dead row is
 // value 0 at an invalid position) and the store, never around the FMAs.
 //
-// Naive entry: the TPU naive kernel's design read for the card, 64 x 64
-// output tiles and runs of gc = 32 / m_group groups (the TPU's N stripes)
-// staged by plain loads; each run's (values, indices) rows are EXPANDED
-// into a dense
-// shared-memory tile of gc*m_group rows by position compares --
-// dense[g*m + p][j] = sum over the group's n_sel entries of (index == p ?
-// value : 0), the TPU `_decode_tile` -- and the tile is then multiplied
-// densely, zeros included, in ascending n.  With S > 1 it writes its
-// accumulator to the workspace at each slice boundary and restarts it from
-// 0, and the same reduce kernel adds the partials.  A kept value times x
-// plus exact zeros gives the pipelined entry's sum bit for bit on finite
-// inputs, as the reference pins its two TPU kernels equal.  Its cost is the
-// TPU design's: m_group / n_sel times the FMAs (2x at 2:4, 4x at 1:4) plus
-// the expansion; it takes no split parallelism.
+// Naive entry (nm_spmm_naive_*): replaces `_kernel` + `_decode_tile` of
+// `nm_spmm_pallas` with pipeline=False (src/repro/kernels/nm_spmm.py:167).
+// It stays the TPU design: each group of the payload is EXPANDED into a
+// dense operand by position compares -- dense[p][j] = sum over the group's
+// n_sel kept rows of (index == p ? value : 0), from 0, `_decode_tile` --
+// and the dense operand is multiplied with x densely, zeros included, in
+// ascending n.  `launch` picks one of two kernels from the shape alone, as
+// for the pipelined entry:
+// - decode (M <= 16, K % 4 == 0): nm_spmm_naive_small_m_kernel, on the
+//   pipelined decode kernel's grid (ceil(K/SK_TK), S) with its threads (4
+//   adjacent columns x MT rows each), its x slice (fp32, column-major) and
+//   its slice partials.  A thread expands its 4 columns of each group's
+//   dense rows in registers, where the TPU kernel keeps its dense operand
+//   too ("at the VMEM->VREG boundary"), with selects, not branches; then
+//   for each of the group's m_group positions it adds x[i][p] * w[j] to its
+//   MT x 4 accumulators, reading x densely (every column of the slice in
+//   order, one broadcast 16-byte shared load per 4 rows; no address comes
+//   from an index).  The kept rows come as one float4 of values and one
+//   word of four int8 indices each (VEC), or by plain loads for values off
+//   16 bytes or indices off 4; NV_ROWS rows a batch (8 at MT <= 4, 4
+//   above), the next batch in flight during the current one's FMAs.  The
+//   served group shapes (2:4, 1:4) are compile-time bodies whose rows stay
+//   in registers; any other shape takes a loop that re-reads a group's
+//   rows for each position from L1 (a block's rows of one group: n_sel *
+//   SK_TK * 5 bytes, 40 KB at most), so no shape spills.
+// - prefill (M > 16, or K % 4 != 0): nm_spmm_naive_kernel, 64 x 64 output
+//   tiles, runs of gc = 32 / m_group groups staged by plain loads and
+//   expanded into a dense shared-memory tile, one slice.
+// Both equal the pipelined entry bit for bit on finite inputs: a kept
+// value is added to 0 and to exact zeros, so dense[p][j] is the value or
+// zero, and fmaf(x, 0, acc) is acc, so the dense sum in ascending n is the
+// pipelined sum over the kept entries in ascending n, slice by slice, and
+// the same reduce adds the partials (-0 and +0 may differ; torch.equal
+// takes them as equal).  The decode kernel's cost over the pipelined one is
+// issue slots: per group and output column m_group * MT FMAs (zeros
+// included) and m_group * n_sel compares, selects and adds, against n_sel *
+// MT FMAs; at 2:4 and MT = 4 about 40 instructions per group and column
+// (20 per kept entry), some 2 G thread instructions per chatglm3-6b layer:
+// about 0.07 ms of the 132 SMs' issue slots, under the payload's 0.15 ms.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor
 // cores): bytes = values (4 B) + indices (1 B) per kept entry + x + y,
@@ -114,7 +140,10 @@
 // is kept under 10 % of the payload at decode.
 //
 // What the design leaves on the table: the decode loads are synchronous
-// register loads, not cp.async/TMA rings; the indices travel as int8
+// register loads, not cp.async/TMA rings; the naive decode kernel spends
+// m_group / n_sel times the pipelined kernel's FMAs (the TPU design's
+// cost), and group shapes other than 2:4 and 1:4 re-read their rows from
+// L1 for each position; the indices travel as int8
 // instead of 2-bit fields; the prefill entry spends a 16-byte shared load
 // per 4 (fp32 x) or 8 (bf16 x) FMAs, plus for bf16 one integer widening per
 // FMA, so it cannot pass about a quarter (fp32) or two fifths (bf16) of the
@@ -143,6 +172,10 @@ constexpr int SK_MAX_M = 16;             // largest M (MT) of the small-M entry
 constexpr int SK_THREADS = 64;           // threads of a small-M block
 constexpr int SK_TK = 4 * SK_THREADS;    // its output columns
 constexpr int SK_ROWS = 8;               // kept rows per load batch
+// the same, naive decode kernel: 8 where a thread owns at most 4 output
+// rows, 4 above (fewer registers, and faster; tools/nm_naive_sweep.py)
+template <int MT>
+constexpr int NV_ROWS = MT <= 4 ? 8 : 4;
 constexpr int SK_SMEM = 48 * 1024;       // its x slice, bytes at most
 constexpr int RED_THREADS = 256;         // threads of a reduce block
 
@@ -411,6 +444,31 @@ __device__ __forceinline__ void load_x(const float* xc, float (&xv)[MT]) {
   }
 }
 
+// x columns [c0, c0 + xw) of the MT rows into xs[column][MT] as fp32, rows
+// from m on as zeros; then a barrier.
+template <typename T, int MT>
+__device__ __forceinline__ void stage_x_slice(const T* __restrict__ x,
+                                              float* __restrict__ xs, int m,
+                                              int n, size_t c0, int xw) {
+  for (int e = threadIdx.x; e < MT * xw; e += SK_THREADS) {
+    const int i = e / xw, c = e - i * xw;
+    xs[c * MT + i] = i < m ? to_f32(x[(size_t)i * n + c0 + c]) : 0.f;
+  }
+  __syncthreads();
+}
+
+// Rows below m of a thread's 4 adjacent output columns at o (row stride k).
+template <int MT>
+__device__ __forceinline__ void store_cols(const float (&acc)[MT][4],
+                                           float* __restrict__ o, int m,
+                                           int k) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    if (i < m)
+      *reinterpret_cast<float4*>(o + (size_t)i * k) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
 // Small-M entry (M <= SK_MAX_M): the partial of slice blockIdx.y over
 // output columns [4 * thread, +4) of tile blockIdx.x, into out + slice *
 // M * K (out is y itself when S = 1).  Needs K % 4 == 0, values 16-byte
@@ -439,12 +497,7 @@ nm_spmm_small_m_kernel(const T* __restrict__ x,
   int p[SK_ROWS];
   load_rows(vp, ip, step, rows, v, p);         // in flight while x is staged
 
-  const size_t xbase = (size_t)g0 * m_group;
-  for (int e = threadIdx.x; e < MT * xw; e += SK_THREADS) {
-    const int i = e / xw, c = e - i * xw;
-    xs[c * MT + i] = i < m ? to_f32(x[(size_t)i * n + xbase + c]) : 0.f;
-  }
-  __syncthreads();
+  stage_x_slice<T, MT>(x, xs, m, n, (size_t)g0 * m_group, xw);
 
   float acc[MT][4];
 #pragma unroll
@@ -482,14 +535,7 @@ nm_spmm_small_m_kernel(const T* __restrict__ x,
     }
   }
 
-  if (col < k) {
-    float* o = out + (size_t)blockIdx.y * m * k + col;
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-      if (i < m)
-        *reinterpret_cast<float4*>(o + (size_t)i * k) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
+  if (col < k) store_cols(acc, out + (size_t)blockIdx.y * m * k + col, m, k);
 }
 
 // y = ws[0] + ws[1] + ... + ws[S-1], left to right, four outputs a thread.
@@ -510,6 +556,179 @@ nm_reduce_kernel(const float4* __restrict__ ws, float4* __restrict__ y,
   y[e] = a;
 }
 
+// Kept rows q .. q+R-1 of a slice whose row 0 is at vp / ip (the thread's
+// column), of which those below `rows` are loaded and the others masked:
+// value 0 at position 0xff, which no group has.  VEC: one float4 of values
+// and one word of four int8 indices a row; else plain loads, for values
+// off 16 bytes or indices off 4.
+template <bool VEC, int R>
+__device__ __forceinline__ void naive_rows(const float* __restrict__ vp,
+                                           const int8_t* __restrict__ ip,
+                                           int k, int q, int rows,
+                                           float4 (&v)[R], int (&p)[R]) {
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const bool in = q + u < rows;
+    const size_t at = (size_t)(in ? q + u : 0) * k;
+    if constexpr (VEC) {
+      v[u] = in ? __ldg(reinterpret_cast<const float4*>(vp + at))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+      p[u] = in ? __ldg(reinterpret_cast<const int*>(ip + at)) : -1;
+    } else {
+      const float* a = vp + at;
+      const unsigned char* b =
+          reinterpret_cast<const unsigned char*>(ip) + at;
+      v[u] = in ? make_float4(__ldg(a), __ldg(a + 1), __ldg(a + 2),
+                              __ldg(a + 3))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+      p[u] = in ? (int)((unsigned)__ldg(b) | (unsigned)__ldg(b + 1) << 8 |
+                        (unsigned)__ldg(b + 2) << 16 |
+                        (unsigned)__ldg(b + 3) << 24)
+                : -1;
+    }
+  }
+}
+
+// acc[i][j] += x[i] * w[j] over the MT staged x values at xc.
+template <int MT>
+__device__ __forceinline__ void fma_dense_row(const float* xc,
+                                              const float (&w)[4],
+                                              float (&acc)[MT][4]) {
+  float xv[MT];
+  load_x<MT>(xc, xv);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], w[j], acc[i][j]);
+}
+
+// The slice's groups of shape NS:MG (compile time), kept rows in
+// registers: batches of R rows (R / NS whole groups), the next
+// batch loaded during the current one's FMAs.  `stage` stages x once the
+// first batch is in flight.  A group past the slice's end (the tail of the
+// last batch) has w = 0 and reads the slice's last x columns: its FMAs add
+// exact zeros.
+template <int MT, bool VEC, int NS, int MG, class Stage>
+__device__ __forceinline__ void naive_groups(const float* xs,
+                                             const float* vp,
+                                             const int8_t* ip, int k,
+                                             int gcur, Stage stage,
+                                             float (&acc)[MT][4]) {
+  constexpr int R = NV_ROWS<MT>;
+  static_assert(R % NS == 0, "a batch holds whole groups");
+  const int rows = gcur * NS;
+  float4 v[R];
+  int p[R];
+  naive_rows<VEC>(vp, ip, k, 0, rows, v, p);
+  stage();
+  for (int q0 = 0; q0 < rows; q0 += R) {
+    float4 vn[R];
+    int pn[R];
+    naive_rows<VEC>(vp, ip, k, q0 + R, rows, vn, pn);         // next batch
+#pragma unroll
+    for (int gg = 0; gg < R / NS; ++gg) {
+      const float* xg = xs + min(q0 / NS + gg, gcur - 1) * MG * MT;
+      float b[NS][4];
+      unsigned pos[NS][4];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float4 t = v[gg * NS + s];
+        b[s][0] = t.x;
+        b[s][1] = t.y;
+        b[s][2] = t.z;
+        b[s][3] = t.w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pos[s][j] = ((unsigned)p[gg * NS + s] >> (8 * j)) & 0xffu;
+      }
+      // _decode_tile: dense row c of the group, then its FMAs, c ascending
+#pragma unroll
+      for (int c = 0; c < MG; ++c) {
+        float w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          w[j] = 0.f;
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            w[j] += pos[s][j] == (unsigned)c ? b[s][j] : 0.f;
+        }
+        fma_dense_row<MT>(xg + c * MT, w, acc);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      v[u] = vn[u];
+      p[u] = pn[u];
+    }
+  }
+}
+
+// Any other group shape: the same expansion and FMAs with run-time loops;
+// a group's rows are re-read for each position (from L1).
+template <int MT, bool VEC, class Stage>
+__device__ __forceinline__ void naive_groups_any(
+    const float* xs, const float* vp, const int8_t* ip, int k, int gcur,
+    int n_sel, int m_group, Stage stage, float (&acc)[MT][4]) {
+  stage();
+  const int rows = gcur * n_sel;
+  for (int g = 0; g < gcur; ++g) {
+    for (int c = 0; c < m_group; ++c) {
+      float w[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int s = 0; s < n_sel; ++s) {
+        float4 v[1];
+        int p[1];
+        naive_rows<VEC>(vp, ip, k, g * n_sel + s, rows, v, p);
+        const float b[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[j] += (((unsigned)p[0] >> (8 * j)) & 0xffu) == (unsigned)c
+                      ? b[j]
+                      : 0.f;
+      }
+      fma_dense_row<MT>(xs + (g * m_group + c) * MT, w, acc);
+    }
+  }
+}
+
+// Naive decode kernel (M <= SK_MAX_M, K % 4 == 0): the partial of slice
+// blockIdx.y over output columns [4 * thread, +4) of tile blockIdx.x, into
+// out + slice * M * K (out is y itself when S = 1), each group expanded to
+// its dense rows and multiplied densely.
+template <typename T, int MT, bool VEC>
+__global__ void __launch_bounds__(SK_THREADS)
+nm_spmm_naive_small_m_kernel(const T* __restrict__ x,
+                             const float* __restrict__ values,
+                             const int8_t* __restrict__ indices,
+                             float* __restrict__ out, int m, int n, int k,
+                             int n_sel, int m_group, int slice_groups) {
+  extern __shared__ float4 xs4[];
+  float* xs = reinterpret_cast<float*>(xs4);   // [slice column][MT], fp32
+  const int groups = n / m_group;
+  const int g0 = blockIdx.y * slice_groups;
+  const int gcur = min(slice_groups, groups - g0);
+  const int col = blockIdx.x * SK_TK + 4 * threadIdx.x;
+  const size_t at0 = (size_t)g0 * n_sel * k + min(col, k - 4);  // dead
+  const float* vp = values + at0;              // columns read a live one
+  const int8_t* ip = indices + at0;
+  auto stage = [&] {
+    stage_x_slice<T, MT>(x, xs, m, n, (size_t)g0 * m_group, gcur * m_group);
+  };
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if (n_sel == 2 && m_group == 4)
+    naive_groups<MT, VEC, 2, 4>(xs, vp, ip, k, gcur, stage, acc);
+  else if (n_sel == 1 && m_group == 4)
+    naive_groups<MT, VEC, 1, 4>(xs, vp, ip, k, gcur, stage, acc);
+  else
+    naive_groups_any<MT, VEC>(xs, vp, ip, k, gcur, n_sel, m_group, stage,
+                              acc);
+  if (col < k) store_cols(acc, out + (size_t)blockIdx.y * m * k + col, m, k);
+}
+
 __device__ __forceinline__ void store_tile(const float (&acc)[4][4],
                                            float* __restrict__ out, int m0,
                                            int k0, int m, int k, int tx,
@@ -526,17 +745,17 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][4],
   }
 }
 
-// SPLIT: write the accumulator to out + s * M * K at the end of slice s
-// (every slice_groups groups) and restart it from 0; else write y once.
-// The minimum of one block per SM lets ptxas take the ~90 registers the
-// loop nest needs; without it, it packs 64 and spills 12 bytes.
-template <typename T, bool SPLIT>
+// Naive prefill kernel (M > SK_MAX_M or K % 4 != 0; one slice): one 64 x
+// 64 output tile of y per block.  The minimum of one block per SM lets
+// ptxas take the ~90 registers the loop nest needs; without it, it packs
+// 64 and spills 12 bytes.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 nm_spmm_naive_kernel(const T* __restrict__ x,
                      const float* __restrict__ values,
                      const int8_t* __restrict__ indices,
-                     float* __restrict__ out, int m, int n, int k, int n_sel,
-                     int m_group, int slice_groups) {
+                     float* __restrict__ y, int m, int n, int k, int n_sel,
+                     int m_group) {
   __shared__ float xs[TM][XC + 1];
   __shared__ float vs[XC][TK];
   __shared__ int8_t is[XC][TK];
@@ -554,7 +773,6 @@ nm_spmm_naive_kernel(const T* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  [[maybe_unused]] int slice = 0;          // slice of the current run
   for (int g0 = 0; g0 < groups; g0 += gc) {
     const int gcur = min(gc, groups - g0);
     const int xw = gcur * m_group;
@@ -607,37 +825,36 @@ nm_spmm_naive_kernel(const T* __restrict__ x,
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
-    if constexpr (SPLIT) {
-      if (g0 + gcur == min(groups, (slice + 1) * slice_groups)) {  // end
-        store_tile(acc, out + (size_t)slice * m * k, m0, k0, m, k, tx, ty);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        ++slice;
-      }
-    }
   }
-  if constexpr (!SPLIT) store_tile(acc, out, m0, k0, m, k, tx, ty);
-}
-
-template <typename T, int MT>
-void launch_small_m(dim3 grid, int smem, cudaStream_t stream, const void* x,
-                    const void* values, const void* indices, float* out,
-                    int m, int n, int k, int n_sel, int m_group,
-                    int slice_groups) {
-  nm_spmm_small_m_kernel<T, MT><<<grid, SK_THREADS, smem, stream>>>(
-      (const T*)x, (const float*)values, (const int8_t*)indices, out, m, n, k,
-      n_sel, m_group, slice_groups);
+  store_tile(acc, y, m0, k0, m, k, tx, ty);
 }
 
 enum Entry { PREFILL, SMALL_M, NAIVE };
 
+// One decode launch (M <= SK_MAX_M, K % 4 == 0): the pipelined entry's
+// small-M kernel, or the naive entry's decode kernel with 16-byte / 4-byte
+// row loads (vec) or plain ones.
+template <typename T, int MT>
+void launch_decode(Entry entry, bool vec, dim3 grid, int smem,
+                   cudaStream_t st, const void* x, const void* values,
+                   const void* indices, float* out, int m, int n, int k,
+                   int n_sel, int m_group, int slice_groups) {
+  auto go = entry == SMALL_M ? nm_spmm_small_m_kernel<T, MT>
+            : vec            ? nm_spmm_naive_small_m_kernel<T, MT, true>
+                             : nm_spmm_naive_small_m_kernel<T, MT, false>;
+  go<<<grid, SK_THREADS, smem, st>>>((const T*)x, (const float*)values,
+                                     (const int8_t*)indices, out, m, n, k,
+                                     n_sel, m_group, slice_groups);
+}
+
 // ws: the (slices, M, K) fp32 workspace when slices > 1; for the prefill
-// entry the (N, ceil(M / PF_MT) * PF_MT) fp32 column-major copy of x;
-// unused else.  Refuses (cudaErrorInvalidValue) a split the entry cannot follow: the
-// prefill entry takes one slice, the naive one slices of whole runs, and
-// the reduce kernel K % 4 == 0.
+// entry the (N, ceil(M / PF_MT) * PF_MT) column-major copy of x in x's
+// type; unused else.  Decode shapes (M <= SK_MAX_M, K % 4 == 0) take the
+// small-M kernel (pipelined) or the naive decode kernel, on a grid of
+// (ceil(K / SK_TK), slices); the others the prefill kernel (pipelined) or
+// the naive tiled one, with one slice.  Refuses (cudaErrorInvalidValue) a
+// split a kernel cannot follow and, for the small-M kernel, values off 16
+// bytes or indices off 4.
 template <typename T>
 int launch(const void* x, const void* values, const void* indices, void* y,
            void* ws, int m, int n, int k, int n_sel, int m_group, int slices,
@@ -646,41 +863,38 @@ int launch(const void* x, const void* values, const void* indices, void* y,
       n_sel < 1 || n_sel > m_group || n % m_group || slice_groups < 1)
     return (int)cudaErrorInvalidValue;
   const int groups = n / m_group;
+  const bool decode = m <= SK_MAX_M && k % 4 == 0;
   if (slices != (groups + slice_groups - 1) / slice_groups ||
-      (slices > 1 && (entry == PREFILL || k % 4)) ||
-      (entry == NAIVE && slices > 1 && slice_groups % (XC / m_group)))
+      (slices > 1 && (entry == PREFILL || !decode)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* out = slices > 1 ? (float*)ws : (float*)y;
-  if (entry == NAIVE) {
+  const bool aligned =
+      (uintptr_t)values % 16 == 0 && (uintptr_t)indices % 4 == 0;
+  if (entry == NAIVE && !decode) {
     dim3 grid((k + TK - 1) / TK, (m + TM - 1) / TM);
-    if (slices > 1)
-      nm_spmm_naive_kernel<T, true><<<grid, THREADS, 0, st>>>(
-          (const T*)x, (const float*)values, (const int8_t*)indices, out, m,
-          n, k, n_sel, m_group, slice_groups);
-    else
-      nm_spmm_naive_kernel<T, false><<<grid, THREADS, 0, st>>>(
-          (const T*)x, (const float*)values, (const int8_t*)indices, out, m,
-          n, k, n_sel, m_group, slice_groups);
-  } else if (entry == SMALL_M) {
+    nm_spmm_naive_kernel<T><<<grid, THREADS, 0, st>>>(
+        (const T*)x, (const float*)values, (const int8_t*)indices, out, m, n,
+        k, n_sel, m_group);
+  } else if (entry != PREFILL) {
     const int mt = m <= 1 ? 1 : m <= 2 ? 2 : m <= 4 ? 4 : m <= 8 ? 8 : 16;
     const long smem =
         (long)mt * std::min(slice_groups, groups) * m_group * sizeof(float);
-    if (m > SK_MAX_M || k % 4 || smem > SK_SMEM || (uintptr_t)values % 16 ||
-        (uintptr_t)indices % 4)
+    if (!decode || smem > SK_SMEM || (entry == SMALL_M && !aligned))
       return (int)cudaErrorInvalidValue;
     dim3 grid((k + SK_TK - 1) / SK_TK, slices);
-    void (*go)(dim3, int, cudaStream_t, const void*, const void*,
-               const void*, float*, int, int, int, int, int, int);
+    void (*go)(Entry, bool, dim3, int, cudaStream_t, const void*,
+               const void*, const void*, float*, int, int, int, int, int,
+               int);
     switch (mt) {
-      case 1: go = launch_small_m<T, 1>; break;
-      case 2: go = launch_small_m<T, 2>; break;
-      case 4: go = launch_small_m<T, 4>; break;
-      case 8: go = launch_small_m<T, 8>; break;
-      default: go = launch_small_m<T, 16>;
+      case 1: go = launch_decode<T, 1>; break;
+      case 2: go = launch_decode<T, 2>; break;
+      case 4: go = launch_decode<T, 4>; break;
+      case 8: go = launch_decode<T, 8>; break;
+      default: go = launch_decode<T, 16>;
     }
-    go(grid, (int)smem, st, x, values, indices, out, m, n, k, n_sel,
-       m_group, slice_groups);
+    go(entry, aligned, grid, (int)smem, st, x, values, indices, out, m, n, k,
+       n_sel, m_group, slice_groups);
   } else {
     const int mp = (m + PF_MT - 1) / PF_MT * PF_MT;
     const int run_groups = std::max(1, PF_XC / m_group);

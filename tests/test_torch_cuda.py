@@ -85,11 +85,13 @@ def test_bitmap_kernel_matches_plain(card, m, n, k, bn, bk, density, dtype):
                                   c.k))
 
 
-# m, n, k, n_sel, m_group.  M <= 16 takes the small-M entry and, where
-# split_plan gives S > 1, the split reduction: M 1 / 2 / 4 / 8 / 16 (each
-# row template), chatglm3-6b widths (N 4096 at 2:4; N 13696 with a ragged
-# last slice; K 256, K 13696 with a half-dead last tile, ragged K 100),
-# 1:4 and 3:8.  M > 16 takes the prefill entry: serving's M 512 with wk/wv's
+# m, n, k, n_sel, m_group.  M <= 16 takes the small-M entry (the naive
+# decode kernel with pipeline=False) and, where split_plan gives S > 1, the
+# split reduction: M 1 / 2 / 4 / 8 / 16 (each row template; M 3 ragged
+# against its 4), chatglm3-6b widths (N 4096 at 2:4; N 13696 with a ragged
+# last slice; K 256, K 4096, K 13696 with a half-dead last tile, ragged K
+# 100), 1:4 and 3:8, and 16:32 (the naive decode kernel's run-time loop).
+# M > 16 takes the prefill entry: serving's M 512 with wk/wv's
 # K 256, M ragged against its 128-row tile (17, 33, 70, 129, 200), a long N,
 # K ragged against its 128-column tile or not a multiple of 16 (100, 130,
 # 384, 1000: staged by plain loads), 13 groups of 8 (a ragged last run) and
@@ -100,7 +102,8 @@ NM_CASES = [
     (16, 13696, 256, 2, 4), (2, 4096, 13696, 2, 4), (8, 4096, 256, 1, 4),
     (4, 4096, 100, 1, 4), (4, 2048, 256, 3, 8), (17, 4096, 100, 2, 4),
     (512, 4096, 256, 2, 4), (200, 13696, 384, 2, 4), (129, 1024, 1000, 1, 4),
-    (64, 104, 64, 3, 8), (33, 256, 130, 16, 32)]
+    (64, 104, 64, 3, 8), (33, 256, 130, 16, 32), (4, 2048, 256, 16, 32),
+    (16, 4096, 4096, 2, 4), (3, 4096, 13696, 2, 4)]
 
 
 @pytest.mark.parametrize("m,n,k,n_sel,m_group", NM_CASES)
@@ -266,6 +269,39 @@ def test_nm_prefill_takes_misaligned_operands(card, v_off, i_off, dtype):
     torch.cuda.synchronize()
     assert torch.equal(y_off, y)
     assert ops.launch_counts()["nm_spmm"] == 2
+
+
+@pytest.mark.parametrize("v_off,i_off", [(1, 0), (0, 1), (3, 5)])
+@pytest.mark.parametrize("n_sel,m_group", [(2, 4), (1, 4), (3, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_naive_decode_takes_misaligned_operands(card, v_off, i_off, n_sel,
+                                                   m_group, dtype):
+    """At M = 4 values off 16 bytes or indices off 4 take the naive decode
+    kernel's plain loads; the result equals, bit for bit, the naive and the
+    pipelined results on aligned copies."""
+    m, n, k = 4, 4096, 4096
+    rng = np.random.default_rng(m + n + v_off + i_off + n_sel)
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(card)
+    c = ops.compress_nm(w, n_sel, m_group)
+    rows = c.values.shape[0]
+    v = torch.empty(rows * k + v_off, device=card)[v_off:].view(rows, k)
+    i = torch.empty(rows * k + i_off, dtype=torch.int8,
+                    device=card)[i_off:].view(rows, k)
+    v.copy_(c.values)
+    i.copy_(c.indices)
+    assert v.data_ptr() % 16 or i.data_ptr() % 4
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)) \
+        .to(card, dtype)
+    y_off = ops.nm_spmm(x, dataclasses.replace(c, values=v, indices=i),
+                        pipeline=False)
+    y_naive = ops.nm_spmm(x, c, pipeline=False)
+    y = ops.nm_spmm(x, c)
+    torch.cuda.synchronize()
+    _close(y_off, ref.nm_spmm_ref(x, c.values, c.indices, n_sel, m_group))
+    assert torch.equal(y_off, y_naive)
+    assert torch.equal(y_off, y)
+    assert ops.launch_counts()["nm_spmm_naive"] == 2
+    assert ops.launch_counts()["nm_spmm"] == 1
 
 
 # bh, sq, skv, d: the reference's test shapes, Sq != Skv, ragged tiles
