@@ -11,8 +11,9 @@ non-zero exit code when it fails:
 2. build: every CUDA source under ``src/repro_torch/csrc`` (parallel nvcc),
    with ptxas's registers and spills for every entry and a summary line for
    each instance of the N:M kernels (prefill tiles, naive decode MT x x
-   type x row loads, naive tiled), of the bitmap kernels (prefill tiles,
-   transpose, decode MT, tiled, naive, naive split, reduce) and of both
+   type x row loads, naive prefill tiles x staging), of the bitmap
+   kernels (prefill tiles, transpose, decode MT, tiled, naive, naive
+   split, reduce) and of both
    flash entries (FMA, tensor-core); an N:M or bitmap entry or a flash
    tensor-core entry that spills, or a ptxas note that it serialised
    wgmmas, fails the run;
@@ -22,11 +23,12 @@ non-zero exit code when it fails:
    plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4
    and 1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in
    fp32 and bf16 (with each role's split of the reduction at M = 4,
-   bitmap and N:M: slices, grid, partials' bytes, the naive N:M kernel
-   that ran and its grid, read from a profiler trace and held to the
-   wrapper's ``naive_kernel``, and each bitmap role's prefill tile and grid
-   at M = 512): each held to max|y - y_plain| <= 1e-4 max|y_plain| +
-   1e-5, the naive result equal to the pipelined one bit for bit, timed
+   bitmap and N:M: slices, grid, partials' bytes; the naive N:M kernels
+   that ran at M = 4 and at M = 512 and their grids, read from a profiler
+   trace and held to the wrapper's ``naive_kernel``; each bitmap role's
+   prefill tile and grid at M = 512): each held to max|y - y_plain| <=
+   1e-4 max|y_plain| + 1e-5, the naive result equal to the pipelined one
+   bit for bit, timed
    (the naive variants at bf16 only) beside the plain version, the bound
    on an H100 SXM (with the share of it the kernel reaches) and one
    ``torch.matmul`` over the decompressed weight;
@@ -154,7 +156,8 @@ def phase_build() -> None:
     # one summary line per instance of the redesigned entries: the N:M
     # prefill kernel (Tile<R, WM, WK, MIN_BLOCKS>, x type, 16-byte cp.async
     # or plain staging), the naive N:M kernels (decode MT, x type, 16-byte
-    # or plain row loads; the tiled one per x type), the bitmap kernels
+    # or plain row loads; prefill NTile<TY, TX, RM, RK, MIN_BLOCKS>, staged
+    # x type, staging), the bitmap kernels
     # (prefill PTile<TY, TX, RM, RK, MIN_BLOCKS, STAGES, BC>, transpose,
     # decode MT, tiled / naive / naive split, reduce) and both flash
     # entries (FMA per x type and column count, tensor-core per D)
@@ -168,8 +171,13 @@ def phase_build() -> None:
          lambda t, mt, vec: (
              f"nm_spmm naive decode MT={mt} x {xt(t)} "
              f"{'16-byte' if vec == '1' else 'plain'} row loads")),
-        (r"nm_spmm_naive_kernelI(13__nv_bfloat16|f)E",
-         lambda t: f"nm_spmm naive tiled x {xt(t)}"),
+        (r"nm_spmm_naive_prefill_kernelI\w*?NTileILi(\d+)ELi(\d+)ELi(\d+)"
+         r"ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)Lb([01])",
+         lambda ty, tx, rm, rk, minb, t, vec: (
+             f"nm_spmm naive prefill NTile<{ty}, {tx}, {rm}, {rk}, {minb}> "
+             f"({int(ty) * int(rm)} x {int(tx) * int(rk)} outputs), x "
+             f"staged as {xt(t)}, "
+             f"{'cp.async' if vec == '1' else 'plain'} staging")),
         (r"bitmap_spmm_prefill_kernelINS_5PTileILi(\d+)ELi(\d+)ELi(\d+)"
          r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE",
          lambda ty, tx, rm, rk, minb, stages, bc: (
@@ -258,6 +266,12 @@ def _launched(fn) -> list[tuple[str, tuple | None]]:
              if "grid" in e.get("args", {}) else None)
             for e in sorted(events, key=lambda e: e.get("ts", 0))
             if e.get("cat") == "kernel"]
+
+
+def _short(kernel: str) -> str:
+    """A traced kernel's name without its namespace and arguments."""
+    return re.search(r"nm_\w+[^(]*",
+                     kernel.replace("(anonymous namespace)::", ""))[0]
 
 
 def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
@@ -371,26 +385,27 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                   f"{slices} slices of {length} groups, grid {tiles} x "
                   f"{slices} = {tiles * slices} blocks, partials {part} B "
                   f"(round trip {2 * part / nbytes_w:.2%} of the payload)")
-            # the naive kernel that runs at decode, and its grid
-            name, grid = nm_cuda.naive_kernel(M_DECODE, role.n, role.k,
-                                              n_sel, 4)
-            x = torch.randn((M_DECODE, role.n), generator=gen,
-                            device=dev).bfloat16()
-            ran = _launched(lambda: ops.nm_spmm(x, c, pipeline=False))
-            want = [name] + (["nm_reduce_kernel"] if slices > 1 else [])
-            if len(ran) != len(want) or not all(
-                    k_name in r for k_name, (r, _) in zip(want, ran)) \
-                    or ran[0][1] not in (grid, None):
-                _fail(f"nm_spmm_naive {role.role} ({n_sel}:4) M={M_DECODE}: "
-                      f"launched {ran}, expected {want} with {name} on "
-                      f"grid {grid}")
-            traced = ran[0][1]
-            short = re.search(r"nm_\w+(<[^>]*>)?", ran[0][0])[0]
-            print(f"[kernels] nm_spmm_naive {role.role} ({n_sel}:4) "
-                  f"M={M_DECODE} x=bfloat16: ran {short} on grid "
-                  f"{grid[0]} x {grid[1]} "
-                  f"({'as traced' if traced else 'the trace gives no grid'})"
-                  f"{', then nm_reduce_kernel' if slices > 1 else ''}")
+            # the naive kernels that run at decode and at the prefill, and
+            # their grids
+            for m in (M_DECODE, M_PREFILL):
+                want = nm_cuda.naive_kernel(m, role.n, role.k, n_sel, 4)
+                x = torch.randn((m, role.n), generator=gen,
+                                device=dev).bfloat16()
+                ran = _launched(lambda: ops.nm_spmm(x, c, pipeline=False))
+                if len(ran) != len(want) or not all(
+                        name in r and g in (grid, None)
+                        for (name, grid), (r, g) in zip(want, ran)):
+                    _fail(f"nm_spmm_naive {role.role} ({n_sel}:4) M={m}: "
+                          f"launched {ran}, expected {want}")
+                runs = ", then ".join(
+                    f"{_short(r)} on grid {grid[0]} x {grid[1]}"
+                    f"{'' if g else ' (the trace gives no grid)'}"
+                    for (_, grid), (r, g) in zip(want, ran))
+                tile = "" if nm_cuda.small_m(m, role.k) else (
+                    " ({} x {} tiles)".format(*nm_cuda.NAIVE_PREFILL_TILES[
+                        nm_cuda.naive_prefill_plan(m, role.k).tile]))
+                print(f"[kernels] nm_spmm_naive {role.role} ({n_sel}:4) "
+                      f"M={m} x=bfloat16: ran {runs}{tile}")
             del x
             for m in (M_DECODE, M_PREFILL):
                 for dtype in (torch.float32, torch.bfloat16):

@@ -9,7 +9,7 @@
 //   nm_spmm_naive_{f32,bf16}    replaces `_kernel` with `_decode_tile`
 //                               (launched by `nm_spmm_pallas` with
 //                               pipeline=False): a decode kernel at M <= 16
-//                               and K % 4 == 0, a tiled one else.
+//                               and K % 4 == 0, a prefill one else.
 // The wrapper (repro_torch/kernels/nm_spmm.py) picks the entry and the
 // summation order; the entries only refuse what they cannot run.
 //
@@ -116,9 +116,48 @@
 //   in registers; any other shape takes a loop that re-reads a group's
 //   rows for each position from L1 (a block's rows of one group: n_sel *
 //   SK_TK * 5 bytes, 40 KB at most), so no shape spills.
-// - prefill (M > 16, or K % 4 != 0): nm_spmm_naive_kernel, 64 x 64 output
-//   tiles, runs of gc = 32 / m_group groups staged by plain loads and
-//   expanded into a dense shared-memory tile, one slice.
+// - prefill (M > 16, or K % 4 != 0; one slice): nm_transpose_x_kernel<T,
+//   float> copies x column-major and widened to fp32 into the workspace
+//   (N, mp), then nm_spmm_naive_prefill_kernel<NTile, float, VEC>.  The
+//   expanded operand is a dense matrix, so the work is a dense SGEMM on
+//   CUDA cores, zeros included: M * N * K fp32 FMAs (twice kernel 3's at
+//   2:4; 208.8 GFLOP a chatglm3-6b layer at M = 512, 3.12 ms at the fp32
+//   rate).  What paces it is shared memory feeding the FMAs (a warp's
+//   16-byte shared load costs the SM about 4 cycles at 4 or more distinct
+//   words, 2.65 at 2, tools/lds_bench.cu, against 16 cycles for a warp's 64
+//   FMAs), so the design is the register-blocked outer product of an SGEMM,
+//   and every other use of shared memory is kept small:
+//   . A thread owns RM x RK = 8 x 8 outputs (rows RM ty + i, columns 4 tx +
+//     4 TX g + j): per dense row it reads its 8 x rows and its 8 dense
+//     values as two 16-byte loads each, 64 FMAs against 4 loads.  A warp is
+//     2 x 16 threads, so its x loads touch 2 distinct words and its dense
+//     loads 16 contiguous ones: no bank conflicts, no padding.  NaiveBig:
+//     16 x 16 threads, 128 x 128 outputs, at most 128 registers (two blocks
+//     an SM).  Where that grid has fewer than NV_MIN_GRID blocks (the K =
+//     256 roles: 8 at M = 512), NaiveSmall: 16 x 8 threads of 2 x 4, 32 x
+//     32 outputs.
+//   . x is staged as fp32: widening bf16 once in the copy costs less than
+//     widening it in every thread that reads it (16 threads read each x
+//     row; one integer instruction per value and FMA row, 12.5 % of the
+//     FMAs' issue slots), though the loop then reads twice the x bytes
+//     (tools/nm_naive_prefill_sweep.py measures both).
+//   . Runs of XC = 32 x columns (32 / m_group groups, zero columns past the
+//     last group) are staged by 16-byte cp.async into a ring of three raw
+//     stages (x: XC columns of TM rows, column-major; the run's kept rows of
+//     values and indices over TK columns), or by plain loads where K % 16 !=
+//     0 or values / indices are off 16 bytes (VEC).
+//   . Each run is expanded once into a dense XC x TK shared tile, `_decode_
+//     tile`'s compares: dense[r][j] = sum from 0 over the group's kept rows
+//     s of (index == p ? value : 0), r = g * m_group + p.  The served shapes
+//     (2:4, 1:4) are compile-time bodies, one item per group and four
+//     columns: the group's kept rows are read once and its m_group dense
+//     rows written as 16-byte stores (about 100 instructions a thread per
+//     run against 2048 FMAs); other shapes take one item per dense row and
+//     four columns, which re-reads the group's kept rows for each position.
+//     Two dense tiles: run r+1 is expanded in the same barrier interval as
+//     run r's FMAs, so one barrier per run.
+//   . The grid is (M tiles, K tiles) with M fastest: the payload comes from
+//     HBM about once and from L2 for the other M tiles.
 // Both equal the pipelined entry bit for bit on finite inputs: a kept
 // value is added to 0 and to exact zeros, so dense[p][j] is the value or
 // zero, and fmaf(x, 0, acc) is acc, so the dense sum in ascending n is the
@@ -140,30 +179,36 @@
 // is kept under 10 % of the payload at decode.
 //
 // What the design leaves on the table: the decode loads are synchronous
-// register loads, not cp.async/TMA rings; the naive decode kernel spends
-// m_group / n_sel times the pipelined kernel's FMAs (the TPU design's
-// cost), and group shapes other than 2:4 and 1:4 re-read their rows from
-// L1 for each position; the indices travel as int8
-// instead of 2-bit fields; the prefill entry spends a 16-byte shared load
+// register loads, not cp.async/TMA rings; both naive kernels spend m_group
+// / n_sel times the pipelined kernel's FMAs (the TPU design's cost: at 2:4
+// the naive prefill kernel's floor is 3.12 ms a layer against kernel 3's
+// 1.56), and group shapes other than 2:4 and 1:4 re-read their rows from
+// L1 for each position at decode; the indices travel as int8 instead of
+// 2-bit fields; the pipelined prefill entry spends a 16-byte shared load
 // per 4 (fp32 x) or 8 (bf16 x) FMAs, plus for bf16 one integer widening per
 // FMA, so it cannot pass about a quarter (fp32) or two fifths (bf16) of the
-// fp32 rate; it keeps no split of the reduction (its order is the naive
-// entry's), so the K = 256 roles fill the card only with 8-row tiles; and
-// 2:4 in bf16 could run on the sparse tensor cores (mma.sp) after a repack
-// of the indices at compress time, at another summation order.
+// fp32 rate; the naive prefill kernel's shared loads need about 84 % of
+// its FMAs' issue time, so its FMA loop alone stops near two thirds of the
+// fp32 rate, and the staging and the expansion, which share that memory,
+// add about a third to its time; neither prefill kernel splits the
+// reduction (their order is the naive entry's), so the K = 256 roles fill
+// the card only with small tiles; and 2:4 in bf16 could run on the sparse
+// tensor cores (mma.sp) after a repack of the indices at compress time, at
+// another summation order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
-constexpr int TM = 64;        // naive entry: output rows per thread block
-constexpr int TK = 64;        // its output columns per thread block
-constexpr int XC = 32;        // its x columns (and compressed rows) per run
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int XC = 32;        // naive prefill: x columns (dense rows) of a
+                              // run; the largest group
+constexpr int NV_MIN_GRID = 64;  // its big tile where that grid has at
+                                 // least this many blocks
 
 constexpr int PF_MT = 128;   // prefill: rows of the x copy, a multiple of it
 constexpr int PF_XC = 64;    // x columns per staged run, at most
@@ -195,15 +240,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // xt[c * mp + i] = x[i, c] for i < m, 0 for m <= i < mp: the prefill
-// entry's column-major copy of x, in x's own type, mp a multiple of PF_MT.
-template <typename T>
+// kernels' column-major copy of x, in x's own type (U = T) or widened to
+// fp32 (U = float), mp a multiple of PF_MT.
+template <typename T, typename U = T>
 __global__ void __launch_bounds__(256)
-nm_transpose_x_kernel(const T* __restrict__ x, T* __restrict__ xt, int m,
+nm_transpose_x_kernel(const T* __restrict__ x, U* __restrict__ xt, int m,
                       int mp, int n) {
   __shared__ T t[32][33];
   const int c0 = blockIdx.x * 32, i0 = blockIdx.y * 32;
@@ -214,7 +262,12 @@ nm_transpose_x_kernel(const T* __restrict__ x, T* __restrict__ xt, int m,
   __syncthreads();
   for (int r = threadIdx.y; r < 32; r += 8) {
     const int c = c0 + r;
-    if (c < n) xt[(size_t)c * mp + i0 + threadIdx.x] = t[threadIdx.x][r];
+    if (c < n) {
+      if constexpr (std::is_same_v<T, U>)
+        xt[(size_t)c * mp + i0 + threadIdx.x] = t[threadIdx.x][r];
+      else
+        xt[(size_t)c * mp + i0 + threadIdx.x] = to_f32(t[threadIdx.x][r]);
+    }
   }
 }
 
@@ -354,7 +407,7 @@ nm_spmm_prefill_kernel(const T* __restrict__ xt,
   issue(0);
   cp_async_commit();
   for (int run = 0; run < runs; ++run) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();       // the run has landed; the other stage is free
     if (run + 1 < runs) issue(run + 1);  // in flight during this run's FMAs
     cp_async_commit();
@@ -729,104 +782,321 @@ nm_spmm_naive_small_m_kernel(const T* __restrict__ x,
   if (col < k) store_cols(acc, out + (size_t)blockIdx.y * m * k + col, m, k);
 }
 
-__device__ __forceinline__ void store_tile(const float (&acc)[4][4],
-                                           float* __restrict__ out, int m0,
-                                           int k0, int m, int k, int tx,
-                                           int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      if (col < k) out[(size_t)row * k + col] = acc[i][j];
+// A naive prefill tile: TY x TX threads, each owning RM x RK outputs, so a
+// block owns TM = TY * RM rows x TK = TX * RK columns.  MIN_BLOCKS per SM
+// caps the registers at 65536 / (NT * MIN_BLOCKS).
+template <int TY_, int TX_, int RM_, int RK_, int MIN_BLOCKS_>
+struct NTile {
+  static constexpr int TY = TY_, TX = TX_, RM = RM_, RK = RK_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int NT = TY * TX, TM = TY * RM, TK = TX * RK;
+};
+using NaiveBig = NTile<16, 16, 8, 8, 2>;    // 128 x 128, 256 threads
+using NaiveSmall = NTile<16, 8, 2, 4, 4>;   // 32 x 32, 128 threads
+
+// Bytes of one raw stage: x (XC columns of TM rows) and `rows` kept rows of
+// values and indices over TK columns.  A block holds three, then two dense
+// XC x TK fp32 tiles.
+template <class TT, typename T>
+__host__ __device__ constexpr int naive_raw_bytes(int rows) {
+  return XC * TT::TM * (int)sizeof(T) + rows * TT::TK * 5;
+}
+template <class TT, typename T>
+inline int naive_prefill_smem(int rows) {
+  return 3 * naive_raw_bytes<TT, T>(rows) + 2 * XC * TT::TK * 4;
+}
+
+// Issue the copies of one run of the naive prefill kernel into a raw stage:
+// x columns [c0, c0 + xw) of the block's TM rows (column-major, the
+// columns from xw to XC zero-filled) and the run's `rows` kept rows of
+// values / indices over the block's TK columns (row-major).  VEC: 16-byte
+// cp.async, columns past K zero-filled (K % 16 == 0 and 16-byte aligned
+// rows); else plain loads.
+template <class TT, typename T, bool VEC>
+__device__ __forceinline__ void stage_naive_run(
+    T* __restrict__ xs, float* __restrict__ vs, int8_t* __restrict__ is,
+    const T* __restrict__ xt, const float* __restrict__ values,
+    const int8_t* __restrict__ indices, int mp, int k, int m0, int k0,
+    size_t c0, int xw, size_t row0, int rows) {
+  constexpr int TM = TT::TM, TK = TT::TK, NT = TT::NT;
+  constexpr int EQ = 16 / (int)sizeof(T), XQ = TM / EQ;
+  for (int e = threadIdx.x; e < XC * XQ; e += NT) {
+    const int c = e / XQ, f = e - c * XQ;
+    const bool in = c < xw;
+    cp_async16(xs + c * TM + EQ * f,
+               in ? xt + (c0 + c) * mp + m0 + EQ * f : xt, in ? 16 : 0);
+  }
+  const float* const vsrc = values + row0 * k;
+  const int8_t* const isrc = indices + row0 * k;
+  if constexpr (VEC) {
+    constexpr int VQ = TK / 4, IQ = TK / 16;
+    for (int e = threadIdx.x; e < rows * VQ; e += NT) {
+      const int q = e / VQ, j = 4 * (e - q * VQ);
+      const bool in = k0 + j < k;
+      cp_async16(vs + q * TK + j, vsrc + (size_t)q * k + (in ? k0 + j : 0),
+                 in ? 16 : 0);
+    }
+    for (int e = threadIdx.x; e < rows * IQ; e += NT) {
+      const int q = e / IQ, j = 16 * (e - q * IQ);
+      const bool in = k0 + j < k;
+      cp_async16(is + q * TK + j, isrc + (size_t)q * k + (in ? k0 + j : 0),
+                 in ? 16 : 0);
+    }
+  } else {
+    // one element at a time: the loads' registers stay few beside the
+    // accumulators
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * TK; e += NT) {
+      const int q = e / TK, j = e - q * TK;
+      const bool in = k0 + j < k;
+      const size_t at = (size_t)q * k + k0 + j;
+      vs[e] = in ? vsrc[at] : 0.f;
+      is[e] = in ? isrc[at] : (int8_t)0;
     }
   }
 }
 
-// Naive prefill kernel (M > SK_MAX_M or K % 4 != 0; one slice): one 64 x
-// 64 output tile of y per block.  The minimum of one block per SM lets
-// ptxas take the ~90 registers the loop nest needs; without it, it packs
-// 64 and spills 12 bytes.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-nm_spmm_naive_kernel(const T* __restrict__ x,
-                     const float* __restrict__ values,
-                     const int8_t* __restrict__ indices,
-                     float* __restrict__ y, int m, int n, int k, int n_sel,
-                     int m_group) {
-  __shared__ float xs[TM][XC + 1];
-  __shared__ float vs[XC][TK];
-  __shared__ int8_t is[XC][TK];
-  __shared__ float ws[XC][TK];             // the run's expanded dense tile
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * TK;
-  const int m0 = blockIdx.y * TM;
-  const int groups = n / m_group;
-  const int gc = XC / m_group;
-
-  float acc[4][4];
+// `_decode_tile` for one staged run: dense[r][j] for the XC dense rows r =
+// g * m_group + p (zeros from xw on) and the TK columns, summed from 0 over
+// the group's kept rows s, ascending, of (index == p ? value : 0); four
+// adjacent columns a thread, one 16-byte load of values and one word of
+// indices per kept row, one 16-byte store.
+template <class TT>
+__device__ __forceinline__ void expand_run(const float* __restrict__ vs,
+                                           const unsigned* __restrict__ is4,
+                                           float* __restrict__ dense, int xw,
+                                           int n_sel, int m_group) {
+  constexpr int TK = TT::TK, Q = TK / 4;
+  for (int e = threadIdx.x; e < XC * Q; e += TT::NT) {
+    const int r = e / Q, q = e - r * Q;
+    float w[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < xw) {
+      const int g = r / m_group;
+      const unsigned p = (unsigned)(r - g * m_group);
+      for (int s = g * n_sel; s < (g + 1) * n_sel; ++s) {
+        const float4 v = *reinterpret_cast<const float4*>(vs + s * TK + 4 * q);
+        const unsigned pk = is4[s * Q + q];
+        const float b[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int g0 = 0; g0 < groups; g0 += gc) {
-    const int gcur = min(gc, groups - g0);
-    const int xw = gcur * m_group;
-    const int vr = gcur * n_sel;
-    const size_t xbase = (size_t)g0 * m_group;
-    const size_t vbase = (size_t)g0 * n_sel;
-    for (int e = tid; e < TM * XC; e += THREADS) {
-      const int i = e / XC, c = e % XC;
-      float v = 0.f;
-      if (m0 + i < m && c < xw) v = to_f32(x[(size_t)(m0 + i) * n + xbase + c]);
-      xs[i][c] = v;
-    }
-    for (int e = tid; e < XC * TK; e += THREADS) {
-      const int q = e / TK, j = e % TK;
-      float v = 0.f;
-      int8_t p = 0;
-      if (q < vr && k0 + j < k) {
-        const size_t at = (vbase + q) * (size_t)k + k0 + j;
-        v = values[at];
-        p = indices[at];
+        for (int j = 0; j < 4; ++j)
+          w[j] += (pk >> (8 * j) & 0xffu) == p ? b[j] : 0.f;
       }
-      vs[q][j] = v;
-      is[q][j] = p;
     }
-    __syncthreads();
-    // _decode_tile: dense[g*m + p][j] = sum_s (index == p) * value
-    for (int e = tid; e < XC * TK; e += THREADS) {
-      const int r = e / TK, j = e % TK;
-      float w = 0.f;
-      if (r < xw) {
-        const int g = r / m_group, p = r - g * m_group;
-        for (int s = 0; s < n_sel; ++s) {
-          const int q = g * n_sel + s;
-          w += is[q][j] == p ? vs[q][j] : 0.f;
-        }
-      }
-      ws[r][j] = w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < xw; ++c) {           // ascending n, zeros included
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[ty + 16 * i][c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    *reinterpret_cast<float4*>(dense + r * TK + 4 * q) =
+        make_float4(w[0], w[1], w[2], w[3]);
   }
-  store_tile(acc, y, m0, k0, m, k, tx, ty);
+}
+
+// The same for groups of shape NS:MG (compile time; XC / MG groups a
+// run): one item per group and four adjacent columns reads the group's NS
+// kept rows once (one 16-byte load of values and one word of indices each)
+// and writes its MG dense rows; groups from gcur on are zeros.
+template <class TT, int NS, int MG>
+__device__ __forceinline__ void expand_groups(const float* __restrict__ vs,
+                                              const unsigned* __restrict__ is4,
+                                              float* __restrict__ dense,
+                                              int gcur) {
+  constexpr int TK = TT::TK, Q = TK / 4;
+  for (int e = threadIdx.x; e < XC / MG * Q; e += TT::NT) {
+    const int g = e / Q, q = e - g * Q;
+    const bool live = g < gcur;
+    float b[NS][4];
+    unsigned pos[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(vs + (g * NS + s) * TK + 4 * q);
+      b[s][0] = live ? v.x : 0.f;
+      b[s][1] = live ? v.y : 0.f;
+      b[s][2] = live ? v.z : 0.f;
+      b[s][3] = live ? v.w : 0.f;
+      pos[s] = is4[(g * NS + s) * Q + q];
+    }
+#pragma unroll
+    for (int p = 0; p < MG; ++p) {
+      float w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[j] = 0.f;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          w[j] += (pos[s] >> (8 * j) & 0xffu) == (unsigned)p ? b[s][j] : 0.f;
+      }
+      *reinterpret_cast<float4*>(dense + (g * MG + p) * TK + 4 * q) =
+          make_float4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// The R staged fp32 x rows at xc, R 2 or a multiple of 4: one 8-byte load
+// or R / 4 16-byte loads.
+template <int R>
+__device__ __forceinline__ void load_x_rows(const float* xc, float (&a)[R]) {
+  if constexpr (R == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(xc);
+    a[0] = t.x;
+    a[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(xc + i);
+      a[i] = t.x;
+      a[i + 1] = t.y;
+      a[i + 2] = t.z;
+      a[i + 3] = t.w;
+    }
+  }
+}
+
+// The FMAs of one run: for each of its XC dense rows c, ascending, the
+// thread's RM x rows times its RK dense values, zeros included.  xs: the
+// run's x at the thread's first row; ws: its dense tile at the thread's
+// first column.
+template <class TT, typename T>
+__device__ __forceinline__ void fma_run(const T* __restrict__ xs,
+                                        const float* __restrict__ ws,
+                                        float (&acc)[TT::RM][TT::RK]) {
+  constexpr int RM = TT::RM, RK = TT::RK;
+#pragma unroll 8
+  for (int c = 0; c < XC; ++c) {
+    float a[RM], b[RK];
+    load_x_rows<RM>(xs + c * TT::TM, a);
+#pragma unroll
+    for (int g = 0; g < RK / 4; ++g) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(ws + c * TT::TK + 4 * TT::TX * g);
+      b[4 * g] = t.x;
+      b[4 * g + 1] = t.y;
+      b[4 * g + 2] = t.z;
+      b[4 * g + 3] = t.w;
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RK; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Naive prefill kernel (M > SK_MAX_M or K % 4 != 0; one slice): the TT::TM
+// x TT::TK output tile (blockIdx.x, blockIdx.y) of y, each run of groups
+// expanded to its dense rows and multiplied densely.  xt:
+// nm_transpose_x_kernel's (N, mp) copy of x.  Thread (ty, tx) owns rows RM
+// ty + i and columns 4 tx + 4 TX g + j of the tile.
+template <class TT, typename T, bool VEC>
+__global__ void __launch_bounds__(TT::NT, TT::MIN_BLOCKS)
+nm_spmm_naive_prefill_kernel(const T* __restrict__ xt,
+                             const float* __restrict__ values,
+                             const int8_t* __restrict__ indices,
+                             float* __restrict__ y, int m, int mp, int n,
+                             int k, int n_sel, int m_group) {
+  constexpr int TM = TT::TM, TK = TT::TK, RM = TT::RM, RK = TT::RK;
+  extern __shared__ float4 smem4[];
+  char* const smem = reinterpret_cast<char*>(smem4);
+  const int run_groups = XC / m_group;
+  const int rows_all = run_groups * n_sel;          // kept rows of a run
+  const int xbytes = XC * TM * (int)sizeof(T);
+  const int raw = naive_raw_bytes<TT, T>(rows_all);
+  float* const dense = reinterpret_cast<float*>(smem + 3 * raw);
+  const int groups = n / m_group;
+  const int runs = (groups + run_groups - 1) / run_groups;
+  const int m0 = blockIdx.x * TM, k0 = blockIdx.y * TK;
+  const int tx = threadIdx.x % TT::TX, ty = threadIdx.x / TT::TX;
+
+  auto stage = [&](int run) { return smem + (run % 3) * raw; };
+  auto gcur = [&](int run) {
+    return min(run_groups, groups - run * run_groups);
+  };
+  auto issue = [&](int run) {
+    char* const st = stage(run);
+    float* const vs = reinterpret_cast<float*>(st + xbytes);
+    const size_t g0 = (size_t)run * run_groups;
+    stage_naive_run<TT, T, VEC>(
+        reinterpret_cast<T*>(st), vs,
+        reinterpret_cast<int8_t*>(vs + rows_all * TK), xt, values, indices,
+        mp, k, m0, k0, g0 * m_group, gcur(run) * m_group, g0 * n_sel,
+        gcur(run) * n_sel);
+  };
+  // the served group shapes expand a group per item, others a dense row
+  auto expand = [&](int run) {
+    const float* const vs =
+        reinterpret_cast<const float*>(stage(run) + xbytes);
+    const unsigned* const is4 =
+        reinterpret_cast<const unsigned*>(vs + rows_all * TK);
+    float* const d = dense + (run & 1) * XC * TK;
+    if (n_sel == 2 && m_group == 4)
+      expand_groups<TT, 2, 4>(vs, is4, d, gcur(run));
+    else if (n_sel == 1 && m_group == 4)
+      expand_groups<TT, 1, 4>(vs, is4, d, gcur(run));
+    else
+      expand_run<TT>(vs, is4, d, gcur(run) * m_group, n_sel, m_group);
+  };
+
+  float acc[RM][RK];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RK; ++j) acc[i][j] = 0.f;
+
+  issue(0);
+  cp_async_commit();
+  if (runs > 1) issue(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  expand(0);
+  for (int run = 0; run < runs; ++run) {
+    cp_async_wait<0>();
+    // run + 1 has landed and run's dense tile is whole; run - 1's stage and
+    // dense tile are free
+    __syncthreads();
+    if (run + 2 < runs) issue(run + 2);    // in flight during this run
+    cp_async_commit();
+    if (run + 1 < runs) expand(run + 1);
+    fma_run<TT, T>(reinterpret_cast<const T*>(stage(run)) + RM * ty,
+                   dense + (run & 1) * XC * TK + 4 * tx, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = m0 + RM * ty + i;
+    if (row >= m) continue;
+    float* const yr = y + (size_t)row * k;
+#pragma unroll
+    for (int g = 0; g < RK / 4; ++g) {
+      const int col = k0 + 4 * tx + 4 * TT::TX * g;
+      if (k % 4 == 0) {
+        if (col < k)
+          *reinterpret_cast<float4*>(yr + col) =
+              make_float4(acc[i][4 * g], acc[i][4 * g + 1],
+                          acc[i][4 * g + 2], acc[i][4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < k) yr[col + j] = acc[i][4 * g + j];
+      }
+    }
+  }
+}
+
+template <class TT, typename T, bool VEC>
+int launch_naive_prefill(const T* xt, const void* values, const void* indices,
+                         float* y, int m, int mp, int n, int k, int n_sel,
+                         int m_group, cudaStream_t st) {
+  const int smem = naive_prefill_smem<TT, T>(XC / m_group * n_sel);
+  // two big blocks an SM need 2 x 110 KB at fp32 x and 2:4: all shared
+  cudaError_t e = cudaFuncSetAttribute(
+      nm_spmm_naive_prefill_kernel<TT, T, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(nm_spmm_naive_prefill_kernel<TT, T, VEC>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((m + TT::TM - 1) / TT::TM, (k + TT::TK - 1) / TT::TK);
+  nm_spmm_naive_prefill_kernel<TT, T, VEC><<<grid, TT::NT, smem, st>>>(
+      xt, (const float*)values, (const int8_t*)indices, y, m, mp, n, k, n_sel,
+      m_group);
+  return (int)cudaGetLastError();
 }
 
 enum Entry { PREFILL, SMALL_M, NAIVE };
@@ -848,13 +1118,13 @@ void launch_decode(Entry entry, bool vec, dim3 grid, int smem,
 }
 
 // ws: the (slices, M, K) fp32 workspace when slices > 1; for the prefill
-// entry the (N, ceil(M / PF_MT) * PF_MT) column-major copy of x in x's
+// kernels the (N, ceil(M / PF_MT) * PF_MT) column-major copy of x in x's
 // type; unused else.  Decode shapes (M <= SK_MAX_M, K % 4 == 0) take the
 // small-M kernel (pipelined) or the naive decode kernel, on a grid of
 // (ceil(K / SK_TK), slices); the others the prefill kernel (pipelined) or
-// the naive tiled one, with one slice.  Refuses (cudaErrorInvalidValue) a
-// split a kernel cannot follow and, for the small-M kernel, values off 16
-// bytes or indices off 4.
+// the naive prefill one, with one slice, after nm_transpose_x_kernel.
+// Refuses (cudaErrorInvalidValue) a split a kernel cannot follow and, for
+// the small-M kernel, other shapes, values off 16 bytes or indices off 4.
 template <typename T>
 int launch(const void* x, const void* values, const void* indices, void* y,
            void* ws, int m, int n, int k, int n_sel, int m_group, int slices,
@@ -871,12 +1141,7 @@ int launch(const void* x, const void* values, const void* indices, void* y,
   float* out = slices > 1 ? (float*)ws : (float*)y;
   const bool aligned =
       (uintptr_t)values % 16 == 0 && (uintptr_t)indices % 4 == 0;
-  if (entry == NAIVE && !decode) {
-    dim3 grid((k + TK - 1) / TK, (m + TM - 1) / TM);
-    nm_spmm_naive_kernel<T><<<grid, THREADS, 0, st>>>(
-        (const T*)x, (const float*)values, (const int8_t*)indices, out, m, n,
-        k, n_sel, m_group);
-  } else if (entry != PREFILL) {
+  if (entry == SMALL_M || (entry == NAIVE && decode)) {
     const int mt = m <= 1 ? 1 : m <= 2 ? 2 : m <= 4 ? 4 : m <= 8 ? 8 : 16;
     const long smem =
         (long)mt * std::min(slice_groups, groups) * m_group * sizeof(float);
@@ -897,23 +1162,45 @@ int launch(const void* x, const void* values, const void* indices, void* y,
        n_sel, m_group, slice_groups);
   } else {
     const int mp = (m + PF_MT - 1) / PF_MT * PF_MT;
-    const int run_groups = std::max(1, PF_XC / m_group);
     const bool vec = k % 16 == 0 && (uintptr_t)values % 16 == 0 &&
                      (uintptr_t)indices % 16 == 0;
-    // the big tile unless its grid has fewer blocks than the card's 132 SMs
-    const bool big = (long)((m + BigTile::TM - 1) / BigTile::TM) *
-                         ((k + BigTile::TK - 1) / BigTile::TK) >= 132;
-    T* xt = (T*)ws;                          // (n, mp) in x's type
-    nm_transpose_x_kernel<T><<<dim3((n + 31) / 32, mp / 32), dim3(32, 8), 0,
-                               st>>>((const T*)x, xt, m, mp, n);
-    int (*go)(const T*, const void*, const void*, float*, int, int, int, int,
-              int, int, int, cudaStream_t) =
-        big ? (vec ? launch_prefill<BigTile, T, true>
-                   : launch_prefill<BigTile, T, false>)
-            : (vec ? launch_prefill<SmallTile, T, true>
-                   : launch_prefill<SmallTile, T, false>);
-    const int e = go(xt, values, indices, (float*)y, m, mp, n, k, n_sel,
-                     m_group, run_groups, st);
+    const dim3 tgrid((n + 31) / 32, mp / 32);
+    int e;
+    if (entry == NAIVE) {
+      using XS = float;                      // x's type in the copy
+      XS* xt = (XS*)ws;                      // (n, mp)
+      nm_transpose_x_kernel<T, XS><<<tgrid, dim3(32, 8), 0, st>>>(
+          (const T*)x, xt, m, mp, n);
+      // the big tile unless its grid has fewer than NV_MIN_GRID blocks
+      const bool big = (long)((m + NaiveBig::TM - 1) / NaiveBig::TM) *
+                           ((k + NaiveBig::TK - 1) / NaiveBig::TK) >=
+                       NV_MIN_GRID;
+      int (*go)(const XS*, const void*, const void*, float*, int, int, int,
+                int, int, int, cudaStream_t) =
+          big ? (vec ? launch_naive_prefill<NaiveBig, XS, true>
+                     : launch_naive_prefill<NaiveBig, XS, false>)
+              : (vec ? launch_naive_prefill<NaiveSmall, XS, true>
+                     : launch_naive_prefill<NaiveSmall, XS, false>);
+      e = go(xt, values, indices, (float*)y, m, mp, n, k, n_sel, m_group,
+             st);
+    } else {
+      T* xt = (T*)ws;                        // (n, mp) in x's type
+      nm_transpose_x_kernel<T><<<tgrid, dim3(32, 8), 0, st>>>((const T*)x,
+                                                              xt, m, mp, n);
+      const int run_groups = std::max(1, PF_XC / m_group);
+      // the big tile unless its grid has fewer blocks than the card's 132
+      // SMs
+      const bool big = (long)((m + BigTile::TM - 1) / BigTile::TM) *
+                           ((k + BigTile::TK - 1) / BigTile::TK) >= 132;
+      int (*go)(const T*, const void*, const void*, float*, int, int, int,
+                int, int, int, int, cudaStream_t) =
+          big ? (vec ? launch_prefill<BigTile, T, true>
+                     : launch_prefill<BigTile, T, false>)
+              : (vec ? launch_prefill<SmallTile, T, true>
+                     : launch_prefill<SmallTile, T, false>);
+      e = go(xt, values, indices, (float*)y, m, mp, n, k, n_sel, m_group,
+             run_groups, st);
+    }
     if (e) return e;
   }
   int err = (int)cudaGetLastError();

@@ -5,22 +5,23 @@ Ports of the two Pallas TPU kernels of ``repro.kernels.nm_spmm``:
 ``_decode_tile`` (decodes next to the FMA: the small-M entry at decode,
 the prefill entry else), ``pipeline=False`` the port of the naive
 ``_kernel`` (expands each group to dense rows, then multiplies them
-densely, zeros included: a decode kernel at decode, a tiled kernel else,
-:func:`naive_kernel`).  Both follow one summation order,
-:func:`split_plan`: at decode (M ≤ 16, K % 4 == 0) the reduction is split
-into slices whose partials a second kernel adds in order, so the naive
-result equals the pipelined one bit for bit.  The wrapper picks the entry
-and the order, checks device, dtype, shape, contiguity and alignment,
-allocates the output and the workspace (:func:`workspace_numel`: the
-partials at decode, a column-major copy of x at prefill) and launches on
-PyTorch's current stream; the source's note states the designs and
-bound.
+densely, zeros included: a decode kernel at decode, a register-blocked
+prefill kernel else, :func:`naive_kernel`).  Both follow one summation
+order, :func:`split_plan`: at decode (M ≤ 16, K % 4 == 0) the reduction is
+split into slices whose partials a second kernel adds in order, so the
+naive result equals the pipelined one bit for bit.  The wrapper picks the
+entry and the order, checks device, dtype, shape, contiguity and
+alignment, allocates the output and the workspace (:func:`workspace_numel`:
+the partials at decode, a column-major copy of x at prefill, for either
+entry) and launches on PyTorch's current stream; the source's note states
+the designs and bound.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,8 +34,12 @@ SPLIT_MAX_M = 16
 #: output columns of one small-M thread block, pipelined or naive
 #: (``SK_TK``)
 SMALL_M_TILE_K = 256
-#: output rows and columns of one naive prefill tile (``TM``, ``TK``)
-NAIVE_TILE = 64
+#: (rows, columns) of the naive prefill kernel's tiles, by index:
+#: ``NaiveBig`` (8 x 8 outputs a thread), ``NaiveSmall`` (2 x 4)
+NAIVE_PREFILL_TILES = ((128, 128), (32, 32))
+#: a naive prefill grid of at least this many big tiles takes the big tile
+#: (``NV_MIN_GRID``)
+NAIVE_PREFILL_MIN_BLOCKS = 64
 #: thread blocks the split aims at: four per SM of the H100's 132
 SPLIT_MIN_BLOCKS = 4 * 132
 #: x columns of one slice at most: 48 KB of fp32 at 16 rows (``SK_SMEM``)
@@ -63,7 +68,7 @@ def split_plan(m: int, n: int, k: int, n_sel: int, m_group: int
     """``(slices, groups_per_slice)``: the summation order of both N:M
     entries.  The N/m_group groups are cut into ``slices`` consecutive
     slices of ``groups_per_slice`` groups (the last one ragged), a multiple
-    of ``32 // m_group`` (the naive tiled kernel's run); each slice's
+    of ``32 // m_group`` (the naive prefill kernel's run); each slice's
     partial is summed in ascending n, and the partials are added left to
     right.
 
@@ -89,20 +94,56 @@ def split_plan(m: int, n: int, k: int, n_sel: int, m_group: int
     return _cdiv(groups, length), length
 
 
+class NaivePrefillPlan(NamedTuple):
+    """The naive prefill kernel's tile (an index of
+    :data:`NAIVE_PREFILL_TILES`), its rows and columns, and its grid (M
+    tiles, K tiles)."""
+
+    tile: int
+    tm: int
+    tk: int
+    grid: tuple[int, int]
+
+
+def naive_prefill_plan(m: int, k: int) -> NaivePrefillPlan:
+    """The naive prefill kernel's tile and grid for (M, K), as ``launch``
+    in the source picks them: the big tile where its grid has at least
+    :data:`NAIVE_PREFILL_MIN_BLOCKS` blocks, else the small one (the K =
+    256 roles at M = 512).  Ragged tiles are masked."""
+    big, small = (NaivePrefillPlan(tile, tm, tk, (_cdiv(m, tm), _cdiv(k, tk)))
+                  for tile, (tm, tk) in enumerate(NAIVE_PREFILL_TILES))
+    return big if big.grid[0] * big.grid[1] >= NAIVE_PREFILL_MIN_BLOCKS \
+        else small
+
+
+def prefill_rows(m: int) -> int:
+    """Rows of the prefill kernels' column-major copy of x: M rounded up to
+    :data:`PREFILL_TILE_M`."""
+    return _cdiv(m, PREFILL_TILE_M) * PREFILL_TILE_M
+
+
 def naive_kernel(m: int, n: int, k: int, n_sel: int, m_group: int
-                 ) -> tuple[str, tuple[int, int]]:
-    """The kernel the naive C entry launches for x (M, N) and a (·, K)
-    payload, and its grid, as ``launch`` in the source picks them from the
-    shape alone: at decode (:func:`small_m`) ``nm_spmm_naive_small_m_kernel``
-    on (ceil(K / 256), S) with :func:`split_plan`'s S, whatever the
-    alignment (operands off 16 / 4 bytes take its plain loads); else
-    ``nm_spmm_naive_kernel`` on 64 x 64 tiles, (ceil(K / 64), ceil(M /
-    64)), with one slice."""
+                 ) -> tuple[tuple[str, tuple[int, int]], ...]:
+    """The kernels the naive C entry launches for x (M, N) and a (·, K)
+    payload, in order, each with its grid, as ``launch`` in the source
+    picks them from the shape alone.  At decode (:func:`small_m`)
+    ``nm_spmm_naive_small_m_kernel`` on (ceil(K / 256), S) with
+    :func:`split_plan`'s S, then, for S > 1, ``nm_reduce_kernel`` on
+    (ceil(M·K / 1024), 1), whatever the alignment (operands off 16 / 4 bytes
+    take the decode kernel's plain loads).  Else ``nm_transpose_x_kernel`` on
+    (ceil(N / 32), :func:`prefill_rows` / 32), then
+    ``nm_spmm_naive_prefill_kernel`` on :func:`naive_prefill_plan`'s grid,
+    with one slice (operands off 16 bytes, or K % 16 != 0, take its plain
+    staging)."""
     if small_m(m, k):
-        return "nm_spmm_naive_small_m_kernel", (
-            _cdiv(k, SMALL_M_TILE_K), split_plan(m, n, k, n_sel, m_group)[0])
-    return "nm_spmm_naive_kernel", (_cdiv(k, NAIVE_TILE),
-                                    _cdiv(m, NAIVE_TILE))
+        slices = split_plan(m, n, k, n_sel, m_group)[0]
+        launches = [("nm_spmm_naive_small_m_kernel",
+                     (_cdiv(k, SMALL_M_TILE_K), slices))]
+        if slices > 1:
+            launches.append(("nm_reduce_kernel", (_cdiv(m * k // 4, 256), 1)))
+        return tuple(launches)
+    return (("nm_transpose_x_kernel", (_cdiv(n, 32), prefill_rows(m) // 32)),
+            ("nm_spmm_naive_prefill_kernel", naive_prefill_plan(m, k).grid))
 
 
 def _fn(x_dtype: torch.dtype, entry: str):
@@ -151,12 +192,14 @@ def select_entry(x: torch.Tensor, values: torch.Tensor,
 def workspace_numel(entry: str, m: int, n: int, k: int, slices: int) -> int:
     """fp32 elements of the workspace ``entry`` needs: the (S, M, K)
     partials of a split reduction (either entry at decode), room for the
-    prefill entry's (N, M rounded up to ``PREFILL_TILE_M``) column-major
-    copy of x in x's own type (fp32 or bf16), else none."""
+    prefill kernels' (N, :func:`prefill_rows`) column-major copy of x where
+    the pipelined or the naive entry takes a prefill shape (in x's own type
+    for the pipelined entry, widened to fp32 for the naive one), else
+    none."""
     if slices > 1:
         return slices * m * k
-    if entry == "nm_spmm":
-        return n * _cdiv(m, PREFILL_TILE_M) * PREFILL_TILE_M
+    if entry == "nm_spmm" or entry == "nm_spmm_naive" and not small_m(m, k):
+        return n * prefill_rows(m)
     return 0
 
 
@@ -165,7 +208,7 @@ def launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     """Y = X @ expand(values, indices) on the card.  x: (M, N) fp32 or
     bf16; values (N·n_sel/m_group, K) fp32; indices the same shape, int8.
     Returns (M, K) fp32.  ``pipeline=False`` launches the naive entry,
-    whose kernel :func:`naive_kernel` names."""
+    whose kernels :func:`naive_kernel` names."""
     entry, slices, length = select_entry(x, values, indices, n_sel, m_group,
                                          pipeline)
     m, n = x.shape

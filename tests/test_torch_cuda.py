@@ -95,7 +95,9 @@ def test_bitmap_kernel_matches_plain(card, m, n, k, bn, bk, density, dtype):
 # K 256, M ragged against its 128-row tile (17, 33, 70, 129, 200), a long N,
 # K ragged against its 128-column tile or not a multiple of 16 (100, 130,
 # 384, 1000: staged by plain loads), 13 groups of 8 (a ragged last run) and
-# the largest group, 16:32.
+# the largest group, 16:32.  The naive entry's prefill kernel takes the same
+# shapes (its 32 x 32 tile where the 128 x 128 grid has fewer than 64
+# blocks) and a decode-sized M with K % 4 != 0 (M 4, K 102).
 NM_CASES = [
     (1, 32, 24, 2, 4), (70, 128, 100, 1, 4), (4, 96, 64, 3, 8),
     (1, 4096, 256, 2, 4), (4, 4096, 4096, 2, 4), (4, 13696, 4096, 2, 4),
@@ -103,7 +105,7 @@ NM_CASES = [
     (4, 4096, 100, 1, 4), (4, 2048, 256, 3, 8), (17, 4096, 100, 2, 4),
     (512, 4096, 256, 2, 4), (200, 13696, 384, 2, 4), (129, 1024, 1000, 1, 4),
     (64, 104, 64, 3, 8), (33, 256, 130, 16, 32), (4, 2048, 256, 16, 32),
-    (16, 4096, 4096, 2, 4), (3, 4096, 13696, 2, 4)]
+    (16, 4096, 4096, 2, 4), (3, 4096, 13696, 2, 4), (4, 1024, 102, 2, 4)]
 
 
 @pytest.mark.parametrize("m,n,k,n_sel,m_group", NM_CASES)
@@ -298,6 +300,40 @@ def test_nm_naive_decode_takes_misaligned_operands(card, v_off, i_off, n_sel,
     y = ops.nm_spmm(x, c)
     torch.cuda.synchronize()
     _close(y_off, ref.nm_spmm_ref(x, c.values, c.indices, n_sel, m_group))
+    assert torch.equal(y_off, y_naive)
+    assert torch.equal(y_off, y)
+    assert ops.launch_counts()["nm_spmm_naive"] == 2
+    assert ops.launch_counts()["nm_spmm"] == 1
+
+
+@pytest.mark.parametrize("v_off,i_off", [(1, 0), (0, 1), (0, 4), (3, 5)])
+@pytest.mark.parametrize("m", [33, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_naive_prefill_takes_misaligned_operands(card, v_off, i_off, m,
+                                                    dtype):
+    """Above 16 rows values off 16 bytes, or indices off 4 or 16, take the
+    naive prefill kernel's plain staging (M 33: the small tile, M 512: the
+    big one); the result equals, bit for bit, the naive and the pipelined
+    results on aligned copies."""
+    n, k = 1024, 4096
+    rng = np.random.default_rng(m + n + v_off + i_off)
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(card)
+    c = ops.compress_nm(w, 2, 4)
+    rows = c.values.shape[0]
+    v = torch.empty(rows * k + v_off, device=card)[v_off:].view(rows, k)
+    i = torch.empty(rows * k + i_off, dtype=torch.int8,
+                    device=card)[i_off:].view(rows, k)
+    v.copy_(c.values)
+    i.copy_(c.indices)
+    assert v.data_ptr() % 16 or i.data_ptr() % 16
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)) \
+        .to(card, dtype)
+    y_off = ops.nm_spmm(x, dataclasses.replace(c, values=v, indices=i),
+                        pipeline=False)
+    y_naive = ops.nm_spmm(x, c, pipeline=False)
+    y = ops.nm_spmm(x, c)
+    torch.cuda.synchronize()
+    _close(y_off, ref.nm_spmm_ref(x, c.values, c.indices, 2, 4))
     assert torch.equal(y_off, y_naive)
     assert torch.equal(y_off, y)
     assert ops.launch_counts()["nm_spmm_naive"] == 2

@@ -163,9 +163,11 @@ def test_decode_shapes_take_the_decode_kernel_aligned_or_not(m, n, k, v_off,
     operands = _operands(m, n, k, v_off, i_off)
     assert nm.select_entry(*operands, 2, 4, False) == ("nm_spmm_naive",
                                                        slices, length)
-    kernel, grid = nm.naive_kernel(m, n, k, 2, 4)
-    assert kernel == "nm_spmm_naive_small_m_kernel"
-    assert grid == (-(-k // nm.SMALL_M_TILE_K), slices)
+    launches = nm.naive_kernel(m, n, k, 2, 4)
+    assert launches[0] == ("nm_spmm_naive_small_m_kernel",
+                           (-(-k // nm.SMALL_M_TILE_K), slices))
+    assert launches[1:] == ((("nm_reduce_kernel", (-(-m * k // 1024), 1)),)
+                            if slices > 1 else ())
     assert nm.workspace_numel("nm_spmm_naive", m, n, k, slices) == \
         (slices * m * k if slices > 1 else 0)
 
@@ -173,11 +175,14 @@ def test_decode_shapes_take_the_decode_kernel_aligned_or_not(m, n, k, v_off,
 @pytest.mark.parametrize("m,k", [(17, 64), (17, 4096), (512, 256), (4, 102),
                                  (16, 13698), (1, 30)])
 def test_other_shapes_take_the_tiled_kernel_with_one_slice(m, k):
-    """M = 17 or K % 4 != 0: the 64 x 64 tiled kernel, one slice, no
-    workspace."""
+    """M = 17 or K % 4 != 0: x copied column-major, then the naive
+    prefill kernel's register-blocked tiles, one slice; the workspace holds
+    the copy (N rows of M rounded up to 128)."""
     n = 4096
+    mp = -(-m // 128) * 128
     assert nm.select_entry(*_operands(m, n, k), 2, 4, False) == (
         "nm_spmm_naive", 1, nm.split_plan(m, n, k, 2, 4)[1])
     assert nm.naive_kernel(m, n, k, 2, 4) == (
-        "nm_spmm_naive_kernel", (-(-k // 64), -(-m // 64)))
-    assert nm.workspace_numel("nm_spmm_naive", m, n, k, 1) == 0
+        ("nm_transpose_x_kernel", (n // 32, mp // 32)),
+        ("nm_spmm_naive_prefill_kernel", nm.naive_prefill_plan(m, k).grid))
+    assert nm.workspace_numel("nm_spmm_naive", m, n, k, 1) == n * mp

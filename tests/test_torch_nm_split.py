@@ -158,17 +158,19 @@ def test_slice_by_slice_plain_sum_matches_unsplit(m, n, k, n_sel, m_group):
     (512, 1024, 256, False), (4, 1024, 256, False)])
 def test_workspace_holds_the_partials_or_a_column_major_x(m, n, k,
                                                          pipeline):
-    """A split reduction gets its (S, M, K) partials; the prefill entry its
-    (N, M rounded up to the 128-row tile) fp32 copy of x, so every tile's
-    x columns are whole; the unsplit naive entry none."""
+    """A split reduction gets its (S, M, K) partials; a prefill shape, on
+    the pipelined or the naive entry, its (N, M rounded up to the 128-row
+    tile) copy of x, so every tile's x columns are whole; an unsplit decode
+    shape none."""
     x, v, i = _operands(m, n, k)
     entry, slices, _ = nm.select_entry(x, v, i, 2, 4, pipeline)
     numel = nm.workspace_numel(entry, m, n, k, slices)
     if slices > 1:
         assert numel == slices * m * k
-    elif entry == "nm_spmm":
+    elif not nm.small_m(m, k):
         mp = numel // n
         assert numel == n * mp and mp % nm.PREFILL_TILE_M == 0
         assert m <= mp < m + nm.PREFILL_TILE_M
+        assert numel == nm.workspace_numel("nm_spmm", m, n, k, 1)
     else:
         assert numel == 0
