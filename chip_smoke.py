@@ -12,26 +12,28 @@ non-zero exit code when it fails:
    with ptxas's registers and spills for every entry and a summary line for
    each instance of the N:M kernels (prefill tiles, naive decode MT x x
    type x row loads, naive prefill tiles x staging), of the bitmap
-   kernels (prefill tiles, transpose, decode MT, tiled, naive, naive
-   split, reduce) and of both
-   flash entries (FMA, tensor-core); an N:M or bitmap entry or a flash
-   tensor-core entry that spills, or a ptxas note that it serialised
-   wgmmas, fails the run;
+   kernels, pipelined and naive (prefill tiles, decode MT x x type, tiled
+   x x type; transpose, reduce) and of both flash entries (FMA,
+   tensor-core); an N:M or bitmap entry or a flash tensor-core entry that
+   spills, or a ptxas note that it serialised wgmmas, fails the run;
 3. sparse kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm``, each
    in its pipelined and its naive (``pipeline=False``) variant, at every
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
    plan, density 0.5 by block pruning, plus a density-0 weight; N:M 2:4
    and 1:4), M = 4 (decode, batch 4) and M = 512 (prefill, 4 x 128), x in
    fp32 and bf16 (with each role's split of the reduction at M = 4,
-   bitmap and N:M: slices, grid, partials' bytes; the naive N:M kernels
-   that ran at M = 4 and at M = 512 and their grids, read from a profiler
-   trace and held to the wrapper's ``naive_kernel``; each bitmap role's
-   prefill tile and grid at M = 512): each held to max|y - y_plain| <=
-   1e-4 max|y_plain| + 1e-5, the naive result equal to the pipelined one
-   bit for bit, timed
-   (the naive variants at bf16 only) beside the plain version, the bound
-   on an H100 SXM (with the share of it the kernel reaches) and one
-   ``torch.matmul`` over the decompressed weight;
+   bitmap and N:M: slices, grid, partials' bytes; the naive kernels, N:M
+   and bitmap, that ran at M = 4 and at M = 512 and their grids, read from
+   a profiler trace and held to the wrapper's ``naive_kernel``; each
+   bitmap role's prefill tile and grid at M = 512): each held to
+   max|y - y_plain| <= 1e-4 max|y_plain| + 1e-5, the naive result equal to
+   the pipelined one bit for bit, timed (the naive variants at bf16 only)
+   beside the plain version, the bound on an H100 SXM (with the share of
+   it the kernel reaches) and one ``torch.matmul`` over the decompressed
+   weight; then the naive bitmap kernel once more at M = 4 with t_max
+   above the longest column, on a weight whose masked steps read 105 MB of
+   distinct stored blocks (beside the same call at t_max = the longest
+   column and the pipelined kernel; all three results equal);
 4. flash attention vs its plain version at chatglm3-6b's attention width
    (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
    bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
@@ -79,6 +81,9 @@ TOL_REL, TOL_ABS = 1e-4, 1e-5
 BATCH, PROMPT, GEN = 4, 128, 16
 TRACE_STEPS = 4              # decode steps in the serving trace
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
+# the bitmap kernels the naive entry launches as their NAIVE = true instances
+NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
+                "bitmap_spmm_kernel")
 
 
 def _fail(msg: str) -> None:
@@ -153,13 +158,16 @@ def phase_build() -> None:
     def xt(t):
         return "bf16" if t != "f" else "fp32"
 
+    def nv(naive):
+        return "naive " if naive == "1" else ""
+
     # one summary line per instance of the redesigned entries: the N:M
     # prefill kernel (Tile<R, WM, WK, MIN_BLOCKS>, x type, 16-byte cp.async
     # or plain staging), the naive N:M kernels (decode MT, x type, 16-byte
     # or plain row loads; prefill NTile<TY, TX, RM, RK, MIN_BLOCKS>, staged
-    # x type, staging), the bitmap kernels
-    # (prefill PTile<TY, TX, RM, RK, MIN_BLOCKS, STAGES, BC>, transpose,
-    # decode MT, tiled / naive / naive split, reduce) and both flash
+    # x type, staging), the bitmap kernels, pipelined and naive (prefill
+    # PTile<TY, TX, RM, RK, MIN_BLOCKS, STAGES, BC>, decode MT x x type,
+    # tiled x x type; transpose, reduce) and both flash
     # entries (FMA per x type and column count, tensor-core per D)
     summaries = (
         (r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)"
@@ -179,19 +187,18 @@ def phase_build() -> None:
              f"staged as {xt(t)}, "
              f"{'cp.async' if vec == '1' else 'plain'} staging")),
         (r"bitmap_spmm_prefill_kernelINS_5PTileILi(\d+)ELi(\d+)ELi(\d+)"
-         r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE",
-         lambda ty, tx, rm, rk, minb, stages, bc: (
-             f"bitmap_spmm prefill PTile<{ty}, {tx}, {rm}, {rk}, {minb}, "
-             f"{stages}, {bc}> ({int(ty) * int(rm)} x {int(tx) * int(rk)} "
-             f"outputs, {stages} stages of {bc} rows)")),
+         r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEELb([01])E",
+         lambda ty, tx, rm, rk, minb, stages, bc, naive: (
+             f"bitmap_spmm {nv(naive)}prefill PTile<{ty}, {tx}, {rm}, {rk}, "
+             f"{minb}, {stages}, {bc}> ({int(ty) * int(rm)} x "
+             f"{int(tx) * int(rk)} outputs, {stages} stages of {bc} rows)")),
         (r"bitmap_transpose_x_kernelI(13__nv_bfloat16|f)E",
          lambda t: f"bitmap_spmm transpose x {xt(t)}"),
-        (r"bitmap_spmm_small_m_kernelI(13__nv_bfloat16|f)Li(\d+)E",
-         lambda t, mt: f"bitmap_spmm decode MT={mt} x {xt(t)}"),
-        (r"bitmap_spmm_kernelI(13__nv_bfloat16|f)Lb([01])ELb([01])E",
-         lambda t, naive, split: (
-             f"bitmap_spmm {'tiled' if naive == '0' else 'naive'}"
-             f"{' split' if split == '1' else ''} x {xt(t)}")),
+        (r"bitmap_spmm_small_m_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E",
+         lambda t, mt, naive: (
+             f"bitmap_spmm {nv(naive)}decode MT={mt} x {xt(t)}")),
+        (r"bitmap_spmm_kernelI(13__nv_bfloat16|f)Lb([01])E",
+         lambda t, naive: f"bitmap_spmm {nv(naive)}tiled x {xt(t)}"),
         (r"bitmap_reduce_kernel", lambda: "bitmap_spmm reduce"),
         (r"flash_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E",
          lambda t, dj: f"flash_attention fma entry x {xt(t)} D <= "
@@ -219,6 +226,7 @@ class _Acc:
     def __init__(self):
         self.max_abs_err = 0.0
         self.sums: dict[tuple, dict[str, float]] = {}
+        self.masked: dict | None = None      # kernel 2's masked-step case
 
     def add(self, key, err, ms, plain_ms, lib_ms, nbytes, flops):
         """Record one case; ``key`` None keeps it out of the sums (a
@@ -254,6 +262,7 @@ def _launched(fn) -> list[tuple[str, tuple | None]]:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
     path = build.BUILD_DIR / f"launched-{os.getpid()}.json"
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -262,7 +271,7 @@ def _launched(fn) -> list[tuple[str, tuple | None]]:
         events = json.loads(path.read_text())["traceEvents"]
     finally:
         path.unlink()
-    return [(e["name"], tuple(e["args"]["grid"][:2])
+    return [(e["name"], tuple(e["args"]["grid"])
              if "grid" in e.get("args", {}) else None)
             for e in sorted(events, key=lambda e: e.get("ts", 0))
             if e.get("cat") == "kernel"]
@@ -270,8 +279,38 @@ def _launched(fn) -> list[tuple[str, tuple | None]]:
 
 def _short(kernel: str) -> str:
     """A traced kernel's name without its namespace and arguments."""
-    return re.search(r"nm_\w+[^(]*",
+    return re.search(r"(nm|bitmap)_\w+[^(]*",
                      kernel.replace("(anonymous namespace)::", ""))[0]
+
+
+def _held_to(label: str, want, fn, naive_switch: tuple[str, ...] = ()
+             ) -> str:
+    """Fail unless the kernels ``fn()`` launches (``_launched``) are
+    ``want`` (a wrapper's ``naive_kernel``: names and grids, in order; a
+    grid is padded with 1s to the trace's three), those named in
+    ``naive_switch`` as their ``NAIVE = true`` instances; return them as
+    one printable line.  The profiler has dropped a kernel's event from a
+    trace (the first of a window, once in about 150 traces on an H100), so
+    a trace that differs is taken again, three times at most: a wrong
+    kernel or grid fails every one."""
+    def same(name, grid, r, g):
+        return name in r and (g is None or tuple(g) == tuple(grid) + (1,) * (
+            len(g) - len(grid))) and (name not in naive_switch
+                                      or re.search(r"\btrue>", r))
+    for attempt in range(3):
+        ran = _launched(fn)
+        if len(ran) == len(want) and all(
+                same(name, grid, r, g)
+                for (name, grid), (r, g) in zip(want, ran)):
+            break
+        print(f"[kernels] {label}: trace {attempt + 1} shows {ran}, "
+              f"expected {want}")
+    else:
+        _fail(f"{label}: launched {ran}, expected {want}")
+    return ", then ".join(
+        f"{_short(r)} on grid {' x '.join(map(str, grid))}"
+        f"{'' if g else ' (the trace gives no grid)'}"
+        for (_, grid), (r, g) in zip(want, ran))
 
 
 def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
@@ -364,6 +403,21 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                       f"({'big' if pp.tile == 0 else 'small'}), grid "
                       f"{' x '.join(map(str, pp.grid))} = "
                       f"{math.prod(pp.grid)} blocks")
+            # the naive kernels that run at decode and at the prefill, and
+            # their grids: the pipelined entry's kernels, naive instances
+            for m in (M_DECODE, M_PREFILL):
+                want = bm_cuda.naive_kernel(m, role.n, role.k, bn, bk,
+                                            c.max_per_col,
+                                            c.blocks.data_ptr() % 16 == 0)
+                x = torch.randn((m, role.n), generator=gen,
+                                device=dev).bfloat16()
+                runs = _held_to(f"bitmap_spmm_naive {role.role} ({bn}x{bk} "
+                                f"{tag}) M={m}", want,
+                                lambda: ops.bitmap_spmm(x, c, pipeline=False),
+                                NAIVE_SWITCH)
+                print(f"[kernels] bitmap_spmm_naive {role.role} ({bn}x{bk} "
+                      f"{tag}) M={m} x=bfloat16: ran {runs}")
+            del x
             for m in (M_DECODE, M_PREFILL):
                 for dtype in (torch.float32, torch.bfloat16):
                     run("bitmap_spmm", f"{role.role} ({bn}x{bk} {tag})", m,
@@ -391,16 +445,9 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                 want = nm_cuda.naive_kernel(m, role.n, role.k, n_sel, 4)
                 x = torch.randn((m, role.n), generator=gen,
                                 device=dev).bfloat16()
-                ran = _launched(lambda: ops.nm_spmm(x, c, pipeline=False))
-                if len(ran) != len(want) or not all(
-                        name in r and g in (grid, None)
-                        for (name, grid), (r, g) in zip(want, ran)):
-                    _fail(f"nm_spmm_naive {role.role} ({n_sel}:4) M={m}: "
-                          f"launched {ran}, expected {want}")
-                runs = ", then ".join(
-                    f"{_short(r)} on grid {grid[0]} x {grid[1]}"
-                    f"{'' if g else ' (the trace gives no grid)'}"
-                    for (_, grid), (r, g) in zip(want, ran))
+                runs = _held_to(f"nm_spmm_naive {role.role} ({n_sel}:4) "
+                                f"M={m}", want,
+                                lambda: ops.nm_spmm(x, c, pipeline=False))
                 tile = "" if nm_cuda.small_m(m, role.k) else (
                     " ({} x {} tiles)".format(*nm_cuda.NAIVE_PREFILL_TILES[
                         nm_cuda.naive_prefill_plan(m, role.k).tile]))
@@ -417,7 +464,53 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                         wp, nbytes_w, 2.0 * c.values.numel(), role.n,
                         n_sel == 2)
         del w
+    acc["bitmap_spmm_naive"].masked = _masked_steps(gen, flush, dev)
     return acc
+
+
+def _masked_steps(gen, flush, dev) -> dict:
+    """Kernel 2 at decode with the static bound above the longest column:
+    a (13696, 4096) weight of 16 x 16 blocks of 856 x 256 keeping 8 of each
+    block-column's 16 (112 MB stored), served with t_max 8 and 16.  At 16
+    each column's masked steps read the next column's 8 stored blocks (the
+    clamped index min(off + t, nnzb - 1)): 105 MB of distinct blocks more,
+    past the 50 MB L2, so the time rises unless the reads were dropped.
+    The result must equal kernel 1's at both bounds."""
+    import torch
+    from repro_torch.kernels import ops
+    n, k, bn, bk, m = 13696, 4096, 856, 256, M_DECODE
+    keep = torch.rand((n // bn, k // bk), generator=gen, device=dev) \
+        .argsort(dim=0) < 8
+    mask = keep.repeat_interleave(bn, 0).repeat_interleave(bk, 1)
+    w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(n) * mask
+    c = ops.compress_bitmap(w, bn, bk)
+    del w, mask
+    x = torch.randn((m, n), generator=gen, device=dev).bfloat16()
+    y = ops.bitmap_spmm(x, c)
+    out = {"at": f"M={m}, x bf16, N={n} K={k}, blocks {bn}x{bk}, 8 of 16 "
+                 f"kept per block-column", "stored_bytes":
+           c.blocks.numel() * 4, "kernel1_ms": _time_ms(
+               lambda: ops.bitmap_spmm(x, c), 10, flush)}
+    for t_max in (c.max_per_col, 2 * c.max_per_col):
+        if not torch.equal(ops.bitmap_spmm(x, c, t_max=t_max,
+                                           pipeline=False), y):
+            _fail(f"bitmap_spmm_naive with t_max={t_max}: the result "
+                  f"differs from the pipelined one")
+        # bytes the masked steps read: (t_max - counts[kj]) blocks a column
+        masked = int((t_max - c.counts).sum()) * bn * bk * 4
+        out[f"t_max={t_max}"] = {"ms": _time_ms(lambda: ops.bitmap_spmm(
+            x, c, t_max=t_max, pipeline=False), 10, flush),
+            "masked_bytes": masked}
+    lo, hi = (out[f"t_max={t}"] for t in (c.max_per_col,
+                                           2 * c.max_per_col))
+    print(f"[kernels] bitmap_spmm_naive masked steps ({out['at']}, "
+          f"{out['stored_bytes'] / 1e6:.1f} MB stored): kernel 1 "
+          f"{out['kernel1_ms']:.4f} ms; naive t_max={c.max_per_col} "
+          f"{lo['ms']:.4f} ms ({lo['masked_bytes'] / 1e6:.1f} MB masked); "
+          f"t_max={2 * c.max_per_col} {hi['ms']:.4f} ms "
+          f"({hi['masked_bytes'] / 1e6:.1f} MB masked): "
+          f"{hi['ms'] / lo['ms']:.2f}x; results equal to kernel 1's")
+    return out
 
 
 def phase_flash(cfg, card: str, dev) -> dict:
@@ -705,6 +798,8 @@ def main() -> None:
                                f"M={m}, x bf16")
             else:
                 entry["prefill"] = dict(shape, at=f"same, M={m}")
+        if a.masked:
+            entry["masked_steps"] = a.masked
         kernels.append(entry)
     # flash: headline shape BH=128 S=2048 causal bf16; every shape listed
     head = flash["head"]

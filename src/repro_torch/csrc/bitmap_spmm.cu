@@ -38,17 +38,17 @@
 // deterministic.  Zero rows padded into a chunk add fmaf(0, 0, acc) == acc,
 // so where the entries pad does not change a sum.
 //
-// Prefill entry (bitmap_spmm_*, M > 16, bk % 4 == 0, blocks 16-byte
-// aligned, S = 1): bitmap_transpose_x_kernel, then
-// bitmap_spmm_prefill_kernel<Tile>.  A kept block is a DENSE bn x bk tile,
-// and kept row (t, r) multiplies one whole x column against one contiguous
-// payload row, so each x value feeds every output column of a tile and each
-// payload value every output row: the register-blocked outer product of a
-// dense SGEMM applies, over the kept rows only.  At M = 512 the work is
-// fp32 FMAs (half the dense 208.8 GFLOP of a chatglm3-6b layer at block
-// density 0.5), and what paces it is shared memory feeding them: a warp's
-// 16-byte shared load costs the SM about 4 cycles (tools/lds_bench.cu),
-// against 4 warp FMAs a cycle.
+// Prefill entry (bitmap_spmm_*, M > 16, bk % 4 == 0, blocks 16-byte aligned,
+// S = 1): bitmap_transpose_x_kernel, then
+// bitmap_spmm_prefill_kernel<Tile, false>.  A kept block is a DENSE bn x bk
+// tile, and kept row (t, r) multiplies one whole x column against one
+// contiguous payload row, so each x value feeds every output column of a
+// tile and each payload value every output row: the register-blocked outer
+// product of a dense SGEMM applies, over the kept rows only.  At M = 512 the
+// work is fp32 FMAs (half the dense 208.8 GFLOP of a chatglm3-6b layer at
+// block density 0.5), and what paces it is shared memory feeding them: a
+// warp's 16-byte shared load costs the SM about 4 cycles
+// (tools/lds_bench.cu), against 4 warp FMAs a cycle.
 // - x is staged transposed: the transpose kernel first copies x into the
 //   workspace as (N, mp) fp32, mp = M rounded up to PF_MT, padded rows
 //   zero (bf16 widened exactly), so one kept row's x values for an M tile
@@ -84,7 +84,7 @@
 //
 // Tiled entry (bitmap_spmm_tiled_*, operands the prefill and decode entries
 // cannot take: bk % 4 != 0 or blocks off 16 bytes, S = 1):
-// bitmap_spmm_kernel<T, false, false>.  Each thread block owns one TM x tk
+// bitmap_spmm_kernel<T, false>.  Each thread block owns one TM x tk
 // output tile (tk <= 64 divides bk, so a tile lies in one block-column) and
 // keeps it in registers, 4 x 4 values per thread.  It walks ONLY the
 // non-zero blocks of its column, in stored order; within a block it reduces
@@ -95,45 +95,63 @@
 // memory.
 //
 // Decode entry (bitmap_spmm_small_m_*, M <= 16, bk % 4 == 0, blocks 16-byte
-// aligned): bitmap_spmm_small_m_kernel<T, MT>.  The shipped plans have one
-// block-column per role (bk = K), so the tiled grid gives a role K/64 blocks
-// (4 for K = 256), each walking up to 6,848 kept rows with 60 of its 64
-// tile rows idle.  At M = 4 the work is a stream of the payload with 8 FLOPs
-// per kept row and column, so this design is about bytes in flight.  The
-// grid is (column tiles of SK_TK x block-columns, S): a tile never crosses
-// a block-column, since its walk depends on counts[kj]; a ragged last tile
-// (bk = 13696 = 53.5 tiles) is masked at the load (dead threads read a live
-// column) and the store.  A block of SK_THREADS threads stages its slice of
-// x once in shared memory as fp32, column-major ([kept row][MT]), MT = M
-// rounded up to 1, 2, 4, 8 or 16 (a template parameter: no dead rows in the
-// FMA nest; padded rows are zeros, masked at the store), gathering x column
-// row_ids[off + t] * bn + r for kept row (t, r); the staged slice is padded
-// with zero rows to a multiple of SK_ROWS.  A thread owns 4 adjacent output
-// columns x MT rows in registers; per kept row it makes one 16-byte
-// read-only load of the payload, neighbouring threads on neighbouring
-// addresses, SK_ROWS rows per batch, the next batch issued before the
-// current one's FMAs.  Rows past the slice's end load zeros (mask in the
-// load) and meet zero x rows, so no branch sits in the FMA nest.
+// aligned): bitmap_spmm_small_m_kernel<T, MT, false>.  The shipped plans have
+// one block-column per role (bk = K), so the tiled grid gives a role K/64
+// blocks (4 for K = 256), each walking up to 6,848 kept rows with 60 of its
+// 64 tile rows idle.  At M = 4 the work is a stream of the payload with 8
+// FLOPs per kept row and column, so this design is about bytes in
+// flight.  The grid is (column tiles of SK_TK x block-columns, S): a tile
+// never crosses a block-column, since its walk depends on counts[kj]; a
+// ragged last tile (bk = 13696 = 53.5 tiles) is masked at the load (dead
+// threads read a live column) and the store.  A block of SK_THREADS threads
+// stages its slice of x once in shared memory as fp32, column-major ([kept
+// row][MT]), MT = M rounded up to 1, 2, 4, 8 or 16 (a template parameter: no
+// dead rows in the FMA nest; padded rows are zeros, masked at the store),
+// gathering x column row_ids[off + t] * bn + r for kept row (t, r); the
+// staged slice is padded with zero rows to a multiple of SK_ROWS.  A thread
+// owns 4 adjacent output columns x MT rows in registers; per kept row it
+// makes one 16-byte read-only load of the payload, neighbouring threads on
+// neighbouring addresses, SK_ROWS rows per batch, the next batch issued
+// before the current one's FMAs.  Rows past the slice's end load zeros (mask
+// in the load) and meet zero x rows, so no branch sits in the FMA nest.
 //
-// Naive entry: the TPU grid (M/bm, K/bk, t_max) read for what it does: its
-// sequential third axis becomes a loop over t < t_max inside the thread
-// block, with the STATIC bound t_max (a kernel argument, the caller's
-// max-over-layers bound) instead of counts[kj].  Every step reads the block
-// at min(offsets[kj] + t, nnzb - 1) and its row id, as the TPU BlockSpec
-// index maps fetch it (so nothing reads past nnzb; density 0 stores one
-// padded zero block with all counts 0), and a step with t >= counts[kj]
-// runs no FMA.  Live steps are exactly t < counts[kj] and come first, so
-// the naive instance walks them with the tiled entry's loop (same tiling,
-// BC chunking and FMA order) and then, under `if constexpr`, reads the
-// masked steps' blocks.  With S > 1 (SPLIT) it writes its accumulator to
-// the workspace at each slice boundary (every P chunks) and restarts it
-// from 0, then writes the column's empty trailing slices as zeros; the
-// same reduce adds the partials.  Its padded chunk rows add fmaf(0, 0, acc)
-// == acc, so it equals the pipelined entries bit for bit on finite inputs,
-// as the reference pins its two TPU kernels.  It takes no split
-// parallelism.  No branch sits in the FMA loop nest: versions with one (a
-// shared step function, or an `if (live)` around the FMAs) compiled to 48
-// registers with spills and ran at twice the decode time.
+// Naive entry (bitmap_spmm_naive_*): the TPU grid (M/bm, K/bk, t_max) read
+// for what it does: its sequential third axis becomes a walk over t <
+// t_max inside the thread block, with the STATIC bound t_max (a kernel
+// argument, the caller's max-over-layers bound) instead of counts[kj].
+// Every step reads the block at min(offsets[kj] + t, nnzb - 1) and the x
+// columns of its row id, as the TPU BlockSpec index maps fetch them (so
+// nothing reads past nnzb; density 0 stores one padded zero block with all
+// counts 0), and a step with t >= counts[kj] runs no FMA.  The live steps
+// are exactly t < counts[kj] and come first, so the naive entry is the
+// pipelined entry's kernel for the same operands with a compile-time
+// switch NAIVE: the live steps walked by the very same code (so the same
+// sums in the same order: the naive result equals the pipelined one bit
+// for bit, as the reference pins its two TPU kernels), then, after the
+// output is stored, the masked steps' reads, outside the FMA loop nest.
+// The C launch picks the kernel from the shape and alignment, as the
+// pipelined entries are picked (kernels/bitmap_spmm.py::naive_kernel names
+// them):
+// - decode (M <= 16, bk % 4 == 0, blocks 16-byte aligned):
+//   bitmap_spmm_small_m_kernel<T, MT, true> on the decode grid and order,
+//   then bitmap_reduce_kernel where S > 1.  The masked steps are cut into
+//   pieces as the live ones are; slice s's block takes the masked pieces in
+//   its range [s P, (s+1) P), and the last slice's also every piece from S P
+//   up to t_max q (t_max above the plan's longest column).  Each masked row
+//   is one 16-byte cp.async per thread into a one-slot-per-thread sink in
+//   shared memory, and its x columns 4-byte cp.asyncs: a copy into shared
+//   memory is a side effect the compiler keeps, where a register load whose
+//   value is never used would be deleted.
+// - prefill (M > 16, same operands): bitmap_transpose_x_kernel, then
+//   bitmap_spmm_prefill_kernel<Tile, true> on prefill_plan's tile and grid;
+//   the masked steps' kept rows [counts[kj] bn, t_max bn) are copied in
+//   chunks through the same cp.async ring and waited on, and no FMA reads
+//   them.
+// - anything else: bitmap_spmm_kernel<T, true>, the tiled entry's walk with
+//   one slice, then the masked steps' blocks staged into its shared tiles.
+// No branch sits in the FMA loop nest: versions with one (a shared step
+// function, or an `if (live)` around the FMAs) compiled to 48 registers
+// with spills and ran at twice the decode time.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor
 // cores): bytes = stored payload (nnz blocks * bn * bk * 4) + metadata
@@ -143,7 +161,8 @@
 // by the fp32 FLOPs (104.4 GFLOP a layer: 1.5585 ms).  The partials' round
 // trip (2 * S * M * K * 4 bytes, mostly in L2) is kept under 10 % of the
 // payload at decode.  The static bound costs the naive entry (t_max -
-// counts[kj]) extra block reads per output tile, FMAs skipped.
+// counts[kj]) extra block reads per block-column and column tile, FMAs
+// skipped; the shipped plans have none (t_max == counts[kj]).
 //
 // What the design leaves on the table: the decode loads are synchronous
 // register loads, not a cp.async / TMA ring; the payload is fp32 (bf16
@@ -201,19 +220,16 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][4],
 
 // NAIVE = false is the tiled entry; NAIVE = true adds the naive entry's
 // masked steps after the same walk over the live steps (a compile-time
-// switch, so no branch enters the FMA loop nest).  SPLIT (naive only)
-// takes y as the (S, M, K) workspace: it writes partial s to y + s * M * K
-// every slice_pieces chunks, then the trailing empty slices as zeros.
-// nnzb and t_max are read only by the naive instances, slices and
-// slice_pieces only by the split one.
-template <typename T, bool NAIVE, bool SPLIT>
+// switch, so no branch enters the FMA loop nest).  One slice, written to
+// y; nnzb and t_max are read only by the naive instance.
+template <typename T, bool NAIVE>
 __global__ void __launch_bounds__(THREADS)
 bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
                    const int* __restrict__ counts,
                    const int* __restrict__ row_ids,
                    const int* __restrict__ offsets, float* __restrict__ y,
                    int m, int n, int k, int bn, int bk, int tk, int nnzb,
-                   int t_max, int slices, int slice_pieces) {
+                   int t_max) {
   __shared__ float xs[TM][BC + 1];
   __shared__ float ws[BC][TK];
   const int tid = threadIdx.x;
@@ -231,7 +247,6 @@ bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  [[maybe_unused]] int slice = 0, piece = 0;   // slice, and chunks done in it
   for (int t = 0; t < cnt; ++t) {
     const size_t xcol = (size_t)row_ids[off + t] * bn;
     const float* wblk = blocks + (size_t)(off + t) * bn * bk + kb;
@@ -263,20 +278,6 @@ bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
           for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
       __syncthreads();
-      if constexpr (SPLIT) {
-        // end of slice `slice`; the last one takes any rows past its end
-        // (a caller's max_per_col below counts[kj]), never the memory after
-        if (++piece == slice_pieces && slice + 1 < slices) {
-          store_tile(acc, y + (size_t)slice * m * k, m0, k0, m, k, tk, tx,
-                     ty);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-          piece = 0;
-          ++slice;
-        }
-      }
     }
   }
 
@@ -304,18 +305,31 @@ bitmap_spmm_kernel(const T* __restrict__ x, const float* __restrict__ blocks,
     }
   }
 
-  if constexpr (SPLIT) {
-    // the last slice, partial or empty, then the column's empty ones
-    for (; slice < slices; ++slice) {
-      store_tile(acc, y + (size_t)slice * m * k, m0, k0, m, k, tk, tx, ty);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
-  } else {
-    store_tile(acc, y, m0, k0, m, k, tk, tx, ty);
-  }
+  store_tile(acc, y, m0, k0, m, k, tk, tx, ty);
+}
+
+// 16 bytes global -> shared without a register; `bytes` 0 fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// 4 bytes global -> shared (through L1: the .cg form takes 16 only).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The next SK_ROWS kept rows, of which `left` are in the slice: one float4
@@ -356,11 +370,60 @@ __device__ __forceinline__ int piece_row(int p, int q, int bn) {
   return p / q * bn + p % q * BC;
 }
 
+// The naive decode entry's masked pieces [p0, p1) of a block-column whose
+// stored blocks start at off, read and dropped.  Piece p is the rows
+// p % q * BC (up to BC, within bn) of TPU step t = p / q >= counts[kj],
+// whose block the index maps fetch at min(off + t, nnzb - 1): this
+// thread's 4 payload columns of each row (16 bytes) and, shared by the
+// block, the m rows of x at the columns of that block's row id.  Every
+// read is a cp.async into this thread's slot of `sink` in shared memory: a
+// copy into shared memory is a side effect the compiler keeps (a register
+// load whose value is never used would be deleted), and it takes no
+// register and no FMA.  Copies into one slot may land in any order:
+// nothing reads the sink.  x is read in 4-byte words, cp.async's least, the
+// first word of a run rounded down to 4 bytes (for bf16 x it may start 2
+// bytes before the run, inside the same word of x's allocation).
+template <typename T>
+__device__ __forceinline__ void masked_reads(
+    const T* __restrict__ x, const float* __restrict__ blocks,
+    const int* __restrict__ row_ids, float4* sink, int off, int lcb, int m,
+    int n, int bn, int bk, int q, int nnzb, int p0, int p1) {
+  constexpr int XW = BC * (int)sizeof(T) / 4 + 1;   // words of a run, at most
+  float4* const slot = sink + threadIdx.x;
+  for (int p = p0; p < p1; ++p) {
+    const int at = min(off + p / q, nnzb - 1);
+    const int r0 = p % q * BC, len = min(BC, bn - r0);
+    const float* w = blocks + ((size_t)at * bn + r0) * bk + lcb;
+#pragma unroll 8
+    for (int r = 0; r < len; ++r) cp_async16(slot, w + (size_t)r * bk, 16);
+    const T* xr = x + (size_t)row_ids[at] * bn + r0;
+    for (int e = threadIdx.x; e < m * XW; e += SK_THREADS) {
+      const int i = e / XW, f = e - i * XW;
+      const uintptr_t a = (uintptr_t)(xr + (size_t)i * n);
+      const uintptr_t word = (a & ~(uintptr_t)3) + 4 * f;
+      if (word < a + len * sizeof(T))
+        cp_async4(slot, reinterpret_cast<const void*>(word));
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// Shared memory of a decode block: the slice's x, [slice row][MT] fp32,
+// and for the naive instance a sink of one float4 a thread after it.
+template <bool NAIVE>
+constexpr long small_m_smem(int mt, int slice_pieces) {
+  return (long)mt * slice_pieces * BC * sizeof(float) +
+         (NAIVE ? SK_THREADS * sizeof(float4) : 0);
+}
+
 // Decode entry (M <= SK_MAX_M): the partial of slice blockIdx.y over
 // output columns [4 * thread, +4) of column tile blockIdx.x % tiles of
 // block-column blockIdx.x / tiles, into out + slice * M * K (out is y
 // itself when S = 1).  Needs bk % 4 == 0 and blocks 16-byte aligned.
-template <typename T, int MT>
+// NAIVE adds, after the store, the naive entry's masked pieces that fall to
+// this slice (masked_reads); nnzb and t_max are read only then.
+template <typename T, int MT, bool NAIVE>
 __global__ void __launch_bounds__(SK_THREADS)
 bitmap_spmm_small_m_kernel(const T* __restrict__ x,
                            const float* __restrict__ blocks,
@@ -368,7 +431,8 @@ bitmap_spmm_small_m_kernel(const T* __restrict__ x,
                            const int* __restrict__ row_ids,
                            const int* __restrict__ offsets,
                            float* __restrict__ out, int m, int n, int k,
-                           int bn, int bk, int tiles, int slice_pieces) {
+                           int bn, int bk, int tiles, int slice_pieces,
+                           int nnzb, int t_max) {
   extern __shared__ float4 xs4[];
   float* xs = reinterpret_cast<float*>(xs4);   // [slice row][MT], fp32
   const int kj = blockIdx.x / tiles;
@@ -431,6 +495,25 @@ bitmap_spmm_small_m_kernel(const T* __restrict__ x,
         *reinterpret_cast<float4*>(o + (size_t)i * k) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
+
+  if constexpr (NAIVE) {
+    // the masked pieces [counts[kj] q, t_max q) in this slice's range
+    // [s P, (s + 1) P); the last slice also takes those from S P on.  The
+    // column's scalars are read again here, so that none of them stays
+    // live across the FMA loop (keeping them cost the MT = 2 instance a
+    // spill)
+    const int c = blockIdx.x / tiles;
+    const int col = min((int)(blockIdx.x - c * tiles) * SK_TK +
+                            4 * (int)threadIdx.x, bk - 4);
+    const int pieces = (bn + BC - 1) / BC;
+    const int s0 = (int)blockIdx.y * slice_pieces, mend = t_max * pieces;
+    const int s1 = blockIdx.y + 1 == gridDim.y
+                       ? mend
+                       : min(s0 + slice_pieces, mend);
+    masked_reads<T>(x, blocks, row_ids, xs4 + MT * slice_pieces * BC / 4,
+                    __ldcg(offsets + c), col, m, n, bn, bk, pieces, nnzb,
+                    max(s0, __ldcg(counts + c) * pieces), s1);
+  }
 }
 
 // y = ws[0] + ws[1] + ... + ws[S-1], left to right, four outputs a thread.
@@ -449,23 +532,6 @@ bitmap_reduce_kernel(const float4* __restrict__ ws, float4* __restrict__ y,
     a.w += b.w;
   }
   y[e] = a;
-}
-
-// 16 bytes global -> shared without a register; `bytes` 0 fills zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // xt[c * mp + i] = x[i, c] as fp32 for i < m, 0 for m <= i < mp: the
@@ -510,8 +576,9 @@ constexpr int prefill_smem() {
 // of block-column blockIdx.z.  xt: bitmap_transpose_x_kernel's (N, mp)
 // copy of x.  Thread (ty, tx) owns rows ty*4 + TY*4*g + (0..3) and columns
 // tx*4 + TX*4*g + (0..3) of the tile.  Needs bk % 4 == 0 and blocks
-// 16-byte aligned.
-template <class TT>
+// 16-byte aligned.  NAIVE adds, after the store, the naive entry's masked
+// steps' copies; nnzb and t_max are read only then.
+template <class TT, bool NAIVE>
 __global__ void __launch_bounds__(TT::NT, TT::MIN_BLOCKS)
 bitmap_spmm_prefill_kernel(const float* __restrict__ xt,
                            const float* __restrict__ blocks,
@@ -519,7 +586,7 @@ bitmap_spmm_prefill_kernel(const float* __restrict__ xt,
                            const int* __restrict__ row_ids,
                            const int* __restrict__ offsets,
                            float* __restrict__ y, int m, int mp, int k,
-                           int bn, int bk) {
+                           int bn, int bk, int nnzb, int t_max) {
   constexpr int TM = TT::TM, TK = TT::TK, RM = TT::RM, RK = TT::RK;
   constexpr int BC = TT::BC;
   constexpr int XQ = TM / 4, WQ = TK / 4;     // 16-byte copies per row
@@ -625,64 +692,146 @@ bitmap_spmm_prefill_kernel(const float* __restrict__ xt,
                         acc[i][4 * g + 3]);
     }
   }
+
+  if constexpr (NAIVE) {
+    // the masked steps counts[kj] <= t < t_max: their kept rows [rows,
+    // t_max bn), of the block at min(off + t, nnzb - 1), copied in chunks
+    // of BC rows through the same ring and waited on; no FMA reads them.
+    // A thread's copies land in its own stage slots, so no barrier is
+    // needed between chunks, only before the first (the FMAs' last reads)
+    const int mend = t_max * bn;
+    const int mchunks = (mend - rows + BC - 1) / BC;
+    auto issue_masked = [&](int ch) {
+      float* const xs = smem + (ch % TT::STAGES) * STAGE;
+      float* const ws = xs + BC * TM;
+      const int r0 = rows + ch * BC;
+      for (int e = threadIdx.x; e < BC * XQ; e += TT::NT) {
+        const int q = e / XQ, f = e - q * XQ, r = r0 + q, t = r / bn;
+        const bool in = r < mend;
+        const float* src =
+            in ? xt + ((size_t)row_ids[min(off + t, nnzb - 1)] * bn + r -
+                       t * bn) * mp + m0 + 4 * f
+               : xt;
+        cp_async16(xs + q * TM + 4 * f, src, in ? 16 : 0);
+      }
+      for (int e = threadIdx.x; e < BC * WQ; e += TT::NT) {
+        const int q = e / WQ, f = e - q * WQ, r = r0 + q, t = r / bn;
+        const bool in = r < mend && c0 + 4 * f < bk;
+        const float* src =
+            in ? blocks + ((size_t)min(off + t, nnzb - 1) * bn + r - t * bn) *
+                              bk + c0 + 4 * f
+               : blocks;
+        cp_async16(ws + q * TK + 4 * f, src, in ? 16 : 0);
+      }
+    };
+    if (mchunks > 0) {
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < TT::STAGES - 1; ++s) {
+        if (s < mchunks) issue_masked(s);
+        cp_async_commit();
+      }
+      for (int ch = 0; ch < mchunks; ++ch) {
+        cp_async_wait<TT::STAGES - 2>();      // chunk ch has landed
+        if (ch + TT::STAGES - 1 < mchunks) issue_masked(ch + TT::STAGES - 1);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+  }
 }
 
-template <class TT>
+template <class TT, bool NAIVE>
 int launch_prefill(const float* xt, const void* blocks, const void* counts,
                    const void* row_ids, const void* offsets, float* y, int m,
-                   int mp, int k, int bn, int bk, cudaStream_t st) {
+                   int mp, int k, int bn, int bk, int nnzb, int t_max,
+                   cudaStream_t st) {
   constexpr int smem = prefill_smem<TT>();
   const cudaError_t e = cudaFuncSetAttribute(
-      bitmap_spmm_prefill_kernel<TT>,
+      bitmap_spmm_prefill_kernel<TT, NAIVE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((m + TT::TM - 1) / TT::TM, (bk + TT::TK - 1) / TT::TK,
                   k / bk);
-  bitmap_spmm_prefill_kernel<TT><<<grid, TT::NT, smem, st>>>(
+  bitmap_spmm_prefill_kernel<TT, NAIVE><<<grid, TT::NT, smem, st>>>(
       xt, (const float*)blocks, (const int*)counts, (const int*)row_ids,
-      (const int*)offsets, y, m, mp, k, bn, bk);
+      (const int*)offsets, y, m, mp, k, bn, bk, nnzb, t_max);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MT>
-void launch_small_m(dim3 grid, int smem, cudaStream_t st, const void* x,
-                    const void* blocks, const void* counts,
-                    const void* row_ids, const void* offsets, float* out,
-                    int m, int n, int k, int bn, int bk, int tiles,
-                    int slice_pieces) {
-  bitmap_spmm_small_m_kernel<T, MT><<<grid, SK_THREADS, smem, st>>>(
+template <typename T, int MT, bool NAIVE>
+int launch_small_m(dim3 grid, cudaStream_t st, const void* x,
+                   const void* blocks, const void* counts, const void* row_ids,
+                   const void* offsets, float* out, int m, int n, int k,
+                   int bn, int bk, int tiles, int slice_pieces, int nnzb,
+                   int t_max) {
+  const int smem = (int)small_m_smem<NAIVE>(MT, slice_pieces);
+  if (smem > 48 * 1024) {                 // the naive sink past a full slice
+    const cudaError_t e = cudaFuncSetAttribute(
+        bitmap_spmm_small_m_kernel<T, MT, NAIVE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  bitmap_spmm_small_m_kernel<T, MT, NAIVE><<<grid, SK_THREADS, smem, st>>>(
       (const T*)x, (const float*)blocks, (const int*)counts,
       (const int*)row_ids, (const int*)offsets, out, m, n, k, bn, bk, tiles,
-      slice_pieces);
+      slice_pieces, nnzb, t_max);
+  return (int)cudaGetLastError();
+}
+
+// launch_small_m at the row template MT = mt.
+template <typename T, bool NAIVE>
+int launch_decode(int mt, dim3 grid, cudaStream_t st, const void* x,
+                  const void* blocks, const void* counts, const void* row_ids,
+                  const void* offsets, float* out, int m, int n, int k, int bn,
+                  int bk, int tiles, int slice_pieces, int nnzb, int t_max) {
+  decltype(&launch_small_m<T, 1, NAIVE>) go;
+  switch (mt) {
+    case 1: go = launch_small_m<T, 1, NAIVE>; break;
+    case 2: go = launch_small_m<T, 2, NAIVE>; break;
+    case 4: go = launch_small_m<T, 4, NAIVE>; break;
+    case 8: go = launch_small_m<T, 8, NAIVE>; break;
+    default: go = launch_small_m<T, 16, NAIVE>;
+  }
+  return go(grid, st, x, blocks, counts, row_ids, offsets, out, m, n, k, bn,
+            bk, tiles, slice_pieces, nnzb, t_max);
 }
 
 enum Entry { PREFILL, TILED, SMALL_M, NAIVE };
 
 // ws: the (slices, M, K) fp32 workspace when slices > 1; for the prefill
-// entry the (N, ceil(M / PF_MT) * PF_MT) fp32 transposed copy of x; unused
-// else.  tile: the prefill entry's tile, 0 BigTile, 1 SmallTile.  Refuses
-// (cudaErrorInvalidValue) what the entry cannot run: the tiled and prefill
-// entries take one slice, the reduce kernel K % 4 == 0, the decode entry M
-// <= 16, bk % 4 == 0, 16-byte aligned blocks and a slice whose x fits
-// SK_SMEM, the prefill entry M > 16, bk % 4 == 0 and 16-byte aligned
-// blocks.
+// kernels the (N, ceil(M / PF_MT) * PF_MT) fp32 transposed copy of x;
+// unused else.  tile: the prefill kernel's tile, 0 BigTile, 1 SmallTile.
+// The naive entry takes the kernel its shape and alignment allow, as the
+// pipelined entries are picked: the decode kernel (M <= 16, bk % 4 == 0,
+// blocks 16-byte aligned), the prefill kernels (M > 16, the same operands),
+// else the tiled kernel.  Refuses (cudaErrorInvalidValue) what the kernel
+// cannot run: S > 1 anywhere but the decode kernel, the decode kernel M >
+// 16, bk % 4 != 0, blocks off 16 bytes or a slice whose x exceeds
+// SK_SMEM, the prefill kernels M <= 16, bk % 4 != 0 or blocks off 16
+// bytes.
 template <typename T>
 int launch(const void* x, const void* blocks, const void* counts,
            const void* row_ids, const void* offsets, void* y, void* ws,
            int m, int n, int k, int bn, int bk, int tk, int nnzb, int t_max,
            int slices, int slice_pieces, int tile, Entry entry,
            void* stream) {
+  const bool naive = entry == NAIVE;
+  const bool fast = bk % 4 == 0 && (uintptr_t)blocks % 16 == 0;
+  const Entry route = !naive ? entry
+                      : !fast ? TILED
+                      : m <= SK_MAX_M ? SMALL_M
+                                      : PREFILL;
   if (m <= 0 || n <= 0 || k <= 0 || bn <= 0 || bk <= 0 || tk <= 0 ||
       tk > TK || bk % tk || k % bk || n % bn ||
-      (entry == NAIVE && (nnzb < 1 || t_max < 1)) || slices < 1 ||
+      (naive && (nnzb < 1 || t_max < 1)) || slices < 1 ||
       slices > MAX_SLICES || slice_pieces < 1 ||
-      (slices > 1 && (entry == TILED || entry == PREFILL || k % 4)))
+      (slices > 1 && route != SMALL_M))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* out = slices > 1 ? (float*)ws : (float*)y;
-  if (entry == PREFILL) {
-    if (m <= SK_MAX_M || bk % 4 || (uintptr_t)blocks % 16 || tile < 0 ||
-        tile > 1)
+  if (route == PREFILL) {
+    if (m <= SK_MAX_M || !fast || tile < 0 || tile > 1)
       return (int)cudaErrorInvalidValue;
     const int mp = (m + PF_MT - 1) / PF_MT * PF_MT;
     float* xt = (float*)ws;                  // (n, mp) fp32
@@ -690,44 +839,35 @@ int launch(const void* x, const void* blocks, const void* counts,
                                    0, st>>>((const T*)x, xt, m, mp, n);
     const int err = (int)cudaGetLastError();
     if (err) return err;
-    return tile == 0 ? launch_prefill<BigTile>(xt, blocks, counts, row_ids,
-                                               offsets, out, m, mp, k, bn,
-                                               bk, st)
-                     : launch_prefill<SmallTile>(xt, blocks, counts, row_ids,
-                                                 offsets, out, m, mp, k, bn,
-                                                 bk, st);
+    decltype(&launch_prefill<BigTile, false>) go =
+        tile == 0 ? (naive ? launch_prefill<BigTile, true>
+                           : launch_prefill<BigTile, false>)
+                  : (naive ? launch_prefill<SmallTile, true>
+                           : launch_prefill<SmallTile, false>);
+    return go(xt, blocks, counts, row_ids, offsets, out, m, mp, k, bn, bk,
+              nnzb, t_max, st);
   }
-  if (entry == SMALL_M) {
+  int err;
+  if (route == SMALL_M) {
     const int mt = m <= 1 ? 1 : m <= 2 ? 2 : m <= 4 ? 4 : m <= 8 ? 8 : 16;
-    const long smem = (long)mt * slice_pieces * BC * sizeof(float);
-    if (m > SK_MAX_M || bk % 4 || smem > SK_SMEM || (uintptr_t)blocks % 16)
+    if (m > SK_MAX_M || !fast ||
+        small_m_smem<false>(mt, slice_pieces) > SK_SMEM)
       return (int)cudaErrorInvalidValue;
     const int tiles = (bk + SK_TK - 1) / SK_TK;
-    dim3 grid(tiles * (k / bk), slices);
-    void (*go)(dim3, int, cudaStream_t, const void*, const void*,
-               const void*, const void*, const void*, float*, int, int, int,
-               int, int, int, int);
-    switch (mt) {
-      case 1: go = launch_small_m<T, 1>; break;
-      case 2: go = launch_small_m<T, 2>; break;
-      case 4: go = launch_small_m<T, 4>; break;
-      case 8: go = launch_small_m<T, 8>; break;
-      default: go = launch_small_m<T, 16>;
-    }
-    go(grid, (int)smem, st, x, blocks, counts, row_ids, offsets, out, m, n,
-       k, bn, bk, tiles, slice_pieces);
+    const dim3 grid(tiles * (k / bk), slices);
+    err = (naive ? launch_decode<T, true> : launch_decode<T, false>)(
+        mt, grid, st, x, blocks, counts, row_ids, offsets, out, m, n, k, bn,
+        bk, tiles, slice_pieces, nnzb, t_max);
   } else {
-    dim3 grid(k / tk, (m + TM - 1) / TM);
-    decltype(&bitmap_spmm_kernel<T, false, false>) go =
-        entry == TILED ? bitmap_spmm_kernel<T, false, false>
-        : slices > 1   ? bitmap_spmm_kernel<T, true, true>
-                       : bitmap_spmm_kernel<T, true, false>;
+    const dim3 grid(k / tk, (m + TM - 1) / TM);
+    decltype(&bitmap_spmm_kernel<T, false>) go =
+        naive ? bitmap_spmm_kernel<T, true> : bitmap_spmm_kernel<T, false>;
     go<<<grid, THREADS, 0, st>>>((const T*)x, (const float*)blocks,
                                  (const int*)counts, (const int*)row_ids,
                                  (const int*)offsets, out, m, n, k, bn, bk,
-                                 tk, nnzb, t_max, slices, slice_pieces);
+                                 tk, nnzb, t_max);
+    err = (int)cudaGetLastError();
   }
-  int err = (int)cudaGetLastError();
   if (err || slices == 1) return err;
   const int mk4 = m * k / 4;
   bitmap_reduce_kernel<<<(mk4 + RED_THREADS - 1) / RED_THREADS, RED_THREADS,

@@ -4,16 +4,17 @@ Ports of the two Pallas TPU kernels of ``repro.kernels.bitmap_spmm``:
 ``pipeline=True`` launches the port of ``_pipelined_kernel`` (walks
 ``counts[kj]`` blocks: the decode entry at M ≤ 16, the prefill entry
 above, the tiled entry for operands neither takes), ``pipeline=False`` the
-port of the naive ``_kernel`` (walks the static bound ``t_max``).  All
-entries follow one summation order, :func:`split_plan`: at decode the
-reduction over each block-column's kept rows is split into slices whose
-partials a second kernel adds in order.  The wrapper picks the entry and
-the order (:func:`select_entry`) and the prefill tile
-(:func:`prefill_plan`), checks device, dtype, shape and contiguity,
-allocates the output and the workspace (the partials,
-:func:`workspace_numel`, or the prefill entry's transposed x,
-:func:`xt_numel`) and launches on PyTorch's current stream; the source's
-note states the designs and bound.
+port of the naive ``_kernel`` (walks the static bound ``t_max``: the same
+kernel the pipelined entry takes for those operands, whose masked steps
+are read and not multiplied, :func:`naive_kernel`).  All entries follow
+one summation order, :func:`split_plan`: at decode the reduction over each
+block-column's kept rows is split into slices whose partials a second
+kernel adds in order.  The wrapper picks the entry and the order
+(:func:`select_entry`) and the prefill tile (:func:`prefill_plan`), checks
+device, dtype, shape and contiguity, allocates the output and the
+workspace (the partials, :func:`workspace_numel`, or the prefill kernels'
+transposed x, :func:`xt_numel`) and launches on PyTorch's current stream;
+the source's note states the designs and bound.
 """
 
 from __future__ import annotations
@@ -131,6 +132,44 @@ def prefill_plan(m: int, bk: int, k: int) -> PrefillPlan | None:
     return big if math.prod(big.grid) >= PREFILL_MIN_BLOCKS else small
 
 
+def route(m: int, bk: int, aligned: bool) -> str:
+    """The kernel family an operand takes, pipelined or naive: "decode"
+    (M ≤ 16, bk % 4 == 0, blocks 16-byte aligned), "prefill" (M > 16, the
+    same operands) or "tiled" (bk % 4 != 0 or blocks off 16 bytes)."""
+    if bk % 4 or not aligned:
+        return "tiled"
+    return "decode" if m <= SPLIT_MAX_M else "prefill"
+
+
+def naive_kernel(m: int, n: int, k: int, bn: int, bk: int, max_per_col: int,
+                 aligned: bool) -> tuple[tuple[str, tuple[int, ...]], ...]:
+    """The kernels the naive C entry launches for x (M, N) and a
+    (nnzb, bn, bk) payload of K columns, in order, each with its grid, as
+    ``launch`` in the source picks them from the shape and the alignment
+    of ``blocks`` (:func:`route`).  At decode ``bitmap_spmm_small_m_kernel``
+    on (K/bk · ceil(bk/256), S) with :func:`split_plan`'s S, then, for S >
+    1, ``bitmap_reduce_kernel`` on (ceil(M·K / 1024), 1).  At prefill
+    ``bitmap_transpose_x_kernel`` on (ceil(N / 32), M rounded up to 128 /
+    32), then ``bitmap_spmm_prefill_kernel`` on :func:`prefill_plan`'s
+    grid.  Else ``bitmap_spmm_kernel`` on (K / :func:`tile_k`, ceil(M /
+    64)), one slice.  Each is the pipelined entry's kernel for the same
+    operands, instantiated with the naive switch."""
+    kind = route(m, bk, aligned)
+    if kind == "decode":
+        slices = split_plan(m, bn, bk, k, max_per_col)[0]
+        launches = [("bitmap_spmm_small_m_kernel",
+                     (k // bk * _cdiv(bk, SMALL_M_TILE_K), slices))]
+        if slices > 1:
+            launches.append(("bitmap_reduce_kernel",
+                             (_cdiv(m * k // 4, 256), 1)))
+        return tuple(launches)
+    if kind == "prefill":
+        return (("bitmap_transpose_x_kernel",
+                 (_cdiv(n, 32), xt_numel(m, n) // n // 32)),
+                ("bitmap_spmm_prefill_kernel", prefill_plan(m, bk, k).grid))
+    return (("bitmap_spmm_kernel", (k // tile_k(bk), _cdiv(m, 64))),)
+
+
 def _fn(x_dtype: torch.dtype, entry: str):
     lib = build.library("bitmap_spmm")
     fn = getattr(lib, f"{entry}_bf16" if x_dtype == torch.bfloat16
@@ -173,17 +212,11 @@ def select_entry(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"bitmap_spmm: x {tuple(x.shape)} / blocks "
                          f"{tuple(blocks.shape)} / counts "
                          f"{tuple(counts.shape)} do not fit K={k}")
-    aligned = blocks.data_ptr() % 16 == 0
-    decode = small_m(m, bk) and aligned
-    if not pipeline:
-        entry = "bitmap_spmm_naive"
-    elif decode:
-        entry = "bitmap_spmm_small_m"
-    elif m > SPLIT_MAX_M and aligned and prefill_plan(m, bk, k) is not None:
-        entry = "bitmap_spmm"
-    else:
-        entry = "bitmap_spmm_tiled"
-    if decode:
+    kind = route(m, bk, blocks.data_ptr() % 16 == 0)
+    entry = "bitmap_spmm_naive" if not pipeline else {
+        "decode": "bitmap_spmm_small_m", "prefill": "bitmap_spmm",
+        "tiled": "bitmap_spmm_tiled"}[kind]
+    if kind == "decode":
         return (entry, *split_plan(m, bn, bk, k, max_per_col))
     return entry, 1, max(1, max_per_col) * _cdiv(bn, PIECE_ROWS)
 
@@ -195,8 +228,8 @@ def workspace_numel(m: int, k: int, slices: int) -> int:
 
 
 def xt_numel(m: int, n: int) -> int:
-    """fp32 elements of the prefill entry's workspace: x transposed to (N,
-    M rounded up to :data:`PREFILL_PAD_M`)."""
+    """fp32 elements of the prefill kernels' workspace, pipelined or naive:
+    x transposed to (N, M rounded up to :data:`PREFILL_PAD_M`)."""
     return n * _cdiv(m, PREFILL_PAD_M) * PREFILL_PAD_M
 
 
@@ -208,8 +241,9 @@ def launch(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
     fp32; counts / offsets (K/bk,) and row_ids (nnzb,) int32; max_per_col
     at least ``counts.max()`` (it sets the summation order, read on the
     host: no sync).  Returns (M, K) fp32.  ``pipeline=False`` launches the
-    naive entry, which walks ``t_max`` (≥ 1) steps per block-column; the
-    pipelined entries ignore ``t_max``."""
+    naive entry, which walks ``t_max`` (≥ 1) steps per block-column with
+    the kernels :func:`naive_kernel` names; the pipelined entries ignore
+    ``t_max``."""
     if t_max < 1:
         raise ValueError(f"bitmap_spmm: t_max must be >= 1, got {t_max}")
     entry, slices, pieces = select_entry(x, blocks, counts, row_ids, offsets,
@@ -217,7 +251,7 @@ def launch(x: torch.Tensor, blocks: torch.Tensor, counts: torch.Tensor,
     m, n = x.shape
     nnzb, bn, bk = blocks.shape
     y = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    prefill = entry == "bitmap_spmm"
+    prefill = route(m, bk, blocks.data_ptr() % 16 == 0) == "prefill"
     numel = xt_numel(m, n) if prefill else workspace_numel(m, k, slices)
     ws = torch.empty(numel, dtype=torch.float32, device=x.device) \
         if numel else y
