@@ -13,9 +13,9 @@ non-zero exit code when it fails:
    each instance of the N:M kernels (prefill tiles, naive decode MT x x
    type x row loads, naive prefill tiles x staging), of the bitmap
    kernels, pipelined and naive (prefill tiles, decode MT x x type, tiled
-   x x type; transpose, reduce) and of both flash entries (FMA,
-   tensor-core); an N:M or bitmap entry or a flash tensor-core entry that
-   spills, or a ptxas note that it serialised wgmmas, fails the run;
+   x x type; transpose, reduce) and of both flash entries (FMA per tile
+   and operand type, tensor-core per D); an N:M, bitmap or flash entry
+   that spills, or a ptxas note that it serialised wgmmas, fails the run;
 3. sparse kernels vs plain versions: ``bitmap_spmm`` and ``nm_spmm``, each
    in its pipelined and its naive (``pipeline=False``) variant, at every
    projection role of full-width chatglm3-6b (blocks of the shipped bitmap
@@ -168,7 +168,8 @@ def phase_build() -> None:
     # x type, staging), the bitmap kernels, pipelined and naive (prefill
     # PTile<TY, TX, RM, RK, MIN_BLOCKS, STAGES, BC>, decode MT x x type,
     # tiled x x type; transpose, reduce) and both flash
-    # entries (FMA per x type and column count, tensor-core per D)
+    # entries (FMA per FTile<BQ, BKV, TY, TX, DP, STAGES, PH, MIN_BLOCKS> x
+    # operand type, tensor-core per D)
     summaries = (
         (r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(13__nv_bfloat16|f)"
          r"Lb([01])",
@@ -200,9 +201,15 @@ def phase_build() -> None:
         (r"bitmap_spmm_kernelI(13__nv_bfloat16|f)Lb([01])E",
          lambda t, naive: f"bitmap_spmm {nv(naive)}tiled x {xt(t)}"),
         (r"bitmap_reduce_kernel", lambda: "bitmap_spmm reduce"),
-        (r"flash_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E",
-         lambda t, dj: f"flash_attention fma entry x {xt(t)} D <= "
-                       f"{16 * int(dj)}"),
+        (r"flash_attention_fma_kernelI\w*?FTileILi(\d+)ELi(\d+)ELi(\d+)"
+         r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE"
+         r"(13__nv_bfloat16|f)",
+         lambda bq, bkv, ty, tx, dp, stages, ph, minb, t: (
+             f"flash_attention fma entry FTile<{bq}, {bkv}, {ty}, {tx}, "
+             f"{dp}, {stages}, {ph}, {minb}> x {xt(t)}: D <= {dp}, "
+             f"{int(bq) // int(ty)} x {int(bkv) // int(tx)} scores and "
+             f"{int(bq) // int(ty)} x {int(dp) // int(tx)} outputs a "
+             f"thread, {stages} stage(s), P V in passes of {ph} keys")),
         (r"flash_attention_tc_kernelILi(\d+)E",
          lambda d: f"flash_attention tensor-core entry D={d}"))
     for entry, found in lines.items():
@@ -210,8 +217,8 @@ def phase_build() -> None:
             hit = re.search(pattern, entry)
             if hit:
                 print(f"[build] {label(*hit.groups())}: {'; '.join(found)}")
-        if re.search(r"bitmap|nm_(spmm|reduce|transpose)|flash_attention_tc",
-                     entry) \
+        if re.search(r"bitmap|nm_(spmm|reduce|transpose)|"
+                     r"flash_attention_(tc|fma)", entry) \
                 and re.search(r"[1-9]\d* bytes spill", " ".join(found)):
             _fail(f"{entry} spills: {'; '.join(found)}")
     # ptxas serialises wgmmas it cannot prove safe, at a loss it only notes

@@ -52,21 +52,45 @@
 //
 // FMA entry, flash_attention_f32 / flash_attention_bf16: every other call
 // (fp32 operands, where tensor-core TF32 would break the 1e-4 bound; bf16
-// with another D or unaligned operands).  One thread block of 256 threads
-// per (bh, 64-row query tile).  The query tile stays in shared memory
-// (fp32, rows padded by one word so the column reads of the score product
-// do not conflict); the KV axis streams through one shared tile of 64 keys
-// that holds K for the score product and is then overwritten with V for
-// the PV product, which keeps the footprint at 83 KB for D = 128 so two
-// blocks fit on an SM.  Each thread owns 4 query rows (ty + 16 i) x 4 key
-// columns of the score tile and the same 4 rows x ceil(D/16) columns of
-// the accumulator, so the running (m, l) of its rows live in its
-// registers; row max and row sum reduce over the 16 lanes of a half-warp
-// with shuffles.  With the causal mask the KV loop stops at the tile
-// holding the query tile's last row.  Ragged Sq / Skv edges are masked, so
-// any lengths work; the TPU wrapper's divisibility rule on its own tiles
-// is checked by the Python wrapper only to accept the same calls.
-// D <= 256.  It computes in fp32 FMAs on CUDA cores, 67 TFLOP/s at most.
+// with another D or unaligned operands).  Both products are dense fp32
+// products on the CUDA cores, 67 TFLOP/s at most; a warp's 16-byte shared
+// load costs the SM about 4 cycles (tools/lds_bench.cu), in which it can
+// issue 16 warp-FFMAs, so each loaded value has to feed several FFMAs:
+//   * one block of TY x TX threads per (bh, BQ-row query tile), on the
+//     tensor-core entry's 1-D grid and order: the bh in groups whose K and
+//     V stay in L2, the heaviest (causal: last) query tiles first;
+//   * Q (once per block) and each BKV-key tile of K are staged as fp32
+//     panels of 4 columns (element (r, c) of an R-row tile at
+//     (c / 4) 4R + 4r + c % 4), V row-major: every operand of both products
+//     is read as 16-byte loads of 4 consecutive values, and a 16-byte copy
+//     from a row lands in 16 contiguous bytes, so nothing is transposed and
+//     the copies meet no bank conflict;
+//   * register-blocked outer products: thread (ty, tx) owns query rows
+//     ty + TY i (i < RM) x keys tx + TX j (j < RS) of the score tile (a
+//     4-column panel step: RM + RS loads for 4 RM RS FFMAs) and the same
+//     rows x 4-column chunks tx + TX g (g < RC) of the accumulator (a 4-key
+//     step of P V: RM + 4 RC loads for 16 RM RC FFMAs), so the running
+//     (m, l) of its rows live in its registers; the row max reduces over
+//     the TX lanes of a row by shuffles, the row sum once at the end;
+//   * P (rounded to v's type) goes through shared memory in passes of PH
+//     keys, its rows padded by 4 floats;
+//   * K / V copies overlap the products, fp32 by cp.async (16-byte copies
+//     where D % 4 == 0 and the operands are 16-byte aligned, else 4-byte
+//     ones), bf16 by register loads issued before the products and widened
+//     to fp32 into shared memory after them (no inner loop widens): either
+//     a two-stage ring (tile j + 1 copied while tile j is multiplied) or
+//     one K and one V buffer copied in turn (K of tile j + 1 during tile
+//     j's softmax and P V, V during tile j + 1's score product);
+//   * p = 2^(s * scale * log2 e - m): one FFMA and ex2 against the running
+//     max m in log2 units;
+//   * causal: the tile loop stops at the query tile's last row; only tiles
+//     that cross the diagonal or the end of the keys are masked.  Rows past
+//     Sq / Skv and columns past D are staged as zeros.
+// One tile per class of D (<= 32, 64, 128, 256) and operand type
+// (fma_entry::F32Tile32 ... Bf16Tile256).  fp32 at D <= 128: 128 x 128
+// tiles, 16 x 16 threads (8 x 8 scores and 8 x 8 outputs a thread), one K
+// and one V buffer, P V in two passes of 64 keys, 226 KB of shared memory,
+// one block an SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,18 +99,12 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per thread block
-constexpr int BKV = 64;       // keys per KV tile
-constexpr int THREADS = 256;  // 16 x 16 threads
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -95,183 +113,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ float round_p(float p, float) { return p; }
 __device__ __forceinline__ float round_p(float p, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(p));
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// DJ: accumulator columns per thread; the kernel takes D <= 16 * DJ.
-template <int DJ>
-__host__ __device__ constexpr int row_words() { return 16 * DJ + 1; }
-
-template <int DJ>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)(BQ + BKV) * row_words<DJ>() +
-                          (size_t)BQ * (BKV + 1));
-}
-
-// Stage rows [r0, r0 + nrows) of a (rows, d) matrix into dst (nrows x LD),
-// zero-filling rows past `rows` and columns past d.
-template <typename T, int DJ>
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const T* __restrict__ src, int r0,
-                                      int nrows, int rows, int d) {
-  constexpr int DP = 16 * DJ, LD = row_words<DJ>();
-  for (int e = threadIdx.x; e < nrows * DP; e += THREADS) {
-    const int r = e / DP, c = e % DP;
-    float v = 0.f;
-    if (r0 + r < rows && c < d) v = to_f32(src[(size_t)(r0 + r) * d + c]);
-    dst[r * LD + c] = v;
-  }
-}
-
-template <typename T, int DJ>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int skv, int d, float scale, int causal) {
-  constexpr int LD = row_words<DJ>();
-  extern __shared__ float smem[];
-  float* qs = smem;                        // BQ x LD
-  float* kvs = qs + BQ * LD;               // BKV x LD: K, then V
-  float* ps = kvs + BKV * LD;              // BQ x (BKV + 1)
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const size_t bh = blockIdx.y;
-  const T* qb = q + bh * sq * d;
-  const T* kb = k + bh * skv * d;
-  const T* vb = v + bh * skv * d;
-
-  stage<T, DJ>(qs, qb, q0, BQ, sq, d);
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // causal: keys past the tile's last query row are masked for every row
-  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();                       // previous PV done with kvs / ps
-    stage<T, DJ>(kvs, kb, kv0, BKV, skv, d);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = kvs[(tx + 16 * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = kv0 + tx + 16 * j;
-        float sv = s[i][j] * scale;
-        if (kpos >= skv || (causal && kpos > qpos)) sv = NEG_INF;
-        s[i][j] = sv;
-        mx = fmaxf(mx, sv);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        ps[(ty + 16 * i) * (BKV + 1) + tx + 16 * j] = round_p(p, T());
-      }
-      l[i] = l[i] * corr + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();                       // scores done with K; P written
-    stage<T, DJ>(kvs, vb, kv0, BKV, skv, d);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * (BKV + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = kvs[c * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-  T* ob = o + bh * sq * d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) store(&ob[(size_t)row * d + col], acc[i][j] / den);
-    }
-  }
-}
-
-template <typename T, int DJ>
-int launch_dj(const void* q, const void* k, const void* v, void* o, int bh,
-              int sq, int skv, int d, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DJ>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DJ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = (float)(1.0 / sqrt((double)d));
-  dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_attention_kernel<T, DJ><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, d, scale,
-      causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int skv, int d, int causal, void* stream) {
-  if (bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0 || d <= 0 || d > 256)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 32) return launch_dj<T, 2>(q, k, v, o, bh, sq, skv, d, causal, s);
-  if (d <= 64) return launch_dj<T, 4>(q, k, v, o, bh, sq, skv, d, causal, s);
-  if (d <= 128) return launch_dj<T, 8>(q, k, v, o, bh, sq, skv, d, causal, s);
-  return launch_dj<T, 16>(q, k, v, o, bh, sq, skv, d, causal, s);
 }
 
 }  // namespace
@@ -788,6 +629,459 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// FMA entry: fp32 operands, and bf16 off the tensor-core shapes
+// ---------------------------------------------------------------------------
+
+namespace fma_entry {
+
+constexpr bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// A block's tiles: BQ query rows x BKV keys a KV tile, TY x TX threads, the
+// head dimension padded to DP, STAGES of K and V, P in passes of PH keys,
+// MIN_BLOCKS a SM for the register cap.  A thread owns RM rows x RS keys of
+// the score tile and RM rows x RC 4-column chunks of the accumulator.
+// STAGES = 2: a ring, tile j + 1's K and V copied while tile j is
+// multiplied.  STAGES = 1: one K and one V buffer, each copied while the
+// other is read: K of tile j + 1 during tile j's softmax and P V, V of
+// tile j + 1 during tile j + 1's score product.
+template <int BQ_, int BKV_, int TY_, int TX_, int DP_, int STAGES_, int PH_,
+          int MIN_BLOCKS_>
+struct FTile {
+  static constexpr int BQ = BQ_, BKV = BKV_, TY = TY_, TX = TX_, DP = DP_;
+  static constexpr int STAGES = STAGES_, PH = PH_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int NT = TY * TX, RM = BQ / TY, RS = BKV / TX;
+  static constexpr int RC = DP / (4 * TX);
+  // P rows padded by 4 floats: the rows of a warp's lanes fall in other
+  // banks
+  static constexpr int LDP = PH + 4;
+  // floats: Q, then STAGES K tiles, STAGES V tiles, then P
+  static constexpr int Q_F = BQ * DP, KV_F = BKV * DP;
+  static constexpr int SMEM = 4 * (Q_F + 2 * STAGES * KV_F + BQ * LDP);
+
+  static_assert(pow2(BQ) && pow2(BKV) && pow2(DP) && pow2(TY) && pow2(TX),
+                "tile sizes are powers of two (staging indexes by shifts)");
+  static_assert(TX <= 32 && RM >= 1 && RS >= 1 && RC >= 1,
+                "a row's TX lanes lie in one warp; every thread owns work");
+  static_assert(BKV % PH == 0 && PH % TX == 0 && PH % 4 == 0,
+                "P passes of whole 4-key steps, the same keys each thread");
+  static_assert(KV_F % (8 * NT) == 0 && Q_F % (8 * NT) == 0,
+                "every thread copies whole 16-byte pieces and bf16 pairs");
+  static_assert(STAGES == 1 || STAGES == 2, "one or two stages");
+  static_assert(SMEM <= 232448, "at most 227 KB of shared memory a block");
+};
+
+// The tile of each class of D, per operand type, as tools/flash_sweep.py
+// chose them.  bf16 keeps the next tile in registers, so its larger tiles
+// take the ring: 128 x 128 and 64 x 64 with one stage spill there.
+using F32Tile32 = FTile<128, 64, 16, 8, 32, 2, 64, 2>;
+using F32Tile64 = FTile<128, 64, 16, 16, 64, 2, 64, 1>;
+using F32Tile128 = FTile<128, 128, 16, 16, 128, 1, 64, 1>;
+using F32Tile256 = FTile<64, 64, 16, 16, 256, 1, 64, 1>;
+using Bf16Tile32 = FTile<128, 64, 16, 8, 32, 2, 64, 2>;
+using Bf16Tile64 = FTile<128, 64, 16, 16, 64, 2, 64, 1>;
+using Bf16Tile128 = FTile<128, 64, 16, 16, 128, 2, 64, 1>;
+using Bf16Tile256 = FTile<64, 32, 16, 16, 256, 2, 32, 1>;
+
+// 16 / 4 bytes global -> shared without a register; fewer `bytes` fill
+// zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Row r and column c of float e of a staged R x DP tile: Q and K as DP / 4
+// panels of R rows x 4 columns (PANELS), V row-major.  R and DP are powers
+// of two, so these are shifts and masks.
+template <int R, int DP, bool PANELS>
+__device__ __forceinline__ void coords(unsigned e, int& r, int& c) {
+  if constexpr (PANELS) {
+    r = (int)(e / 4 % R);
+    c = (int)(e / (4 * R) * 4 + e % 4);
+  } else {
+    r = (int)(e / DP);
+    c = (int)(e % DP);
+  }
+}
+
+// fp32: rows [r0, r0 + R) of a (rows, d) matrix into an R x DP tile by
+// cp.async, 16-byte copies if `vec` (d % 4 == 0, 16-byte aligned), else
+// 4-byte ones; rows past `rows` and columns past d are zeros.
+template <int R, int DP, bool PANELS, int NT>
+__device__ __forceinline__ void stage_async(float* dst, const float* src,
+                                            int r0, int rows, int d,
+                                            bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < R * DP / (4 * NT); ++i) {
+      const unsigned e = 4 * (threadIdx.x + NT * i);
+      int r, c;
+      coords<R, DP, PANELS>(e, r, c);
+      const bool in = r0 + r < rows && c < d;
+      cp_async16(dst + e, in ? src + (size_t)(r0 + r) * d + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < R * DP / NT; ++i) {
+      const unsigned e = threadIdx.x + NT * i;
+      int r, c;
+      coords<R, DP, PANELS>(e, r, c);
+      const bool in = r0 + r < rows && c < d;
+      cp_async4(dst + e, in ? src + (size_t)(r0 + r) * d + c : src,
+                in ? 4 : 0);
+    }
+  }
+}
+
+// bf16: the same tile through registers.  load() reads a thread's share
+// 2 bytes at a time (any alignment) into bf16 pairs; store() widens it to
+// fp32 into shared memory.  A tile loaded before the products and stored
+// after them is copied while they run.
+template <int R, int DP, bool PANELS, int NT>
+struct Bf16Stage {
+  static constexpr int N = R * DP / NT;   // values a thread copies
+  uint32_t w[N / 2];
+
+  __device__ __forceinline__ void load(const __nv_bfloat16* src, int r0,
+                                       int rows, int d) {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      int r, c;
+      coords<R, DP, PANELS>(threadIdx.x + NT * i, r, c);
+      const uint32_t h =
+          r0 + r < rows && c < d ? s[(size_t)(r0 + r) * d + c] : 0u;
+      w[i / 2] = i % 2 ? w[i / 2] | h << 16 : h;
+    }
+  }
+  __device__ __forceinline__ void store(float* dst) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      dst[threadIdx.x + NT * i] =
+          __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
+  }
+};
+
+// One block: query tile qt of bh (tc::block_tile's order).  `vec`: fp32
+// operands staged by 16-byte copies.
+template <class C, typename T>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           int sq, int skv, int d, float scale_log2,
+                           int causal, int vec, int n_qtiles, int n_bh,
+                           int group) {
+  constexpr int BQ = C::BQ, BKV = C::BKV, TY = C::TY, TX = C::TX;
+  constexpr int RM = C::RM, RS = C::RS, RC = C::RC, DP = C::DP, NT = C::NT;
+  constexpr int PH = C::PH, LDP = C::LDP, KV_F = C::KV_F;
+  constexpr bool F32 = std::is_same_v<T, float>, RING = C::STAGES == 2;
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const ks = qs + C::Q_F;
+  float* const vs = ks + C::STAGES * KV_F;
+  float* const ps = vs + C::STAGES * KV_F;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  int qt, bh;
+  tc::block_tile(n_qtiles, n_bh, group, qt, bh);
+  const int q0 = qt * BQ;
+  const T* const qb = q + (size_t)bh * sq * d;
+  const T* const kb = k + (size_t)bh * skv * d;
+  const T* const vb = v + (size_t)bh * skv * d;
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
+  const int nc4 = (d + 3) / 4;                 // panels holding columns < d
+
+  // K or V of KV tile `it` into stage `st`: fp32 copies issued (commit
+  // groups are the caller's), bf16 loaded into kpre / vpre, stored by put
+  Bf16Stage<BKV, DP, true, NT> kpre;
+  Bf16Stage<BKV, DP, false, NT> vpre;
+  auto fetch_k = [&](int it, int st) {
+    if constexpr (F32)
+      stage_async<BKV, DP, true, NT>(ks + st * KV_F, kb, it * BKV, skv, d,
+                                     vec);
+    else
+      kpre.load(kb, it * BKV, skv, d);
+  };
+  auto fetch_v = [&](int it, int st) {
+    if constexpr (F32)
+      stage_async<BKV, DP, false, NT>(vs + st * KV_F, vb, it * BKV, skv, d,
+                                      vec);
+    else
+      vpre.load(vb, it * BKV, skv, d);
+  };
+  auto put_k = [&](int st) {
+    if constexpr (!F32) kpre.store(ks + st * KV_F);
+  };
+  auto put_v = [&](int st) {
+    if constexpr (!F32) vpre.store(vs + st * KV_F);
+  };
+  auto commit = [&]() {
+    if constexpr (F32) cp_async_commit();
+  };
+
+  // Q and tile 0: one copy group with the ring, Q + K and V apart without
+  if constexpr (F32) {
+    stage_async<BQ, DP, true, NT>(qs, qb, q0, sq, d, vec);
+  } else {
+    Bf16Stage<BQ, DP, true, NT> qpre;
+    qpre.load(qb, q0, sq, d);
+    qpre.store(qs);
+  }
+  fetch_k(0, 0);
+  if constexpr (!RING) commit();
+  fetch_v(0, 0);
+  commit();
+  put_k(0);
+  put_v(0);
+
+  float m[RM], l[RM], acc[RM][4 * RC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * RC; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = RING ? it & 1 : 0;
+    const bool next = it + 1 < n_tiles;
+    // tile it's K (with the ring: and V) has landed; nothing reads the
+    // other stage or P any more
+    if constexpr (F32) cp_async_wait<RING ? 0 : 1>();
+    __syncthreads();
+    if constexpr (RING) {
+      if (next) {
+        fetch_k(it + 1, st ^ 1);
+        fetch_v(it + 1, st ^ 1);
+        commit();
+      }
+    }
+
+    // S = Q K^T over the panels holding columns < d
+    float s[RM][RS];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RS; ++j) s[i][j] = 0.f;
+    const float4* const qp = reinterpret_cast<const float4*>(qs) + ty;
+    const float4* const kp =
+        reinterpret_cast<const float4*>(ks + st * KV_F) + tx;
+#pragma unroll 2
+    for (int c4 = 0; c4 < nc4; ++c4) {
+      float4 b[RS];
+#pragma unroll
+      for (int j = 0; j < RS; ++j) b[j] = kp[c4 * BKV + TX * j];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float4 a = qp[c4 * BQ + TY * i];
+#pragma unroll
+        for (int j = 0; j < RS; ++j) {
+          s[i][j] = fmaf(a.x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a.y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a.z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a.w, b[j].w, s[i][j]);
+        }
+      }
+    }
+    if constexpr (!RING) {
+      __syncthreads();                         // K read by all
+      if (next) fetch_k(it + 1, 0);
+      commit();
+      if (it > 0) put_v(0);                    // bf16: this tile's V
+    }
+
+    // mask the keys past skv and, causal, past each row (only in tiles
+    // that cross the diagonal or the end of the keys); then the online
+    // softmax on the rows this thread owns: s becomes the unrounded p
+    const int kv0 = it * BKV;
+    if (kv0 + BKV > skv || (causal && kv0 + BKV - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RS; ++j) {
+          const int kpos = kv0 + tx + TX * j;
+          if (kpos >= skv || (causal && kpos > q0 + ty + TY * i))
+            s[i][j] = NEG_INF;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < RS; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = TX / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx * scale_log2);
+      const float corr = tc::ex2(m[i] - m_new);
+      m[i] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        s[i][j] = tc::ex2(fmaf(s[i][j], scale_log2, -m_new));
+        rs += s[i][j];
+      }
+      l[i] = l[i] * corr + rs;                 // this thread's keys only
+#pragma unroll
+      for (int j = 0; j < 4 * RC; ++j) acc[i][j] *= corr;
+    }
+
+    // acc += P V in passes of PH keys through P, four keys a step
+    float* const pr = ps + ty * LDP + tx;      // P[ty + TY i][tx + TX j]
+    const float4* const pp = reinterpret_cast<const float4*>(ps) +
+                             ty * (LDP / 4);
+    const float4* const vp =
+        reinterpret_cast<const float4*>(vs + st * KV_F) + tx;
+#pragma unroll
+    for (int h = 0; h < BKV / PH; ++h) {
+      if (h > 0) __syncthreads();              // the last pass read P
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < PH / TX; ++j)
+          pr[TY * i * LDP + TX * j] = round_p(s[i][h * (PH / TX) + j], T());
+      if constexpr (F32 && !RING)
+        if (h == 0) cp_async_wait<1>();        // this tile's V
+      __syncthreads();                         // P (and V) written
+#pragma unroll 2
+      for (int k4 = 0; k4 < PH / 4; ++k4) {
+        float4 p[RM];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) p[i] = pp[TY * i * (LDP / 4) + k4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float4 w[RC];
+#pragma unroll
+          for (int g = 0; g < RC; ++g)
+            w[g] = vp[(h * PH + 4 * k4 + kk) * (DP / 4) + TX * g];
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            const float pv = kk == 0 ? p[i].x : kk == 1 ? p[i].y
+                           : kk == 2 ? p[i].z : p[i].w;
+#pragma unroll
+            for (int g = 0; g < RC; ++g) {
+              acc[i][4 * g] = fmaf(pv, w[g].x, acc[i][4 * g]);
+              acc[i][4 * g + 1] = fmaf(pv, w[g].y, acc[i][4 * g + 1]);
+              acc[i][4 * g + 2] = fmaf(pv, w[g].z, acc[i][4 * g + 2]);
+              acc[i][4 * g + 3] = fmaf(pv, w[g].w, acc[i][4 * g + 3]);
+            }
+          }
+        }
+      }
+    }
+    if constexpr (RING) {
+      if (next) {                              // bf16: the next tile
+        put_k(st ^ 1);
+        put_v(st ^ 1);
+      }
+    } else {
+      if (next) put_k(0);                      // bf16: the next tile's K
+      __syncthreads();                         // V and P read by all
+      if (next) fetch_v(it + 1, 0);
+      commit();
+    }
+  }
+
+  // the row sums over the TX lanes (every lane shuffles before any stores)
+  float den[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int off = TX / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    den[i] = fmaxf(sum, 1e-30f);
+  }
+  T* const ob = o + (size_t)bh * sq * d;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int g = 0; g < RC; ++g) {
+      const int col = 4 * (tx + TX * g);
+      T* const out = ob + (size_t)row * d + col;
+      if (F32 && vec) {
+        if (col < d)
+          *reinterpret_cast<float4*>(out) = make_float4(
+              acc[i][4 * g] / den[i], acc[i][4 * g + 1] / den[i],
+              acc[i][4 * g + 2] / den[i], acc[i][4 * g + 3] / den[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) store(out + e, acc[i][4 * g + e] / den[i]);
+      }
+    }
+  }
+}
+
+template <class C, typename T>
+int launch_tile(const void* q, const void* k, const void* v, void* o, int bh,
+                int sq, int skv, int d, int causal, cudaStream_t stream) {
+  const int n_qtiles = (sq + C::BQ - 1) / C::BQ;
+  if ((long long)n_qtiles * bh > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_fma_kernel<C, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = std::is_same_v<T, float> && d % 4 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  // bh a group: as many as keep their K and V within 24 MB of the 50 MB L2
+  const long long kv = 2ll * skv * d * (long long)sizeof(T);
+  const int group =
+      (int)std::max(1ll, std::min<long long>(bh, (24ll << 20) / kv));
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  flash_attention_fma_kernel<C, T><<<n_qtiles * bh, C::NT, C::SMEM,
+                                     stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, d, scale_log2,
+      causal, vec, n_qtiles, bh, group);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int sq, int skv, int d, int causal, void* stream) {
+  if (bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0 || d <= 0 || d > 256)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  constexpr bool F32 = std::is_same_v<T, float>;
+  using T32 = std::conditional_t<F32, F32Tile32, Bf16Tile32>;
+  using T64 = std::conditional_t<F32, F32Tile64, Bf16Tile64>;
+  using T128 = std::conditional_t<F32, F32Tile128, Bf16Tile128>;
+  using T256 = std::conditional_t<F32, F32Tile256, Bf16Tile256>;
+  if (d <= 32)
+    return launch_tile<T32, T>(q, k, v, o, bh, sq, skv, d, causal, s);
+  if (d <= 64)
+    return launch_tile<T64, T>(q, k, v, o, bh, sq, skv, d, causal, s);
+  if (d <= 128)
+    return launch_tile<T128, T>(q, k, v, o, bh, sq, skv, d, causal, s);
+  return launch_tile<T256, T>(q, k, v, o, bh, sq, skv, d, causal, s);
+}
+
+}  // namespace fma_entry
+
 extern "C" int flash_attention_bf16_tc(const void* q, const void* k,
                                        const void* v, void* o, int bh, int sq,
                                        int skv, int d, int causal,
@@ -802,12 +1096,14 @@ extern "C" int flash_attention_bf16_tc(const void* q, const void* k,
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int bh, int sq,
                                    int skv, int d, int causal, void* stream) {
-  return launch<float>(q, k, v, o, bh, sq, skv, d, causal, stream);
+  return fma_entry::launch<float>(q, k, v, o, bh, sq, skv, d, causal,
+                                  stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int bh, int sq,
                                     int skv, int d, int causal,
                                     void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, bh, sq, skv, d, causal, stream);
+  return fma_entry::launch<__nv_bfloat16>(q, k, v, o, bh, sq, skv, d,
+                                          causal, stream);
 }

@@ -417,18 +417,23 @@ def test_nm_naive_prefill_takes_misaligned_operands(card, v_off, i_off, m,
     assert ops.launch_counts()["nm_spmm"] == 1
 
 
-# bh, sq, skv, d: the reference's test shapes, Sq != Skv, ragged tiles
-# (the FMA entry's tiles are 64), D up to 256.  At bf16, D 64 and 128 take
-# the tensor-core entry: the second row's cases are ragged against its
-# 128-row query and 128-key tiles, Sq != Skv both ways under the top-left
-# causal mask, Skv >= 1024 (the two-stage K / V ring wraps four times or
-# more), and BH > 1 with several query tiles (heaviest first)
+# bh, sq, skv, d: the reference's test shapes, Sq != Skv, ragged tiles,
+# D up to 256.  At bf16, D 64 and 128 take the tensor-core entry: the
+# second row's cases are ragged against its 128-row query and 128-key
+# tiles, Sq != Skv both ways under the top-left causal mask, Skv >= 1024
+# (the two-stage K / V ring wraps four times or more), and BH > 1 with
+# several query tiles (heaviest first).  The last rows are ragged against
+# the FMA entry's tiles, Sq and Skv one past a multiple of BQ and BKV (128
+# and 128 (fp32) or 64 (bf16) at D <= 128, 128 and 64 at D <= 64 and
+# D <= 32, 64 and 64 (fp32) or 32 (bf16) at D <= 256), with D = 256, 1
 @pytest.mark.parametrize("bh,sq,skv,d", [
     (2, 64, 64, 32), (4, 128, 128, 64), (1, 32, 32, 128), (3, 96, 96, 16),
     (2, 32, 64, 32), (3, 100, 70, 48), (1, 130, 130, 200),
     (2, 100, 70, 128), (3, 70, 200, 64), (2, 200, 130, 128),
     (1, 1100, 1100, 128), (2, 33, 1030, 64), (6, 300, 300, 128),
-    (5, 257, 1024, 128)])
+    (5, 257, 1024, 128),
+    (2, 129, 65, 128), (1, 257, 129, 128), (1, 257, 129, 64),
+    (2, 65, 33, 256), (1, 129, 321, 256), (2, 129, 65, 1), (3, 65, 193, 1)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(card, bh, sq, skv, d, causal, dtype):
