@@ -44,14 +44,26 @@ non-zero exit code when it fails:
 5. serving: full-width chatglm3-6b (all 28 layers), random weights from a
    seeded generator, through ``repro_torch.launch.serve.generate`` on the
    shipped bitmap plan and on the shipped N:M plan (batch 4, prompt 128,
-   16 generated tokens), with the kernels' launch counts read around each
-   run; the same model served again with the naive kernels
-   (``ops.pipeline_default(False)``) must give the same tokens and the
-   same bf16 prefill logits; compressed prefill logits are held against
-   the dense model on the same pruned weights at fp32.  A CUDA-only
-   ``torch.profiler`` trace of 4 decode steps per plan gives the device's
-   busy time, its idle share of the untraced decode step and the kernels
-   that take the most time.
+   16 generated tokens), with the pipelined and the naive kernels
+   (``ops.pipeline_default(False)``), which must give the same tokens and
+   the same bf16 prefill logits.  Decode replays a CUDA graph of the step
+   (``repro_torch.launch.compiled``): the first run captures it (the
+   capture's time printed on its own line), then 5 runs with the graph
+   and 5 eager (``compiled.disable()``), in turns, give the median and
+   min-max of prefill ms and decode ms/token; every run's kernel launch
+   counts must be 7 x layers x (1 + 16) of the served kernel and none of
+   any other, and its tokens those of the first run.  Graph and eager
+   must give ``torch.equal`` tokens and logits at every decode step, for
+   both variants in bf16 and fp32 and for the dense model.  Compressed
+   prefill logits are held against the dense model on the same pruned
+   weights at fp32.  CUDA-only ``torch.profiler`` traces of 4 decode
+   steps, graphed and eager for every variant, give the device's busy
+   time, its idle share of the untraced median decode step, the device
+   ops a step and the kernels that take the most time; the graphed trace
+   must run the served kernel 7 x layers times a step, as the count a
+   replay adds says, and every sparse kernel as often as the eager trace.
+   Device memory is printed before each plan and after its model is
+   deleted, graphs included.
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -60,6 +72,7 @@ port's sources beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -80,6 +93,7 @@ BF16_FLOP_S = 989e12
 TOL_REL, TOL_ABS = 1e-4, 1e-5
 BATCH, PROMPT, GEN = 4, 128, 16
 TRACE_STEPS = 4              # decode steps in the serving trace
+RUNS = 5                     # serving runs per variant and mode
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
@@ -261,27 +275,26 @@ def _check(name, y, y_plain) -> float:
     return err
 
 
-def _launched(fn) -> list[tuple[str, tuple | None]]:
-    """``(kernel name, grid)`` of every kernel ``fn()`` launches, from a
-    CUDA-only ``torch.profiler`` trace (its Chrome export names each
-    kernel's grid); the trace is written into ``build/`` and removed."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import build
-    path = build.BUILD_DIR / f"launched-{os.getpid()}.json"
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(path))
+def _trace(fn, label: str, prelude=None):
+    """The device events of ``fn()`` from a CUDA-only ``torch.profiler``
+    trace between marker kernels, after ``prelude()``
+    (``repro_torch.kernels.trace``; the trace is written into ``build/``
+    and removed).  The profiler loses whole traces or their first events
+    (about 1 in 100, now and then many in a row; ``tools/trace_loss.py``):
+    a trace that lost a marker is taken again after a pause, ten times at
+    most."""
+    from repro_torch.kernels import build, trace
+
+    def lost(attempt, evs):
+        print(f"[trace] {label}: trace {attempt + 1} lost an event, taken "
+              f"again; it holds {len(evs)} events, first and last "
+              f"{[e.name[:40] for e in evs[:2] + evs[-2:]]}")
     try:
-        events = json.loads(path.read_text())["traceEvents"]
-    finally:
-        path.unlink()
-    return [(e["name"], tuple(e["args"]["grid"])
-             if "grid" in e.get("args", {}) else None)
-            for e in sorted(events, key=lambda e: e.get("ts", 0))
-            if e.get("cat") == "kernel"]
+        return trace.traced(
+            fn, build.BUILD_DIR / f"trace-{os.getpid()}.json", on_loss=lost,
+            prelude=prelude)
+    except RuntimeError as e:
+        _fail(f"{label}: {e}")
 
 
 def _short(kernel: str) -> str:
@@ -292,27 +305,18 @@ def _short(kernel: str) -> str:
 
 def _held_to(label: str, want, fn, naive_switch: tuple[str, ...] = ()
              ) -> str:
-    """Fail unless the kernels ``fn()`` launches (``_launched``) are
-    ``want`` (a wrapper's ``naive_kernel``: names and grids, in order; a
-    grid is padded with 1s to the trace's three), those named in
-    ``naive_switch`` as their ``NAIVE = true`` instances; return them as
-    one printable line.  The profiler has dropped a kernel's event from a
-    trace (the first of a window, once in about 150 traces on an H100), so
-    a trace that differs is taken again, three times at most: a wrong
-    kernel or grid fails every one."""
+    """Fail unless the kernels ``fn()`` launches (the first complete
+    ``_trace``) are exactly ``want`` (a wrapper's ``naive_kernel``: names
+    and grids, in order; a grid is padded with 1s to the trace's three),
+    those named in ``naive_switch`` as their ``NAIVE = true`` instances;
+    return them as one printable line."""
     def same(name, grid, r, g):
-        return name in r and (g is None or tuple(g) == tuple(grid) + (1,) * (
+        return name in r and (not g or tuple(g) == tuple(grid) + (1,) * (
             len(g) - len(grid))) and (name not in naive_switch
                                       or re.search(r"\btrue>", r))
-    for attempt in range(3):
-        ran = _launched(fn)
-        if len(ran) == len(want) and all(
-                same(name, grid, r, g)
-                for (name, grid), (r, g) in zip(want, ran)):
-            break
-        print(f"[kernels] {label}: trace {attempt + 1} shows {ran}, "
-              f"expected {want}")
-    else:
+    ran = [(e.name, e.grid) for e in _trace(fn, label) if e.cat == "kernel"]
+    if len(ran) != len(want) or not all(
+            same(name, grid, r, g) for (name, grid), (r, g) in zip(want, ran)):
         _fail(f"{label}: launched {ran}, expected {want}")
     return ", then ".join(
         f"{_short(r)} on grid {' x '.join(map(str, grid))}"
@@ -611,47 +615,122 @@ def phase_flash(cfg, card: str, dev) -> dict:
             "launches": launches}
 
 
-def _trace_decode(cm, pruned, prompts, label: str, step_ms: float) -> None:
-    """Device time of ``TRACE_STEPS`` decode steps from a CUDA-only
-    ``torch.profiler`` trace, and the kernels that take the most of it.
-    The idle share is taken against ``step_ms``, the untraced decode
-    ms/token of the same run: the profiler slows the host, so the traced
-    step's host time is printed only beside it."""
+def _trace_decode(cm, pruned, prompts, label: str, step_ms: float
+                  ) -> dict[str, float]:
+    """Device time of ``TRACE_STEPS`` decode steps, taken as ``generate``
+    takes them (a graph's replays, or eagerly inside
+    ``compiled.disable()``), from a CUDA-only ``torch.profiler`` trace
+    between markers (``_trace``), and the kernels that take the most of
+    it.  The idle share is taken against ``step_ms``, the untraced decode
+    median ms/token of the same mode: the profiler slows the host, so the
+    traced step's host time is printed only beside it.  Returns the
+    sparse kernels' events a step, by kernel (``_short``)."""
+    import collections
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    logits, cache = cm.prefill(pruned, prompts, PROMPT + TRACE_STEPS)
-    tok = logits[:, -1].argmax(dim=-1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from repro_torch.launch import compiled
+    logits, cache = cm.prefill(pruned, prompts, PROMPT + GEN)
+    state = {"tok": logits[:, -1].argmax(dim=-1), "cache": cache}
+    step = compiled.CompiledStep(cm)
+    pos = torch.empty((), dtype=torch.long, device=prompts.device)
+    walls = []
+
+    def decode(first: int, n: int):
+        for t in range(first, first + n):
+            pos.fill_(t)
+            logits, state["cache"] = step(pruned, state["cache"],
+                                          state["tok"], pos)
+            state["tok"] = logits.argmax(dim=-1)
+
+    def timed():
         t0 = time.perf_counter()
-        for t in range(PROMPT, PROMPT + TRACE_STEPS):
-            logits, cache = cm.decode_step(pruned, cache, tok, t)
-            tok = logits.argmax(dim=-1)
+        decode(PROMPT + 1, TRACE_STEPS)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / TRACE_STEPS
-    kernels = sorted(((e.self_device_time_total, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.self_device_time_total > 0), reverse=True)
-    if not kernels:
-        print(f"[serve {label}] trace: the profiler saw no device time; "
-              f"idle share not measured")
-        return
-    busy = sum(us for us, _, _ in kernels) / 1e3 / TRACE_STEPS
+        walls.append((time.perf_counter() - t0) / TRACE_STEPS)
+
+    # one step before the markers: the profiler has lost the first events
+    # of every such trace late in this process
+    evs = _trace(timed, f"{label} decode",
+                 prelude=lambda: decode(PROMPT, 1))
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in evs:
+        by_name[e.name][0] += e.us
+        by_name[e.name][1] += 1
+    kernels = sorted(((us, n, name) for name, (us, n) in by_name.items()),
+                     reverse=True)
+    busy = sum(e.us for e in evs) / 1e3 / TRACE_STEPS
     print(f"[serve {label}] trace of {TRACE_STEPS} decode steps: device "
           f"busy {busy:.3f} ms/step, idle share {1 - busy / step_ms:.4f} "
-          f"of the untraced {step_ms:.3f} ms/token; "
-          f"{sum(c for _, c, _ in kernels) / TRACE_STEPS:.0f} device ops "
-          f"a step; host clock under the profiler {1e3 * wall:.3f} ms/step")
+          f"of the untraced median {step_ms:.3f} ms/token; "
+          f"{len(evs) / TRACE_STEPS:.0f} device ops a step; host clock "
+          f"under the profiler {1e3 * walls[-1]:.3f} ms/step")
     for us, count, name in kernels[:6]:
         print(f"[serve {label}]   {us / 1e3 / TRACE_STEPS:.4f} ms/step "
               f"{count // TRACE_STEPS} calls/step  {name[:90]}")
+    sparse = collections.Counter(
+        _short(e.name) for e in evs if e.cat == "kernel"
+        and re.match(r"(void )?\(anonymous namespace\)::(nm|bitmap)_", e.name))
+    return {name: n / TRACE_STEPS for name, n in sorted(sparse.items())}
+
+
+def _check_traced_launches(label: str, served: str, per_step: dict,
+                           per_replay: int, want: int) -> None:
+    """Fail unless the graph's trace ran the served kernel ``want`` (7 x
+    layers) times a step, as the count a replay adds (``per_replay``)
+    says, with no other variant's or plan's kernel, and every sparse
+    kernel (the reduces among them) as many times a step as the eager
+    step's trace."""
+    family, naive = served.split("_")[0], served.endswith("_naive")
+
+    def variant(short):
+        if not short.startswith(family + "_"):
+            return False
+        if "reduce" in short:
+            return True
+        return bool(re.search(r"\btrue>", short) if family == "bitmap"
+                    else "naive" in short) == naive
+    graph, eager = per_step["graph"], per_step["eager"]
+    main = sum(n for k, n in graph.items() if "reduce" not in k)
+    if main != want or per_replay != want or not all(map(variant, graph)):
+        _fail(f"{label}: the graph's trace runs {graph} a step; expected "
+              f"{want} launches of {served} (the replay counts "
+              f"{per_replay})")
+    if graph != eager:
+        _fail(f"{label}: the graph's trace runs {graph} a step, the eager "
+              f"step's {eager}")
+    print(f"[serve {label}] traced sparse kernels a step, graph == eager: "
+          f"{graph} ({want} launches of {served}, as a replay counts)")
+
+
+def _graph_equals_eager(model, params, prompts, label: str) -> None:
+    """Fail unless the graph's greedy tokens and each decode step's logits
+    are ``torch.equal`` to the eager step's (``model.decode_step``)."""
+    import torch
+    from repro_torch.launch import compiled
+    toks, steps = compiled.greedy(compiled.CompiledStep(model), model,
+                                  params, prompts, GEN)
+    toks_e, steps_e = compiled.greedy(model.decode_step, model, params,
+                                      prompts, GEN)
+    if not torch.equal(toks, toks_e):
+        _fail(f"{label}: graph tokens {toks.tolist()} differ from the eager "
+              f"step's {toks_e.tolist()}")
+    for i, (lg, lg_e) in enumerate(zip(steps, steps_e)):
+        if not torch.equal(lg, lg_e):
+            _fail(f"{label}: decode step {i}'s logits differ between graph "
+                  f"and eager by {(lg - lg_e).abs().max().item()}")
+    print(f"[serve {label}] graph == eager: tokens and the logits of all "
+          f"{len(steps)} decode steps torch.equal")
+
+
+def _spread(xs: list[float]) -> str:
+    s = sorted(xs)
+    return f"median {s[len(s) // 2]:.3f} (min {s[0]:.3f}, max {s[-1]:.3f})"
 
 
 def phase_serving(cfg, card: str, dev) -> dict[str, int]:
     import torch
     from repro_torch.exec.plans import shipped_plan
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve
+    from repro_torch.launch import compiled, serve
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import Model
 
@@ -659,7 +738,9 @@ def phase_serving(cfg, card: str, dev) -> dict[str, int]:
     launches: dict[str, int] = {}
     print(f"[serve] chatglm3-6b d_model={cfg.d_model} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab} n_layers={cfg.n_layers} batch={BATCH} "
-          f"prompt={PROMPT} gen={GEN}")
+          f"prompt={PROMPT} gen={GEN}; {RUNS} runs per variant and mode "
+          f"(graph: CUDA graph replays; eager: compiled.disable()), in "
+          f"turns; host clock, synchronised, on {card}")
     for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
         full_plan = shipped_plan(cfg, kind)
         t0 = time.perf_counter()
@@ -676,74 +757,109 @@ def phase_serving(cfg, card: str, dev) -> dict[str, int]:
         prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
                                 device=dev)
 
-        # warm-up (cuBLAS handles, allocator), then the counted run
-        cm.generate(pruned, prompts[:, :8], 2, device=dev)
-        ops.reset_launch_counts()
-        toks, t_prefill, t_gen = cm.generate(pruned, prompts, GEN,
-                                             device=dev)
-        counts = ops.launch_counts()
-        launches[kname] = counts[kname]
-        print(f"[serve {kind}] launch counts {counts} (expected {kname} = "
-              f"7 * {cfg.n_layers} * (1 + {GEN}) = {expected})")
-        if counts[kname] != expected or sum(counts.values()) != expected:
-            _fail(f"{kind}: launch counts {counts}, expected {expected} "
-                  f"launches of {kname} only")
-        if toks.shape != (BATCH, GEN) or not bool(
-                ((toks >= 0) & (toks < cfg.vocab)).all()):
-            _fail(f"{kind}: tokens out of range: {toks.tolist()}")
-        logits, _ = cm.prefill(pruned, prompts, PROMPT)
-        if not bool(torch.isfinite(logits).all()):
-            _fail(f"{kind}: non-finite bf16 prefill logits")
-        print(f"[serve {kind}] prefill {1e3 * t_prefill:.2f} ms "
-              f"({serve._rate(BATCH * PROMPT, t_prefill):.1f} tok/s); "
-              f"decode {1e3 * t_gen / GEN:.3f} ms/token "
-              f"({serve._rate(BATCH * GEN, t_gen):.1f} tok/s) — bf16 "
-              f"compute, on {card}")
-        print(f"[serve {kind}] sample tokens {toks[0].tolist()}")
-        _trace_decode(cm, pruned, prompts, kind, 1e3 * t_gen / GEN)
-
-        # the same model on the naive kernels: same tokens, same logits
-        naive = f"{kname}_naive"
-        with ops.pipeline_default(False):
-            cm.generate(pruned, prompts[:, :8], 2, device=dev)
+        def run(name):
+            """One counted ``generate``: its tokens, prefill ms and decode
+            ms/token; the launches must be the served kernel's only."""
             ops.reset_launch_counts()
-            toks_n, t_prefill_n, t_gen_n = cm.generate(pruned, prompts, GEN,
-                                                       device=dev)
+            toks, t_prefill, t_gen = cm.generate(pruned, prompts, GEN,
+                                                 device=dev)
             counts = ops.launch_counts()
-            logits_n, _ = cm.prefill(pruned, prompts, PROMPT)
-        launches[naive] = counts[naive]
-        print(f"[serve {kind} naive] launch counts {counts} (expected "
-              f"{naive} = {expected})")
-        if counts[naive] != expected or sum(counts.values()) != expected:
-            _fail(f"{kind} naive: launch counts {counts}, expected "
-                  f"{expected} launches of {naive} only")
-        if not torch.equal(toks_n, toks):
-            _fail(f"{kind} naive: tokens {toks_n.tolist()} differ from the "
-                  f"pipelined run's {toks.tolist()}")
-        if not torch.equal(logits_n, logits):
-            _fail(f"{kind} naive: bf16 prefill logits differ from the "
-                  f"pipelined run's by "
-                  f"{(logits_n - logits).abs().max().item()}")
-        print(f"[serve {kind} naive] prefill {1e3 * t_prefill_n:.2f} ms "
-              f"({serve._rate(BATCH * PROMPT, t_prefill_n):.1f} tok/s); "
-              f"decode {1e3 * t_gen_n / GEN:.3f} ms/token "
-              f"({serve._rate(BATCH * GEN, t_gen_n):.1f} tok/s); tokens "
-              f"and bf16 prefill logits equal to the pipelined run's")
-        del logits, logits_n
+            if counts[name] != expected or sum(counts.values()) != expected:
+                _fail(f"{name}: launch counts {counts}, expected {expected} "
+                      f"launches of {name} only")
+            return toks, 1e3 * t_prefill, 1e3 * t_gen / GEN, counts
 
-        # fp32: compressed vs the dense model on the same pruned weights
+        for pipeline in (True, False):
+            name = kname if pipeline else f"{kname}_naive"
+            label = kind if pipeline else f"{kind} naive"
+            with ops.pipeline_default(pipeline):
+                # the first run captures: prefill, the first decode step
+                # eagerly, the capture, then replays
+                toks, t_prefill, step_ms, counts = run(name)
+                launches[name] = counts[name]
+                (capture_ms, per_replay), = [
+                    (g.capture_ms, sum(g.launches.values()))
+                    for k, g in compiled.graphs(cm).items()
+                    if k[4] == pipeline]
+                print(f"[serve {label}] capture {capture_ms:.3f} ms (once "
+                      f"per key; this run's decode, capture included, "
+                      f"{step_ms:.3f} ms/token); {per_replay} kernel "
+                      f"launches counted per replay")
+                print(f"[serve {label}] launch counts of every run: "
+                      f"{name} = 7 * {cfg.n_layers} * (1 + {GEN}) = "
+                      f"{expected}, none of any other kernel")
+                logits, _ = cm.prefill(pruned, prompts, PROMPT)
+                if pipeline:
+                    if toks.shape != (BATCH, GEN) or not bool(
+                            ((toks >= 0) & (toks < cfg.vocab)).all()):
+                        _fail(f"{kind}: tokens out of range: "
+                              f"{toks.tolist()}")
+                    if not bool(torch.isfinite(logits).all()):
+                        _fail(f"{kind}: non-finite bf16 prefill logits")
+                    toks_p, logits_p = toks, logits
+                    print(f"[serve {kind}] sample tokens {toks[0].tolist()}")
+                else:
+                    # the naive kernels: same tokens, same logits
+                    if not torch.equal(toks, toks_p):
+                        _fail(f"{label}: tokens {toks.tolist()} differ from "
+                              f"the pipelined run's {toks_p.tolist()}")
+                    if not torch.equal(logits, logits_p):
+                        _fail(f"{label}: bf16 prefill logits differ from the "
+                              f"pipelined run's by "
+                              f"{(logits - logits_p).abs().max().item()}")
+                    print(f"[serve {label}] tokens and bf16 prefill logits "
+                          f"equal to the pipelined run's")
+                del logits
+                times = {"graph": ([], []), "eager": ([], [])}
+                for _ in range(RUNS):
+                    for mode in ("graph", "eager"):
+                        if mode == "eager":
+                            with compiled.disable():
+                                out = run(name)
+                        else:
+                            out = run(name)
+                        if not torch.equal(out[0], toks):
+                            _fail(f"{label} {mode}: tokens {out[0].tolist()} "
+                                  f"differ from {toks.tolist()}")
+                        times[mode][0].append(out[1])
+                        times[mode][1].append(out[2])
+                for mode, (pre, dec) in times.items():
+                    print(f"[serve {label} {mode}] over {RUNS} runs: prefill "
+                          f"ms {_spread(pre)}; decode ms/token "
+                          f"{_spread(dec)} — bf16 compute, on {card}")
+                _graph_equals_eager(cm, pruned, prompts, f"{label} bf16")
+                per_step = {}
+                for mode in ("graph", "eager"):
+                    dec = sorted(times[mode][1])[RUNS // 2]
+                    with compiled.disable() if mode == "eager" \
+                            else contextlib.nullcontext():
+                        per_step[mode] = _trace_decode(
+                            cm, pruned, prompts, f"{label} {mode}", dec)
+                _check_traced_launches(label, name, per_step, per_replay,
+                                       7 * cfg.n_layers)
+        del logits_p
+
+        # fp32: compressed vs the dense model on the same pruned weights,
+        # and graph vs eager on both
         L.COMPUTE_DTYPE = torch.float32
         try:
+            dense = Model(cfg)
             lc, _ = cm.prefill(pruned, prompts, PROMPT)
-            ld, _ = Model(cfg).prefill(pruned, prompts, PROMPT)
+            ld, _ = dense.prefill(pruned, prompts, PROMPT)
             err = (lc - ld).abs().max().item()
             scale = ld.abs().max().item()
             agree = (lc.argmax(-1) == ld.argmax(-1)).float().mean().item()
             del lc, ld
             tc, _, _ = cm.generate(pruned, prompts, GEN, device=dev)
-            td, _, _ = serve.generate(Model(cfg), pruned, prompts, GEN,
+            td, _, _ = serve.generate(dense, pruned, prompts, GEN,
                                       PROMPT + GEN, device=dev)
             tok_agree = (tc == td).float().mean().item()
+            for pipeline in (True, False):
+                with ops.pipeline_default(pipeline):
+                    _graph_equals_eager(
+                        cm, pruned, prompts,
+                        f"{kind}{'' if pipeline else ' naive'} fp32")
+            _graph_equals_eager(dense, pruned, prompts, f"{kind} dense fp32")
         finally:
             L.COMPUTE_DTYPE = torch.bfloat16
         print(f"[serve {kind}] fp32 compressed vs dense prefill logits: "
@@ -753,8 +869,15 @@ def phase_serving(cfg, card: str, dev) -> dict[str, int]:
         if not err <= 1e-3 * scale:
             _fail(f"{kind}: fp32 compressed logits differ from dense by "
                   f"{err} > 1e-3 * {scale}")
-        del cm, pruned
+        _graph_equals_eager(dense, pruned, prompts, f"{kind} dense bf16")
+        print(f"[serve {kind}] graphs held: "
+              f"{len(compiled.graphs(cm))} (compressed), "
+              f"{len(compiled.graphs(dense))} (dense); "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        del cm, pruned, dense
         torch.cuda.empty_cache()
+        print(f"[serve {kind}] after the model is deleted: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     return launches
 
 

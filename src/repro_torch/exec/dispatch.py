@@ -94,8 +94,9 @@ def kernel_guard(sink) -> Iterator[None]:
     compressed kernel call inside the dispatcher is reported to
     ``sink(role, exc)`` and that projection falls through to the dense
     matmul over the (pruned) weight, instead of failing the forward.  The
-    port dispatches eagerly, so the sink hears of every failing call (per
-    layer and step; the reference's hears once per trace).  Any other
+    port dispatches eagerly while the guard is active (a compiled decode
+    step too: :func:`serves_eagerly`), so the sink hears of every failing
+    call (per layer and step; the reference's hears once per trace).  Any other
     exception, a kernel that fails to build or launch among them, always
     propagates: the card never serves a projection through the plain
     matmul in its kernel's place."""
@@ -117,6 +118,15 @@ def _guarded_kernel(role: str, fn) -> Optional[torch.Tensor]:
     except kops.KernelFault as e:
         _KERNEL_GUARD(role, e)
         return None
+
+
+def serves_eagerly() -> bool:
+    """Whether a compiled decode step must run eagerly: ``instrument()``,
+    :func:`kernel_guard` or a kernel fault / dispatch hook is active.  Each
+    acts in Python at every dispatch, which a CUDA graph's replay does not
+    run (:mod:`repro_torch.launch.compiled`)."""
+    return _ACTIVE_COUNTERS is not None or _KERNEL_GUARD is not None \
+        or kops.hooks_installed()
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ launch the hand-written CUDA kernel when their input lies on a CUDA device
 :mod:`repro_torch.kernels.ref` when it lies on the CPU.  Each wrapper adds
 one to its kernel's launch count where it launches the kernel, and nowhere
 else (:func:`launch_counts`), so a run can show that its main path went
-through the kernels.
+through the kernels.  A CUDA graph's capture runs the wrappers without
+launching: its counts are taken back out and added once per replay
+(:func:`captured_launches`, :func:`add_launches`).
 
 The knobs and hooks are those of ``repro.kernels.ops``:
 
@@ -51,6 +53,29 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Take the launches counted inside the context back out of the
+    counts and into the dict it yields (filled on exit).  A CUDA graph's
+    capture runs the wrappers, which count, but launches nothing: each
+    replay of the graph then adds the dict with :func:`add_launches`."""
+    before = dict(_LAUNCHES)
+    captured: dict[str, int] = {}
+    try:
+        yield captured
+    finally:
+        for name in _LAUNCHES:
+            captured[name] = _LAUNCHES[name] - before[name]
+            _LAUNCHES[name] = before[name]
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count ``counts`` launches per kernel: one replay of a graph whose
+    capture :func:`captured_launches` recorded."""
+    for name, n in counts.items():
+        _LAUNCHES[name] += n
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +158,12 @@ def kernel_dispatch_hook(fn):
         yield
     finally:
         _DISPATCH_HOOK = prev
+
+
+def hooks_installed() -> bool:
+    """Whether a fault or dispatch hook is installed: both act in Python
+    at every dispatch."""
+    return _FAULT_HOOK is not None or _DISPATCH_HOOK is not None
 
 
 def _dispatch(kind: str, fn, *args):

@@ -1,7 +1,10 @@
 """Batched serving loop: one-pass prefill + KV-cache greedy decode, for
 the dense :class:`~repro_torch.models.transformer.Model` and the
 execution plane's :class:`~repro_torch.exec.dispatch.CompressedModel`
-(same surface), with per-phase tokens/s reporting.
+(same surface), with per-phase tokens/s reporting.  On the card each
+decode step after a key's first replays a CUDA graph
+(:mod:`repro_torch.launch.compiled`, the counterpart of the reference's
+``jax.jit`` of the step); ``compiled.disable()`` serves it eagerly.
 
 Equal-length prompts only: left-padded ragged prompts need the
 continuous-batching mixer's slot writes, which are not ported yet.
@@ -27,6 +30,7 @@ from repro_torch.device import resolve
 from repro_torch.exec.compress import compress_params, prune_params
 from repro_torch.exec.dispatch import CompressedModel
 from repro_torch.exec.plans import ExecPlan, shipped_plan
+from repro_torch.launch.compiled import CompiledStep
 from repro_torch.models.transformer import Model
 
 
@@ -58,6 +62,8 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
     out = []                      # int32 tokens, as the reference returns
     tok = logits.argmax(dim=-1)   # int64: the next step's embedding index
     done = torch.zeros(b, dtype=torch.bool, device=dev)  # rows past EOS
+    step = CompiledStep(model)
+    pos = torch.empty((), dtype=torch.long, device=dev)
     t1 = time.perf_counter()
     for t in range(plen, plen + gen):
         if eos_id is None:
@@ -69,7 +75,8 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
             done |= tok == eos_id
             if bool(done.all()):
                 break
-        logits, cache = model.decode_step(params, cache, tok, t)
+        pos.fill_(t)              # on the device: no host-to-device copy
+        logits, cache = step(params, cache, tok, pos)
         tok = logits.argmax(dim=-1)
     _sync(dev)
     t_gen = time.perf_counter() - t1

@@ -150,8 +150,10 @@ def attention_decode_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     k = L.apply_rope(k.reshape(b, 1, nk, hd), pos1, freqs).reshape(b, nk, hd)
     v = v.reshape(b, nk, hd)
     rows = torch.arange(b, device=x.device)
-    k_cache[rows, pos] = k.to(k_cache.dtype)
-    v_cache[rows, pos] = v.to(v_cache.dtype)
+    # index_put_, not ``k_cache[rows, pos] = ...``: Python indexing reads a
+    # 0-d index tensor back to the host
+    k_cache.index_put_((rows, pos), k.to(k_cache.dtype))
+    v_cache.index_put_((rows, pos), v.to(v_cache.dtype))
     length = torch.clamp(pos + 1, max=k_cache.shape[1])
     rep = nh // max(nk, 1)
     o = decode_attention(q, _repeat_kv(k_cache, rep),

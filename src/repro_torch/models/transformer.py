@@ -144,7 +144,10 @@ class Model:
                     tokens: torch.Tensor, pos) -> tuple[torch.Tensor, PyTree]:
         """One token for the whole batch.  tokens: (B,); pos: a scalar for
         a lockstep batch or a (B,) per-row position vector.  The cache is
-        updated in place and returned.  Returns (logits (B, V), cache)."""
+        updated in place and returned.  Returns (logits (B, V), cache).
+        With ``pos`` a tensor on the tokens' device the step reads nothing
+        back to the host and copies nothing to the device, so a CUDA graph
+        can capture it (:mod:`repro_torch.launch.compiled`)."""
         cfg = self.cfg
         pos = torch.as_tensor(pos, device=tokens.device)
         if pos.ndim not in (0, 1) or \

@@ -6,7 +6,6 @@ Without a CUDA device every test skips: the kernels have no CPU mode.
 """
 
 import dataclasses
-import json
 import re
 
 import numpy as np
@@ -235,18 +234,13 @@ def test_bitmap_prefill_takes_an_untileable_bk_by_the_tiled_entry(card, m,
 
 
 def _launched(fn, path):
-    """(kernel name, grid) of every kernel ``fn()`` launches, from a
-    CUDA-only profiler trace exported to ``path``."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    return [(e["name"], tuple(e["args"]["grid"]))
-            for e in sorted(events, key=lambda e: e.get("ts", 0))
-            if e.get("cat") == "kernel"]
+    """(kernel name, grid) of every kernel ``fn()`` launches, from the
+    first complete CUDA-only profiler trace of it between marker kernels
+    (``repro_torch.kernels.trace``: the profiler loses whole traces or
+    their first kernel, never a kernel between two it kept)."""
+    from repro_torch.kernels import trace
+    return [(e.name, e.grid) for e in trace.traced(fn, path)
+            if e.cat == "kernel"]
 
 
 @pytest.mark.parametrize("m,n,k,bn,bk,off", [
@@ -283,19 +277,18 @@ def test_bitmap_naive_trace_equals_naive_kernel(card, tmp_path, m, n, k, bn,
                  or re.search(r"\btrue>", r))
             for (name, grid), (r, g) in zip(want, ran))
 
-    calls = 0
+    calls = []
+
+    def call(t_max):
+        calls.append(t_max)
+        ops.bitmap_spmm(x, c, t_max=t_max, pipeline=False)
+
     for t_max in (None, c.max_per_col + 2):
-        # the profiler has dropped a kernel's event from a trace (about
-        # once in 150 on an H100): a differing trace is taken again
-        for _ in range(3):
-            ran = _launched(lambda: ops.bitmap_spmm(x, c, t_max=t_max,
-                                                    pipeline=False),
-                            tmp_path / "trace.json")
-            calls += 1
-            if same(ran):
-                break
+        # the first complete trace must show exactly the kernels
+        # naive_kernel names
+        ran = _launched(lambda: call(t_max), tmp_path / "trace.json")
         assert same(ran), (ran, want)
-    assert ops.launch_counts()["bitmap_spmm_naive"] == calls
+    assert ops.launch_counts()["bitmap_spmm_naive"] == len(calls)
 
 
 def test_bf16_serving_holds_to_the_reference_fixture(card):
@@ -560,3 +553,292 @@ def test_naive_serving_launches_only_the_naive_kernel(card):
     assert ops.launch_counts() == {
         "bitmap_spmm": 0, "bitmap_spmm_naive": 7 * cfg.n_layers * 3,
         "nm_spmm": 0, "nm_spmm_naive": 0, "flash_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# The compiled decode step: a CUDA graph of decode_step
+# ---------------------------------------------------------------------------
+
+def _as_nm(plan):
+    """The same plan with every sparse role 2:4 (the reduced config ships
+    a bitmap plan only)."""
+    return dataclasses.replace(
+        plan, w_sparsity={"kind": "nm", "n": 2, "m": 4},
+        ops=tuple(dataclasses.replace(op, choice=dataclasses.replace(
+            op.choice, kind="nm", block_n=0, block_k=0,
+            format_str="CP(2:4)")) for op in plan.ops))
+
+
+def _served(kind, full_width=False):
+    """(cfg, compressed model, pruned params) on the card: reduced
+    chatglm3-6b, or full width cut to 2 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+    cfg = get_config("chatglm3-6b")
+    cfg = dataclasses.replace(cfg, n_layers=2) if full_width \
+        else cfg.reduced()
+    plan = shipped_plan(cfg, "bitmap")
+    if kind == "nm":
+        plan = _as_nm(plan) if not full_width else shipped_plan(cfg, "nm")
+    cm, pruned = serve.compressed_model(cfg, Model(cfg).init(seed=0), plan)
+    return cfg, cm, pruned
+
+
+def _prompts(cfg, b=2, s=6, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+
+
+def _graph_equals_eager(model, params, prompts, gen, per_row=False):
+    """The graph's greedy tokens and each decode step's logits are
+    ``torch.equal`` to the eager step's (``model.decode_step``)."""
+    from repro_torch.launch import compiled
+    toks, steps = compiled.greedy(compiled.CompiledStep(model), model,
+                                  params, prompts, gen, per_row)
+    toks_e, steps_e = compiled.greedy(model.decode_step, model, params,
+                                      prompts, gen, per_row)
+    assert torch.equal(toks, toks_e)
+    for i, (lg, lg_e) in enumerate(zip(steps, steps_e)):
+        assert torch.equal(lg, lg_e), \
+            (i, (lg - lg_e).abs().max().item())
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("pipeline", [True, False])
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_graph_equals_eager(card, kind, pipeline, per_row):
+    """Reduced chatglm3-6b, bf16: the graph's tokens and every step's
+    logits equal the eager step's; the first step captures, the rest
+    replay."""
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _served(kind)
+    with ops.pipeline_default(pipeline):
+        _graph_equals_eager(cm, pruned, _prompts(cfg), 6, per_row)
+    (g,) = compiled.graphs(cm).values()
+    assert g.replays == 4 and g.pos.shape == ((2,) if per_row else ())
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_graph_equals_eager_at_full_width(card, kind):
+    """chatglm3-6b at full width, 2 layers, batch 4: both variants, a
+    scalar and a per-row position."""
+    cfg, cm, pruned = _served(kind, full_width=True)
+    prompts = _prompts(cfg, b=4, s=16)
+    for pipeline in (True, False):
+        with ops.pipeline_default(pipeline):
+            for per_row in (False, True):
+                _graph_equals_eager(cm, pruned, prompts, 5, per_row)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_graph_equals_eager(card, dtype, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", dtype)
+    cfg = get_config("chatglm3-6b").reduced()
+    model = Model(cfg)
+    _graph_equals_eager(model, model.init(seed=0), _prompts(cfg), 6)
+    assert ops.launch_counts()["bitmap_spmm"] == 0
+
+
+def test_a_second_generate_replays_the_cached_graph(card):
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _served("bitmap")
+    cm.generate(pruned, _prompts(cfg), 6)    # 6 steps: a capture, 5 replays
+    (g,) = compiled.graphs(cm).values()
+    assert g.replays == 5
+    prompts = _prompts(cfg, seed=1)
+    toks, _, _ = cm.generate(pruned, prompts, 6)
+    assert list(compiled.graphs(cm).values())[0] is g and g.replays == 11
+    with compiled.disable():
+        eager, _, _ = cm.generate(pruned, prompts, 6)
+    assert torch.equal(toks, eager)
+    _graph_equals_eager(cm, pruned, _prompts(cfg, seed=2), 6)
+    assert len(compiled.graphs(cm)) == 1 and g.replays == 16
+
+
+def test_the_variant_and_the_dtype_each_get_their_own_graph(card,
+                                                             monkeypatch):
+    from repro_torch.launch import compiled
+    from repro_torch.models import layers as L
+    cfg, cm, pruned = _served("nm")
+    prompts = _prompts(cfg)
+    _graph_equals_eager(cm, pruned, prompts, 6)
+    ops.reset_launch_counts()
+    with ops.pipeline_default(False):
+        _graph_equals_eager(cm, pruned, prompts, 6)
+    assert ops.launch_counts()["nm_spmm"] == 0
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    for pipeline in (True, False):
+        with ops.pipeline_default(pipeline):
+            _graph_equals_eager(cm, pruned, prompts, 6)
+    keys = list(compiled.graphs(cm))
+    assert {(k[3], k[4]) for k in keys} == {
+        (dt, p) for dt in (torch.bfloat16, torch.float32)
+        for p in (True, False)}
+    assert all(g.replays == 4 for g in compiled.graphs(cm).values())
+
+
+def test_two_caches_at_one_key_take_turns_only_by_a_copy(card):
+    """One graph serves one sequence at a time: a second sequence's cache
+    is copied into the graph's own, and the first sequence's cache,
+    handed out before that copy, then raises instead of decoding the
+    second's K / V.  Each step equals the eager step on its own cache."""
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _served("bitmap")
+    step = compiled.CompiledStep(cm)
+    seqs = []
+    for seed in (1, 2):
+        prompts = _prompts(cfg, seed=seed)
+        logits, cache = cm.prefill(pruned, prompts, 10)
+        _, eager = cm.prefill(pruned, prompts, 10)
+        seqs.append([logits[:, -1].argmax(dim=-1), cache, eager])
+
+    def both(i, p):
+        tok, cache, eager = seqs[i]
+        pos = torch.full((), p, dtype=torch.long, device=card)
+        got, cache = step(pruned, cache, tok, pos)
+        want, eager = cm.decode_step(pruned, eager, tok, pos)
+        assert torch.equal(got, want)
+        assert torch.equal(cache["self"]["k"], eager["self"]["k"])
+        seqs[i] = [got.argmax(dim=-1), cache, eager]
+
+    both(0, 6)                            # the capture
+    both(1, 6)                            # the second cache copied in
+    with pytest.raises(RuntimeError, match="another cache"):
+        step(pruned, seqs[0][1], seqs[0][0],
+             torch.full((), 7, dtype=torch.long, device=card))
+    both(1, 7)                            # the second goes on
+    (g,) = compiled.graphs(cm).values()
+    assert g.replays == 2 and g.serial == 1
+
+
+def test_a_model_holds_at_most_max_graphs(card, monkeypatch):
+    """Past ``MAX_GRAPHS`` keys the least recently used graph goes."""
+    from repro_torch.launch import compiled
+    monkeypatch.setattr(compiled, "MAX_GRAPHS", 2)
+    cfg, cm, pruned = _served("bitmap")
+    prompts = _prompts(cfg)
+
+    def lengths():
+        return [k[1] for k in compiled.graphs(cm)]
+
+    for gen in (3, 4, 5):
+        cm.generate(pruned, prompts, gen)
+    assert lengths() == [10, 11]
+    cm.generate(pruned, prompts, 4)       # a replay: now the most recent
+    assert lengths() == [11, 10]
+    toks, _, _ = cm.generate(pruned, prompts, 3)
+    assert lengths() == [10, 9]
+    with compiled.disable():
+        eager, _, _ = cm.generate(pruned, prompts, 3)
+    assert torch.equal(toks, eager)
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_launch_counts_are_exact_after_replays(card, kind):
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _served(kind)
+    for pipeline in (True, False):
+        name = ("bitmap_spmm" if kind == "bitmap" else "nm_spmm") + \
+            ("" if pipeline else "_naive")
+        with ops.pipeline_default(pipeline):
+            for run in range(2):          # the capture, then replays only
+                ops.reset_launch_counts()
+                cm.generate(pruned, _prompts(cfg, seed=run), 5)
+                counts = ops.launch_counts()
+                assert counts[name] == 7 * cfg.n_layers * (1 + 5)
+                assert sum(counts.values()) == counts[name]
+    for g in compiled.graphs(cm).values():
+        assert sum(g.launches.values()) == 7 * cfg.n_layers
+
+
+def _hooked(name, calls):
+    from repro_torch import exec as texec
+    if name == "instrument":
+        return texec.instrument()
+    if name == "kernel_guard":
+        return texec.kernel_guard(lambda role, e: calls.append(role))
+    if name == "kernel_fault_hook":
+        return ops.kernel_fault_hook(calls.append)
+    return ops.kernel_dispatch_hook(lambda kind, s: calls.append(kind))
+
+
+@pytest.mark.parametrize("name", ["instrument", "kernel_guard",
+                                  "kernel_fault_hook",
+                                  "kernel_dispatch_hook"])
+def test_a_hook_is_called_at_every_step(card, name):
+    """With a hook active every step runs eagerly: the hook hears each
+    dispatch of every step, and no graph is captured."""
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _served("bitmap")
+    calls = []
+    with _hooked(name, calls) as counters:
+        toks, _, _ = cm.generate(pruned, _prompts(cfg), 5)
+    assert compiled.graphs(cm) == {}
+    per_run = 7 * cfg.n_layers * (1 + 5)
+    if name == "instrument":
+        assert sum(c.calls for c in counters.values()) == per_run
+    elif name == "kernel_guard":
+        assert calls == []                # nothing failed
+    else:
+        assert len(calls) == per_run
+    assert ops.launch_counts()["bitmap_spmm"] == per_run
+    with compiled.disable():
+        eager, _, _ = cm.generate(pruned, _prompts(cfg), 5)
+    assert torch.equal(toks, eager)
+
+
+def test_memory_returns_after_the_model_is_deleted(card):
+    import gc
+    from repro_torch.launch import compiled
+
+    def serve_once():
+        cfg, cm, pruned = _served("bitmap", full_width=True)
+        cm.generate(pruned, _prompts(cfg, b=4, s=16), 5)
+        assert len(compiled.graphs(cm)) == 1
+        return torch.cuda.memory_allocated()
+
+    serve_once()          # the capture stream's cuBLAS workspace persists
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    held = serve_once()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert held > base + (1 << 30)
+    assert torch.cuda.memory_allocated() == base
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_prefill_kernels_capture_into_a_graph(card, pipeline):
+    """The prefill entries call cudaFuncSetAttribute at every launch (the
+    decode entries of the serving path do not): a CUDA graph's capture
+    takes that call, and the replay equals the eager call."""
+    rng = np.random.default_rng(11)
+    cb = ops.compress_bitmap(
+        _block_sparse(rng, 4096, 1024, 256, 256, 0.5).to(card), 256, 256)
+    cn = ops.compress_nm(torch.from_numpy(
+        rng.normal(size=(4096, 1024)).astype(np.float32)).to(card))
+    x = torch.from_numpy(rng.normal(size=(512, 4096)).astype(np.float32)) \
+        .to(card, torch.bfloat16)
+
+    def both():
+        return (ops.bitmap_spmm(x, cb, pipeline=pipeline),
+                ops.nm_spmm(x, cn, pipeline=pipeline))
+
+    want = both()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
