@@ -33,7 +33,12 @@ non-zero exit code when it fails:
    weight; then the naive bitmap kernel once more at M = 4 with t_max
    above the longest column, on a weight whose masked steps read 105 MB of
    distinct stored blocks (beside the same call at t_max = the longest
-   column and the pipelined kernel; all three results equal);
+   column and the pipelined kernel; all three results equal); and both
+   variants of each served kernel (the shipped bitmap plan's blocks,
+   N:M 2:4) at every role and every M the mixer's streams of phase 6
+   give it (4 and 16 slots at decode, each prompt length at admission),
+   x in fp32 and bf16, held to the same tolerance and naive == pipelined,
+   checked but not timed;
 4. flash attention vs its plain version at chatglm3-6b's attention width
    (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
    bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
@@ -63,7 +68,35 @@ non-zero exit code when it fails:
    must run the served kernel 7 x layers times a step, as the count a
    replay adds says, and every sparse kernel as often as the eager trace.
    Device memory is printed before each plan and after its model is
-   deleted, graphs included.
+   deleted, graphs included;
+6. the mixer: full-width chatglm3-6b served as a request stream through
+   ``repro_torch.launch.mixer.Mixer`` on both plans: 12 greedy requests
+   drawn with ``np.random.default_rng(3)`` (prompts of 8-256 tokens, one
+   of 16 or fewer and one above 200; 8-32 new tokens), 4 slots, max_len
+   288, no EOS.  Each plan and variant serves the stream graphed (the
+   stream that captures the mixer's graph), eagerly
+   (``compiled.disable()``) and graphed again: every stream must admit and
+   evict each request, reuse a freed slot, emit every token and launch
+   the served kernel 7 x layers x (admissions + decode steps) times and
+   no other; the mixer's key must hold one graph whose ``serial`` is 0
+   after the capturing stream and 1 after the next (no copy-in but a new
+   stream's first), replays = decode steps - 1; every request's tokens
+   must be equal across the three streams and between the variants.
+   Sampled requests (temperature 0.8, top-k 20, seed i) served twice must
+   give equal tokens.  At fp32 (TF32 off, pipelined) each request's
+   admission logits must be ``torch.equal`` to its prefill served alone
+   and each decode step's logits within 1e-3 max|logits| of the request
+   served alone at batch 1 through ``serve.generate`` and of the same
+   stream served through the dense model on the same pruned weights
+   (``torch.matmul`` at the same M; a near tie that parts the greedy
+   tokens ends the comparison of that request).  A 16-slot stream,
+   graphed and eager, is timed only.  Every stream prints its admission
+   ms (in total and per prompt token), decode ms/step (median, min-max),
+   tokens/s and launches.  CUDA-only traces of one admission prefill of
+   the shortest and of the longest prompt and of one graphed mixer step
+   at 4 and at 16 slots give each one's device busy time, its idle share
+   of the same call untraced, the sparse kernels' and the copies' share
+   and the kernels that take the most time.
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -95,6 +128,8 @@ BATCH, PROMPT, GEN = 4, 128, 16
 TRACE_STEPS = 4              # decode steps in the serving trace
 RUNS = 5                     # serving runs per variant and mode
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
+# phase 6: the mixer's stream
+MIX_REQUESTS, MIX_SLOTS, MIX_MAX_LEN, MIX_WIDE = 12, 4, 288, 16
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -337,9 +372,40 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
     plan = shipped_plan(cfg, "bitmap")
     acc = {name: _Acc() for name in ("bitmap_spmm", "bitmap_spmm_naive",
                                      "nm_spmm", "nm_spmm_naive")}
+    # every M the mixer's streams (phase 6) give the kernels: decode at
+    # 4 and 16 slots, admission prefill at batch 1 and M = prompt length
+    mix_ms = sorted({MIX_SLOTS, MIX_WIDE,
+                     *(len(r.prompt) for r in _mixer_requests(cfg))})
+    # its own draws, so the timed cases keep the inputs of earlier runs
+    mix_gen = torch.Generator(device=dev).manual_seed(6)
     print(f"[kernels] tolerance max|y - y_plain| <= {TOL_REL} max|y_plain| "
           f"+ {TOL_ABS}; naive == pipelined bit for bit; times are device "
           f"ms with a cold L2, on {card}")
+
+    def held_at_mixer_shapes(kname, label, n, kernel, plain):
+        """Both variants of ``kernel(x, pipeline)`` against ``plain(x)``
+        at each of the mixer's M, x in fp32 and bf16 (checked, not
+        timed): each within the tolerance, naive == pipelined."""
+        worst = 0.0
+        for m in mix_ms:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, n), generator=mix_gen,
+                                device=dev).to(dtype)
+                y, y_naive, y_plain = kernel(x, True), kernel(x, False), \
+                    plain(x)
+                case = f"{label} M={m} {dtype}"
+                tol = TOL_REL * y_plain.abs().max().item() + TOL_ABS
+                for name, out in ((kname, y), (f"{kname}_naive", y_naive)):
+                    err = _check(f"{name} {case}", out, y_plain)
+                    acc[name].max_abs_err = max(acc[name].max_abs_err, err)
+                    worst = max(worst, err / tol)
+                if not torch.equal(y_naive, y):
+                    _fail(f"{kname} {case}: the naive result differs from "
+                          f"the pipelined one by "
+                          f"{(y_naive - y).abs().max().item()}")
+        print(f"[kernels] {kname} and {kname}_naive {label} at the mixer's "
+              f"M={mix_ms}, x fp32 and bf16: within the tolerance (largest "
+              f"share of it {worst:.4f}), naive == pipelined")
 
     def run(kname, label, m, dtype, n, kernel, plain, w_dense, nbytes_w,
             flops_per_row, x_cols, main_path):
@@ -438,6 +504,12 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                             x, c.blocks, c.counts, c.row_ids, c.n, c.k),
                         wp, nbytes_w, 2.0 * nnzb * bn * bk, rows_used * bn,
                         tag == "d0.5")
+            if tag == "d0.5":
+                held_at_mixer_shapes(
+                    "bitmap_spmm", f"{role.role} ({bn}x{bk} {tag})", role.n,
+                    lambda x, p, c=c: ops.bitmap_spmm(x, c, pipeline=p),
+                    lambda x, c=c: ref.bitmap_spmm_ref(
+                        x, c.blocks, c.counts, c.row_ids, c.n, c.k))
         for n_sel in (2, 1):
             wp = masks.nm_prune(w, n_sel, 4)
             c = ops.compress_nm(wp, n_sel, 4)
@@ -474,6 +546,12 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                             x, c.values, c.indices, c.n_sel, c.m_group),
                         wp, nbytes_w, 2.0 * c.values.numel(), role.n,
                         n_sel == 2)
+            if n_sel == 2:
+                held_at_mixer_shapes(
+                    "nm_spmm", f"{role.role} ({n_sel}:4)", role.n,
+                    lambda x, p, c=c: ops.nm_spmm(x, c, pipeline=p),
+                    lambda x, c=c: ref.nm_spmm_ref(
+                        x, c.values, c.indices, c.n_sel, c.m_group))
         del w
     acc["bitmap_spmm_naive"].masked = _masked_steps(gen, flush, dev)
     return acc
@@ -615,6 +693,20 @@ def phase_flash(cfg, card: str, dev) -> dict:
             "launches": launches}
 
 
+def _device_time(evs, calls: int) -> tuple[float, list]:
+    """Device busy ms a call, from ``calls`` calls' trace events, and the
+    kernels by the time they take, the most first: (ms a call, launches
+    a call, name)."""
+    import collections
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in evs:
+        by_name[e.name][0] += e.us
+        by_name[e.name][1] += 1
+    top = sorted(((us / 1e3 / calls, n // calls, name)
+                  for name, (us, n) in by_name.items()), reverse=True)
+    return sum(e.us for e in evs) / 1e3 / calls, top
+
+
 def _trace_decode(cm, pruned, prompts, label: str, step_ms: float
                   ) -> dict[str, float]:
     """Device time of ``TRACE_STEPS`` decode steps, taken as ``generate``
@@ -651,21 +743,15 @@ def _trace_decode(cm, pruned, prompts, label: str, step_ms: float
     # of every such trace late in this process
     evs = _trace(timed, f"{label} decode",
                  prelude=lambda: decode(PROMPT, 1))
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in evs:
-        by_name[e.name][0] += e.us
-        by_name[e.name][1] += 1
-    kernels = sorted(((us, n, name) for name, (us, n) in by_name.items()),
-                     reverse=True)
-    busy = sum(e.us for e in evs) / 1e3 / TRACE_STEPS
+    busy, kernels = _device_time(evs, TRACE_STEPS)
     print(f"[serve {label}] trace of {TRACE_STEPS} decode steps: device "
           f"busy {busy:.3f} ms/step, idle share {1 - busy / step_ms:.4f} "
           f"of the untraced median {step_ms:.3f} ms/token; "
           f"{len(evs) / TRACE_STEPS:.0f} device ops a step; host clock "
           f"under the profiler {1e3 * walls[-1]:.3f} ms/step")
-    for us, count, name in kernels[:6]:
-        print(f"[serve {label}]   {us / 1e3 / TRACE_STEPS:.4f} ms/step "
-              f"{count // TRACE_STEPS} calls/step  {name[:90]}")
+    for ms, count, name in kernels[:6]:
+        print(f"[serve {label}]   {ms:.4f} ms/step {count} calls/step  "
+              f"{name[:90]}")
     sparse = collections.Counter(
         _short(e.name) for e in evs if e.cat == "kernel"
         and re.match(r"(void )?\(anonymous namespace\)::(nm|bitmap)_", e.name))
@@ -881,6 +967,380 @@ def phase_serving(cfg, card: str, dev) -> dict[str, int]:
     return launches
 
 
+def _mixer_requests(cfg, greedy: bool = True):
+    """Phase 6's stream, drawn with ``np.random.default_rng(3)``: prompt
+    lengths 8-256 (one of 16 or fewer and one above 200 forced where the
+    draw has none), ``max_new`` 8-32; sampled requests take temperature
+    0.8, top-k 20 and seed i."""
+    import numpy as np
+    from repro_torch.launch.mixer import Request
+    rng = np.random.default_rng(3)
+    plens = rng.integers(8, 257, MIX_REQUESTS)
+    if not (plens <= 16).any():
+        plens[1] = rng.integers(8, 17)
+    if not (plens > 200).any():
+        plens[2] = rng.integers(201, 257)
+    max_new = rng.integers(8, 33, MIX_REQUESTS)
+    sampling = {} if greedy else dict(temperature=0.8, top_k=20)
+    return [Request(uid=f"m{i}", prompt=rng.integers(0, cfg.vocab, int(p)),
+                    max_new=int(n), seed=i, **sampling)
+            for i, (p, n) in enumerate(zip(plens, max_new))]
+
+
+def _serve_stream(cm, pruned, reqs, slots: int, name: str, label: str,
+                  card: str, capturing: bool = False, record: bool = False):
+    """One counted mixer stream: its tokens, stats, per-step wall times
+    and (with ``record``) each request's logits.  Fails unless the stream
+    admits and evicts every request, emits every token and launches the
+    served kernel 7 x layers x (admissions + decode steps) times and no
+    other kernel.  ``capturing``: the stream's first step captures a
+    graph, left out of the step spread."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mixer import Mixer
+    from repro_torch.launch.record import record_logits
+    from repro_torch.runtime.fault import StragglerMonitor
+
+    class Timed(StragglerMonitor):
+        def observe(self, step, dt):
+            walls.append(dt)
+            return super().observe(step, dt)
+
+    walls: list[float] = []
+    mx = Mixer(cm, pruned, slots=slots, max_len=MIX_MAX_LEN,
+               straggler=Timed())
+    logits = record_logits(mx) if record else None
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = mx.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = mx.stats()
+    want = 7 * cm.cfg.n_layers * (st["admits"] + st["steps"])
+    if st["admits"] != len(reqs) or st["evictions"] != len(reqs) or \
+            st["tokens"] != sum(r.max_new for r in reqs):
+        _fail(f"{label}: stream accounting {st}")
+    if counts[name] != want or sum(counts.values()) != want:
+        _fail(f"{label}: launch counts {counts}, expected {want} launches "
+              f"of {name} only (7 * {cm.cfg.n_layers} * ({st['admits']} "
+              f"admissions + {st['steps']} steps))")
+    steps = [1e3 * w for w in (walls[1:] if capturing else walls)]
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    print(f"[mixer {label}] {st['admits']} admissions "
+          f"({st['slot_reuse_admits']} into a freed slot), {st['steps']} "
+          f"decode steps, {st['tokens']} tokens; admission "
+          f"{1e3 * st['t_admit_s']:.3f} ms in total, "
+          f"{1e3 * st['t_admit_s'] / prompt_tokens:.4f} ms per prompt "
+          f"token ({prompt_tokens}); decode ms/step {_spread(steps)}"
+          f"{f' (the capturing step {1e3 * walls[0]:.3f} ms left out)' if capturing else ''}; "
+          f"stream {st['tokens'] / wall:.1f} tok/s over {wall:.3f} s; "
+          f"{want} launches of {name}, none of any other kernel — on "
+          f"{card}")
+    return dict(tokens=[r.tokens for r in results], stats=st,
+                launches=counts[name], logits=logits)
+
+
+def _mixer_graph(cm, slots: int, dtype, pipeline: bool):
+    """The one graph held for the mixer's key (slots, max_len, a (slots,)
+    position, dtype, variant)."""
+    from repro_torch.launch import compiled
+    found = [g for k, g in compiled.graphs(cm).items()
+             if k[:5] == (slots, MIX_MAX_LEN, 1, dtype, pipeline)]
+    if len(found) != 1:
+        _fail(f"mixer: {len(found)} graphs for the key (slots={slots}, "
+              f"max_len={MIX_MAX_LEN}, per-row pos, {dtype}, "
+              f"pipeline={pipeline}); expected one")
+    return found[0]
+
+
+def _hold_stream(label: str, got: dict, want: dict, got_toks: dict,
+                 want_toks: dict) -> tuple[float, list]:
+    """Hold each request's logits ``got`` (by uid: the admission's row,
+    then one row a decode step, as ``record_logits`` keeps them) to
+    ``want``'s within 1e-3 max|want row| (phase 5's bound), row by row, up
+    to and including the row where the greedy tokens part at a near tie
+    (a top-2 gap of ``want``'s row within twice the bound), after which
+    the two decode different sequences.  Fails on a larger error or on
+    tokens that part at a wider gap.  Returns the largest share of the
+    bound and the near ties (uid, row, gap)."""
+    worst, parted = 0.0, []
+    for uid, rows in want.items():
+        if len(got[uid]) != len(rows):
+            _fail(f"{label} {uid}: {len(got[uid])} rows against "
+                  f"{len(rows)}")
+        for j, (a, b) in enumerate(zip(got[uid], rows)):
+            bound = 1e-3 * b.abs().max().item()
+            err = (a - b).abs().max().item()
+            worst = max(worst, err / bound)
+            if not err <= bound:
+                _fail(f"{label} {uid} row {j}: max|logits - reference| = "
+                      f"{err} > {bound}")
+            if got_toks[uid][j] != want_toks[uid][j]:
+                top2 = b.topk(2).values
+                gap = (top2[0] - top2[1]).item()
+                if gap > 2 * bound:
+                    _fail(f"{label} {uid} row {j}: tokens part at a top-2 "
+                          f"gap {gap} > {2 * bound}")
+                parted.append((uid, j, gap))
+                break
+    return worst, parted
+
+
+def _mixer_fp32_vs_alone(cm, pruned, reqs, name: str, label: str,
+                         card: str) -> None:
+    """fp32, TF32 off, pipelined: each request of a graphed stream against
+    the same request served alone at batch 1 through ``serve.generate``
+    (whose compiled step is recorded), and against the same stream served
+    through the dense model on the same pruned weights (``torch.matmul``
+    in place of every sparse kernel, at the same M).  The admission logits
+    must be ``torch.equal`` to the standalone prefill's last logits; every
+    row within 1e-3 max|logits| of both references (``_hold_stream``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled, serve
+    from repro_torch.launch.mixer import Mixer
+    from repro_torch.launch.record import record_logits
+    from repro_torch.models.transformer import Model
+
+    dev = pruned["embed"].device
+    out = _serve_stream(cm, pruned, reqs, MIX_SLOTS, name, f"{label} fp32",
+                        card, capturing=True, record=True)
+    toks = {r.uid: t for r, t in zip(reqs, out["tokens"])}
+    log: list = []
+
+    class Recorded(compiled.CompiledStep):
+        def __call__(self, *args):
+            logits, cache = super().__call__(*args)
+            log.append(logits[0].clone())
+            return logits, cache
+
+    alone, alone_toks, agree = {}, {}, 0
+    plain = serve.CompiledStep
+    serve.CompiledStep = Recorded
+    try:
+        for req in reqs:
+            prompt = torch.as_tensor(req.prompt, device=dev)[None]
+            alone_prefill, _ = cm.prefill(pruned, prompt, MIX_MAX_LEN)
+            log.clear()
+            gen, _, _ = serve.generate(cm, pruned, prompt, req.max_new,
+                                       MIX_MAX_LEN, device=dev)
+            admitted = out["logits"][req.uid][0]
+            if not torch.equal(admitted, alone_prefill[0, -1]):
+                _fail(f"{label} fp32 {req.uid}: admission logits differ "
+                      f"from the standalone prefill's by "
+                      f"{(admitted - alone_prefill[0, -1]).abs().max().item()}")
+            # generate takes one step past the last token, as the reference
+            alone[req.uid] = [alone_prefill[0, -1]] + log[:req.max_new - 1]
+            alone_toks[req.uid] = gen[0].cpu().numpy()
+            agree += int((alone_toks[req.uid] == toks[req.uid]).sum())
+    finally:
+        serve.CompiledStep = plain
+    worst, parted = _hold_stream(f"{label} fp32 vs alone", out["logits"],
+                                 alone, toks, alone_toks)
+    print(f"[mixer {label} fp32] vs each request served alone at batch 1 "
+          f"(serve.generate): admission logits torch.equal for all "
+          f"{len(reqs)}; logits within 1e-3 max|logits| (largest share of "
+          f"the bound {worst:.4f}); greedy agreement {agree}/"
+          f"{sum(r.max_new for r in reqs)} tokens; parted at a near tie: "
+          f"{parted or 'none'} — on {card}")
+    dense = Model(cm.cfg)
+    dmx = Mixer(dense, pruned, slots=MIX_SLOTS, max_len=MIX_MAX_LEN)
+    dense_logits = record_logits(dmx)
+    ops.reset_launch_counts()
+    dense_toks = {r.uid: res.tokens for r, res in zip(reqs, dmx.run(reqs))}
+    if sum(ops.launch_counts().values()):
+        _fail(f"{label}: the dense stream launched {ops.launch_counts()}")
+    worst, parted = _hold_stream(f"{label} fp32 vs dense", out["logits"],
+                                 dense_logits, toks, dense_toks)
+    agree = sum(int((dense_toks[u] == toks[u]).sum()) for u in toks)
+    print(f"[mixer {label} fp32] vs the same stream through the dense model "
+          f"on the same pruned weights (torch.matmul at the same M: "
+          f"admission at M = prompt length, decode at M = {MIX_SLOTS}): "
+          f"logits within 1e-3 max|logits| (largest share of the bound "
+          f"{worst:.4f}); greedy agreement {agree}/"
+          f"{sum(r.max_new for r in reqs)} tokens; parted at a near tie: "
+          f"{parted or 'none'} — on {card}")
+    del dmx, dense                    # its graph and pool go with it
+
+
+def _traced_call(label: str, fn, host_ms: list[float]) -> None:
+    """Print ``fn()``'s device busy ms from one CUDA-only trace
+    (``_trace``, after one untraced call as its prelude), its idle share
+    of the median of ``host_ms`` (the same call untraced, host clock,
+    synchronised), its device ops, the sparse kernels' and the copies'
+    share of the busy time, and the kernels that take the most of it."""
+    evs = _trace(fn, label, prelude=fn)
+    busy, top = _device_time(evs, 1)
+    host = sorted(host_ms)[len(host_ms) // 2]
+    sparse = sum(e.us for e in evs if e.cat == "kernel" and re.match(
+        r"(void )?\(anonymous namespace\)::(nm|bitmap)_", e.name)) / 1e3
+    copies = sum(e.us for e in evs if e.cat != "kernel") / 1e3
+    print(f"[mixer {label}] trace: device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / host:.4f} of the untraced {_spread(host_ms)} ms; "
+          f"{len(evs)} device ops; sparse kernels {sparse:.3f} ms "
+          f"({sparse / busy:.1%} of busy), copies and sets {copies:.3f} ms")
+    for ms, count, name in top[:4]:
+        print(f"[mixer {label}]   {ms:.4f} ms {count} calls  {name[:240]}")
+
+
+def _trace_mixer(cm, pruned, reqs, label: str) -> None:
+    """Where an admission's and a mixer step's time goes, pipelined bf16:
+    one admission prefill of the stream's shortest prompt and one of its
+    longest (``model.prefill`` at batch 1, as ``admit`` runs it), and one
+    graphed ``Mixer`` step, host work included, with every slot occupied
+    at ``MIX_SLOTS`` and at ``MIX_WIDE`` slots (the graphs the timed
+    streams captured; each mixer copies its cache in once)."""
+    import torch
+    from repro_torch.launch.mixer import Mixer, Request
+    dev = pruned["embed"].device
+    for req in (min(reqs, key=lambda r: len(r.prompt)),
+                max(reqs, key=lambda r: len(r.prompt))):
+        prompt = torch.as_tensor(req.prompt, device=dev)[None]
+
+        def prefill():
+            cm.prefill(pruned, prompt, MIX_MAX_LEN)
+            torch.cuda.synchronize()
+        host = []
+        for _ in range(TRACE_STEPS):
+            t0 = time.perf_counter()
+            prefill()
+            host.append(1e3 * (time.perf_counter() - t0))
+        _traced_call(f"{label} admission prefill M={prompt.shape[1]}",
+                     prefill, host)
+    for slots in (MIX_SLOTS, MIX_WIDE):
+        mx = Mixer(cm, pruned, slots=slots, max_len=MIX_MAX_LEN)
+        for i in range(slots):
+            src = reqs[i % len(reqs)]
+            mx.admit(Request(uid=f"t{i}", prompt=src.prompt,
+                             max_new=MIX_MAX_LEN - len(src.prompt)))
+        mx._step()                    # the graph takes this mixer's cache
+        host = []
+        for _ in range(TRACE_STEPS):
+            t0 = time.perf_counter()
+            mx._step()                # ends on the logits' readback
+            host.append(1e3 * (time.perf_counter() - t0))
+        _traced_call(f"{label} {slots} slots graphed step", mx._step, host)
+        del mx
+
+
+def phase_mixer(cfg, card: str, dev) -> dict[str, int]:
+    """Phase 6: the continuous-batching mixer at full width on both
+    shipped plans and both variants (see the module docstring)."""
+    import torch
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+
+    reqs = _mixer_requests(cfg)
+    sampled = _mixer_requests(cfg, greedy=False)
+    print(f"[mixer] chatglm3-6b n_layers={cfg.n_layers}, {MIX_REQUESTS} "
+          f"greedy requests (np.random.default_rng(3)): prompt lengths "
+          f"{[len(r.prompt) for r in reqs]}, max_new "
+          f"{[r.max_new for r in reqs]}; {MIX_SLOTS} slots, max_len "
+          f"{MIX_MAX_LEN}, no EOS; bf16 unless named; host clock, "
+          f"synchronised, on {card}")
+    launches: dict[str, int] = {}
+    for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
+        t0 = time.perf_counter()
+        params = Model(cfg).init(seed=0, device=dev)
+        cm, pruned = serve.compressed_model(cfg, params,
+                                            shipped_plan(cfg, kind),
+                                            device=dev)
+        del params
+        torch.cuda.synchronize()
+        print(f"[mixer {kind}] init + prune + compress "
+              f"{time.perf_counter() - t0:.2f} s")
+        first = None
+        for pipeline in (True, False):
+            name = kname if pipeline else f"{kname}_naive"
+            label = kind if pipeline else f"{kind} naive"
+            with ops.pipeline_default(pipeline):
+                graphed = _serve_stream(cm, pruned, reqs, MIX_SLOTS, name,
+                                        f"{label} graph", card,
+                                        capturing=True)
+                launches[name] = graphed["launches"]
+                g = _mixer_graph(cm, MIX_SLOTS, torch.bfloat16, pipeline)
+                steps = graphed["stats"]["steps"]
+                if graphed["stats"]["slot_reuse_admits"] < 1:
+                    _fail(f"{label}: no admission into a freed slot")
+                if g.serial != 0 or g.replays != steps - 1:
+                    _fail(f"{label}: the capturing stream left serial "
+                          f"{g.serial}, replays {g.replays}; expected 0 and "
+                          f"{steps - 1}")
+                with compiled.disable():
+                    eager = _serve_stream(cm, pruned, reqs, MIX_SLOTS, name,
+                                          f"{label} eager", card)
+                again = _serve_stream(cm, pruned, reqs, MIX_SLOTS, name,
+                                      f"{label} graph, second stream", card)
+                if _mixer_graph(cm, MIX_SLOTS, torch.bfloat16,
+                                pipeline) is not g or g.serial != 1 or \
+                        g.replays != 2 * steps - 1:
+                    _fail(f"{label}: after a second stream the graph has "
+                          f"serial {g.serial}, replays {g.replays}; expected "
+                          f"1 and {2 * steps - 1}")
+                print(f"[mixer {label}] one graph for the key: capture "
+                      f"{g.capture_ms:.3f} ms, serial 0 after the capturing "
+                      f"stream and 1 after the second, {g.replays} replays "
+                      f"= 2 x {steps} steps - 1")
+                for mode, run in (("eager", eager), ("second graph", again)):
+                    for i, (a, b) in enumerate(zip(graphed["tokens"],
+                                                   run["tokens"])):
+                        if not (a == b).all():
+                            _fail(f"{label} {mode}: request m{i} tokens "
+                                  f"{b.tolist()} differ from the graph's "
+                                  f"{a.tolist()}")
+                if first is None:
+                    first = graphed["tokens"]
+                else:
+                    for i, (a, b) in enumerate(zip(first,
+                                                   graphed["tokens"])):
+                        if not (a == b).all():
+                            _fail(f"{label}: request m{i} tokens "
+                                  f"{b.tolist()} differ from the pipelined "
+                                  f"variant's {a.tolist()}")
+                print(f"[mixer {label}] tokens of all {MIX_REQUESTS} "
+                      f"requests equal: graph == eager == second graph"
+                      f"{'' if pipeline else ' == the pipelined variant'}")
+        # sampled determinism, pipelined, graphed
+        runs = [_serve_stream(cm, pruned, sampled, MIX_SLOTS, kname,
+                              f"{kind} sampled run {i + 1}", card)
+                for i in range(2)]
+        for i, (a, b) in enumerate(zip(*(r["tokens"] for r in runs))):
+            if not (a == b).all():
+                _fail(f"{kind} sampled: request m{i} tokens {a.tolist()} "
+                      f"then {b.tolist()}")
+        differ = sum(int((a != b).sum())
+                     for a, b in zip(runs[0]["tokens"], first))
+        print(f"[mixer {kind} sampled] two runs equal (temperature 0.8, "
+              f"top-k 20, seed i); {differ} of {sum(r.max_new for r in sampled)} "
+              f"tokens differ from the greedy stream's")
+        # fp32 against each request served alone
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            _mixer_fp32_vs_alone(cm, pruned, reqs, kname, kind, card)
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        # timing only: 16 slots, pipelined
+        _serve_stream(cm, pruned, reqs, MIX_WIDE, kname,
+                      f"{kind} {MIX_WIDE} slots graph", card,
+                      capturing=True)
+        with compiled.disable():
+            _serve_stream(cm, pruned, reqs, MIX_WIDE, kname,
+                          f"{kind} {MIX_WIDE} slots eager", card)
+        _trace_mixer(cm, pruned, reqs, kind)
+        print(f"[mixer {kind}] graphs held: {len(compiled.graphs(cm))}; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        del cm, pruned, g             # a graph holds the params and store
+        torch.cuda.empty_cache()
+        print(f"[mixer {kind}] after the model is deleted: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -897,6 +1357,7 @@ def main() -> None:
     acc = phase_kernels(cfg, card, dev)
     flash = phase_flash(cfg, card, dev)
     launches = phase_serving(cfg, card, dev)
+    mixer_launches = phase_mixer(cfg, card, dev)
 
     sources = {
         "bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
@@ -915,6 +1376,7 @@ def main() -> None:
         # activations, at a decode step and at the prefill
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": launches[name],
+                 "mixer_launches": mixer_launches[name],
                  "max_abs_err": a.max_abs_err}
         for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
             s = a.sums[(m, torch.bfloat16)]

@@ -20,3 +20,10 @@ def resolve(device) -> torch.device:
         # comparisons with a tensor's device hold
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work (a no-op on the CPU): a host clock
+    read after it times the device's work, not its enqueue."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -238,3 +238,15 @@ class CompressedModel:
         if max_len is None:
             max_len = prompts.shape[1] + gen
         return serve.generate(self, params, prompts, gen, max_len, **kwargs)
+
+    def serve_mixed(self, params, requests, *, slots: int,
+                    max_len: int, **kwargs):
+        """Continuous-batching serve of a request STREAM over the
+        compressed plane (delegates to
+        :class:`repro_torch.launch.mixer.Mixer`, as :meth:`generate`
+        delegates to the static serving loop).  Returns ``(results,
+        mixer)`` — per-request :class:`RequestResult`\\ s in request
+        order plus the drained mixer (events / stats)."""
+        from repro_torch.launch.mixer import Mixer
+        mx = Mixer(self, params, slots=slots, max_len=max_len, **kwargs)
+        return mx.run(requests), mx

@@ -23,8 +23,13 @@ into those buffers and replays the graph.
   own, that cache is valid only until a call at the same key copies
   another cache in: one graph serves one sequence at a time.  Passing a
   cache the graph handed out before such a copy raises instead of
-  decoding another sequence's K / V (:meth:`Graph.adopt`).  The logits
-  are returned as a fresh tensor.
+  decoding another sequence's K / V (:meth:`Graph.adopt`).  A write into
+  the returned cache in place between two calls (the mixer's slot writes,
+  :func:`repro_torch.launch.mixer.write_slot`) lands in the static K / V
+  and keeps the handle valid: the next call replays on it without a copy.
+  Such a write through a handle of an earlier copy-in raises as well
+  (:func:`check_current`): it would land in another sequence's K / V.
+  The logits are returned as a fresh tensor.
 * Graphs are kept in the model object, so they and their memory pools
   are released with it (:func:`graphs`).  One is captured per key and
   at most :data:`MAX_GRAPHS` are held per model: a new key past that
@@ -46,8 +51,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import itertools
 import time
+import weakref
 from typing import Any
 
 import torch
@@ -59,7 +64,10 @@ from repro_torch.models import layers as L
 _DISABLED = False
 # graphs held per model: each pins its static cache and its memory pool
 MAX_GRAPHS = 8
-_GRAPH_IDS = itertools.count()
+_STALE = ("this cache was returned by a compiled decode step whose graph has "
+          "since taken another cache at the same key; its K / V now hold "
+          "that sequence (a returned cache is valid until the next call with "
+          "another cache)")
 
 
 @contextlib.contextmanager
@@ -83,9 +91,19 @@ def compiles(device: torch.device) -> bool:
 
 class _HandedOut(dict):
     """A cache a graph returned: its static K / V, marked with the graph
-    and the copy-in it belongs to."""
+    (a weak reference: a handle does not keep a released graph's pool) and
+    the copy-in it belongs to."""
 
-    __slots__ = ("graph_id", "serial")
+    __slots__ = ("graph", "serial")
+
+
+def check_current(cache: dict) -> None:
+    """Raise when ``cache`` was handed out by a graph that has since taken
+    another cache: its K / V hold that sequence now, so neither a replay
+    nor a write through it may use them."""
+    g = cache.graph() if isinstance(cache, _HandedOut) else None
+    if g is not None and cache.serial != g.serial:
+        raise RuntimeError(_STALE)
 
 
 @dataclasses.dataclass
@@ -105,7 +123,6 @@ class Graph:
     capture_ms: float              # host ms of the capture, synchronised
     replays: int = 0
     serial: int = 0                # copy-ins into ``cache`` so far
-    uid: int = dataclasses.field(default_factory=lambda: next(_GRAPH_IDS))
 
     def adopt(self, cache: dict) -> dict:
         """The cache a replay for ``cache`` writes and returns.  The cache
@@ -113,13 +130,8 @@ class Graph:
         did not hand out is copied into the static one and a new handle
         on the static K / V is returned for it.  A cache handed out before
         that copy raises: its K / V are another sequence's now."""
-        if isinstance(cache, _HandedOut) and cache.graph_id == self.uid:
-            if cache.serial != self.serial:
-                raise RuntimeError(
-                    "this cache was returned by a compiled decode step whose "
-                    "graph has since taken another cache at the same key; "
-                    "its K / V now hold that sequence (a returned cache is "
-                    "valid until the next call with another cache)")
+        if isinstance(cache, _HandedOut) and cache.graph() is self:
+            check_current(cache)
             return cache
         for name in ("k", "v"):
             self.cache["self"][name].copy_(cache["self"][name])
@@ -129,7 +141,7 @@ class Graph:
     def handle(self) -> dict:
         """A new cache over the static K / V, for the latest copy-in."""
         out = _HandedOut({"self": dict(self.cache["self"])})
-        out.graph_id, out.serial = self.uid, self.serial
+        out.graph, out.serial = weakref.ref(self), self.serial
         return out
 
 

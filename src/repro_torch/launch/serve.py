@@ -6,14 +6,19 @@ decode step after a key's first replays a CUDA graph
 (:mod:`repro_torch.launch.compiled`, the counterpart of the reference's
 ``jax.jit`` of the step); ``compiled.disable()`` serves it eagerly.
 
-Equal-length prompts only: left-padded ragged prompts need the
-continuous-batching mixer's slot writes, which are not ported yet.
+LEFT-padded ragged prompts are served via ``prompt_pad_id``: each row is
+prefilled alone at its real length, written into its row of a shared cache
+and decoded with a per-row position vector (the mixer's admission
+primitive).  For continuous batching over a request STREAM (admit/evict
+into a running decode batch, sampled decoding) see
+:mod:`repro_torch.launch.mixer` and the ``--mixer`` CLI mode.
 
 Usage (on the card; ``--device cpu`` runs the plain PyTorch versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
       [--reduced] --batch 4 --prompt-len 128 --gen 16 [--compressed] \\
-      [--device cuda]
+      [--eos ID] [--mixer --slots 2 --temperature 0.8 --top-k 20 \\
+      --deadline S] [--device cuda]
 """
 
 from __future__ import annotations
@@ -26,12 +31,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.device import resolve
+from repro_torch.device import resolve, synchronize
 from repro_torch.exec.compress import compress_params, prune_params
 from repro_torch.exec.dispatch import CompressedModel
 from repro_torch.exec.plans import ExecPlan, shipped_plan
 from repro_torch.launch.compiled import CompiledStep
+from repro_torch.launch.mixer import (Mixer, Request, prefill_request,
+                                      write_slot)
 from repro_torch.models.transformer import Model
+from repro_torch.obs import metrics as omet
+from repro_torch.obs import trace as otr
 
 
 def _rate(n: float, t: float) -> float:
@@ -40,46 +49,99 @@ def _rate(n: float, t: float) -> float:
     return n / max(t, 1e-9)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _prompt_offsets(prompts: torch.Tensor, prompt_pad_id: Optional[int]
+                    ) -> np.ndarray:
+    """Per-row first-real-token offsets of a LEFT-padded prompt batch.
+
+    With ``prompt_pad_id`` None every prompt is taken as unpadded (offset
+    0).  Otherwise each row must be ``[pad... real...]`` with at least one
+    real token — pads after the first real token (right/interior padding)
+    are rejected loudly instead of silently mis-positioning the row."""
+    b, plen = prompts.shape
+    if prompt_pad_id is None:
+        return np.zeros(b, np.int64)
+    pn = prompts.cpu().numpy()
+    real = pn != prompt_pad_id
+    offsets = np.argmax(real, axis=1)
+    for r in range(b):
+        if not real[r].any():
+            raise ValueError(f"prompt row {r} is all padding "
+                             f"(pad_id={prompt_pad_id})")
+        if not real[r, offsets[r]:].all():
+            raise ValueError(
+                f"prompt row {r} has pad tokens after its first real "
+                f"token; prompts must be LEFT-padded (pad_id="
+                f"{prompt_pad_id})")
+    return offsets
 
 
 def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
-              eos_id: Optional[int] = None, pad_id: int = -1):
+              eos_id: Optional[int] = None, pad_id: int = -1,
+              prompt_pad_id: Optional[int] = None):
     b, plen = prompts.shape
     if plen > max_len or plen + gen > max_len:
         raise ValueError(f"prompt ({plen}) + gen ({gen}) exceeds "
                          f"max_len ({max_len})")
+    offsets = _prompt_offsets(prompts, prompt_pad_id)
     dev = prompts.device
+    tid = otr.trace_id()
 
     t0 = time.perf_counter()
-    all_logits, cache = model.prefill(params, prompts, max_len)
-    logits = all_logits[:, -1]
-    _sync(dev)
+    with otr.span("prefill", trace_id=tid, batch=b, plen=plen,
+                  ragged=bool(offsets.any())):
+        if offsets.any():
+            # ragged left-padded rows: admit each row alone at its REAL
+            # length into its row of the shared cache, then decode with a
+            # per-row position vector — the continuous-batching admission
+            # primitive (launch.mixer)
+            cache = model.init_cache(b, max_len, device=dev)
+            lasts = []
+            for r in range(b):
+                with otr.span("admit", trace_id=tid, row=r,
+                              prompt_len=plen - int(offsets[r])):
+                    last, rcache = prefill_request(
+                        model, params, prompts[r:r + 1, int(offsets[r]):],
+                        max_len)
+                    write_slot(cache, rcache, r)
+                lasts.append(last)
+            logits = torch.stack(lasts)
+            first = torch.as_tensor(plen - offsets, device=dev)  # per-row
+        else:
+            first = None                                      # lockstep
+            all_logits, cache = model.prefill(params, prompts, max_len)
+            logits = all_logits[:, -1]
+        synchronize(dev)
     t_prefill = time.perf_counter() - t0
 
     out = []                      # int32 tokens, as the reference returns
     tok = logits.argmax(dim=-1)   # int64: the next step's embedding index
     done = torch.zeros(b, dtype=torch.bool, device=dev)  # rows past EOS
     step = CompiledStep(model)
-    pos = torch.empty((), dtype=torch.long, device=dev)
+    pos = torch.empty(() if first is None else (b,), dtype=torch.long,
+                      device=dev)
     t1 = time.perf_counter()
-    for t in range(plen, plen + gen):
-        if eos_id is None:
-            out.append(tok.int())
-        else:
-            # a row's EOS token is emitted, later positions hold pad_id, and
-            # once every row is done the remaining steps are skipped
-            out.append(torch.where(done, pad_id, tok).int())
-            done |= tok == eos_id
-            if bool(done.all()):
-                break
-        pos.fill_(t)              # on the device: no host-to-device copy
-        logits, cache = step(params, cache, tok, pos)
-        tok = logits.argmax(dim=-1)
-    _sync(dev)
+    with otr.span("decode", trace_id=tid, batch=b, gen=gen):
+        for i, t in enumerate(range(plen, plen + gen)):
+            if eos_id is None:
+                out.append(tok.int())
+            else:
+                # a row's EOS token is emitted, later positions hold
+                # pad_id, and once every row is done the remaining steps
+                # are skipped
+                out.append(torch.where(done, pad_id, tok).int())
+                done |= tok == eos_id
+                if bool(done.all()):
+                    break
+            # on the device: no host-to-device copy
+            if first is None:
+                pos.fill_(t)
+            else:
+                torch.add(first, i, out=pos)
+            logits, cache = step(params, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+        synchronize(dev)
     t_gen = time.perf_counter() - t1
+    omet.counter_inc("serve_static_tokens_total", b * len(out))
     if len(out) < gen:
         out.extend([torch.full((b,), pad_id, dtype=torch.int32,
                                device=dev)] * (gen - len(out)))
@@ -89,21 +151,20 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
 def generate(model, params, prompts, gen: int, max_len: int, *,
              eos_id: Optional[int] = None, pad_id: int = -1,
              prompt_pad_id: Optional[int] = None, device="cuda"):
-    """Greedy decode for a batch of equal-length prompts on ``device``.
+    """Greedy decode for a batch of prompts on ``device``.
 
     ``model`` is anything with the serving surface (``prefill`` /
-    ``decode_step``): the dense Model or a CompressedModel.  Returns
-    (tokens (B, gen) int32, t_prefill_s, t_gen_s).  ``eos_id`` ends rows
-    early: the EOS token is emitted, later positions hold ``pad_id``, and
-    decode stops once every row is done."""
-    if prompt_pad_id is not None:
-        raise NotImplementedError(
-            "ragged (left-padded) prompts need the continuous-batching "
-            "mixer's slot writes, which the port does not have yet")
+    ``init_cache`` / ``decode_step``): the dense Model or a
+    CompressedModel.  Returns (tokens (B, gen) int32, t_prefill_s,
+    t_gen_s).  Prompts are equal-length by default; pass ``prompt_pad_id``
+    to serve LEFT-padded ragged rows (each row prefills alone at its real
+    length and decodes at its own position).  ``eos_id`` ends rows early:
+    the EOS token is emitted, later positions hold ``pad_id``, and decode
+    stops once every row is done."""
     dev = resolve(device)
     prompts = torch.as_tensor(prompts, device=dev).long()
     return _generate(model, params, prompts, gen, max_len, eos_id=eos_id,
-                     pad_id=pad_id)
+                     pad_id=pad_id, prompt_pad_id=prompt_pad_id)
 
 
 def compressed_model(cfg, params, plan: Optional[ExecPlan] = None,
@@ -133,6 +194,24 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--compressed", action="store_true",
                     help="serve the shipped bitmap plan's compressed store")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request wall-clock budget in seconds (mixer "
+                         "mode)")
+    ap.add_argument("--mixer", action="store_true",
+                    help="continuous batching: serve a mixed-length request "
+                         "stream through repro_torch.launch.mixer instead of "
+                         "one static lockstep batch")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="decode slots for --mixer (default: --batch)")
+    ap.add_argument("--eos", type=int, default=None,
+                    help="EOS token id: rows/requests stop early once it is "
+                         "emitted (tail padded with pad_id)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature for --mixer requests "
+                         "(0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k cutoff for sampled --mixer decoding "
+                         "(0 = full vocab)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -146,13 +225,44 @@ def main(argv=None) -> None:
     if args.compressed:
         model, params = compressed_model(cfg, params, device=dev)
         label += f" [compressed: ratio={model.store.achieved_ratio():.3f}]"
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     rng = np.random.default_rng(0)
+
+    if args.mixer:
+        slots = args.slots or args.batch
+        # mixed-length stream: prompt lengths cycle below --prompt-len so
+        # admissions land at distinct positions (the point of the mixer)
+        reqs = []
+        for i in range(args.batch):
+            plen = max(1, args.prompt_len - (i % 4) * (args.prompt_len // 5))
+            reqs.append(Request(
+                uid=f"req{i}", prompt=rng.integers(0, cfg.vocab, (plen,)),
+                max_new=args.gen, temperature=args.temperature,
+                top_k=args.top_k, seed=i))
+        mx = Mixer(model, params, slots=slots,
+                   max_len=args.prompt_len + args.gen, eos_id=args.eos,
+                   deadline_s=args.deadline)
+        results = mx.run(reqs)
+        st = mx.stats()
+        print(f"[serve/mixer] {label}: slots={slots} requests={len(reqs)} "
+              f"on {where}")
+        for req, res in zip(reqs, results):
+            print(f"  {res.uid}: prompt={len(req.prompt)} "
+                  f"tok={res.n_tokens}/{len(res.tokens)} slot={res.slot} "
+                  f"admit_step={res.admit_step} "
+                  f"eos={res.report.eos_hit} out={res.tokens[:6].tolist()}")
+        print(f"  admit   {st['admits']} requests in {st['t_admit_s']:.3f}s")
+        print(f"  decode  {st['tokens']} tok in {st['t_decode_s']:.3f}s "
+              f"over {st['steps']} steps "
+              f"({_rate(st['tokens'], st['t_decode_s']):.1f} tok/s) "
+              f"slot_reuse_admits={st['slot_reuse_admits']}")
+        return
+
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))
     toks, t_prefill, t_gen = generate(
         model, params, prompts, args.gen, args.prompt_len + args.gen,
-        device=dev)
-    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        eos_id=args.eos, device=dev)
     n_pref = args.batch * args.prompt_len
     n_gen = args.batch * args.gen
     print(f"[serve] {label}: batch={args.batch} on {where}")

@@ -5,6 +5,7 @@ and no JAX:  ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Without a CUDA device every test skips: the kernels have no CPU mode.
 """
 
+import contextlib
 import dataclasses
 import re
 
@@ -842,3 +843,168 @@ def test_prefill_kernels_capture_into_a_graph(card, pipeline):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The continuous-batching mixer and ragged serving on the card
+# ---------------------------------------------------------------------------
+
+MIX_PLENS = [3, 5, 7, 9, 11, 4, 6, 13]
+MIX_NEW = [6, 7, 8, 6, 7, 8, 6, 7]
+
+
+def _mix_requests(cfg, seed=0):
+    """``tests/test_mixer.py``'s stream: 8 prompts into 3 slots."""
+    from repro_torch.launch.mixer import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=f"r{i}", prompt=rng.integers(1, cfg.vocab, (p,)),
+                    max_new=n)
+            for i, (p, n) in enumerate(zip(MIX_PLENS, MIX_NEW))]
+
+
+def _mix(model, params, reqs, record=False):
+    """(mixer, tokens per request, logits per request or None) of one
+    stream, 3 slots, max_len 48."""
+    from repro_torch.launch.mixer import Mixer
+    from repro_torch.launch.record import record_logits
+    mx = Mixer(model, params, slots=3, max_len=48)
+    logits = record_logits(mx, lambda t: t.float().cpu()) if record \
+        else None
+    return mx, [torch.from_numpy(r.tokens) for r in mx.run(reqs)], logits
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_mixer_graph_equals_eager(card, kind, pipeline):
+    """Reduced chatglm3-6b, bf16: a stream through the graph gives every
+    request the eager stream's tokens; each stream launches the served
+    kernel 7 x layers x (admissions + decode steps) times, nothing else."""
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _served(kind)
+    name = ("bitmap_spmm" if kind == "bitmap" else "nm_spmm") + \
+        ("" if pipeline else "_naive")
+    runs = []
+    with ops.pipeline_default(pipeline):
+        for mode in ("graph", "eager"):
+            ops.reset_launch_counts()
+            with compiled.disable() if mode == "eager" \
+                    else contextlib.nullcontext():
+                mx, toks, _ = _mix(cm, pruned, _mix_requests(cfg))
+            st, counts = mx.stats(), ops.launch_counts()
+            assert counts[name] == sum(counts.values()) == \
+                7 * cfg.n_layers * (st["admits"] + st["steps"])
+            assert st["slot_reuse_admits"] >= 1
+            runs.append(toks)
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), (i, a, b)
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_mixer_stream_keeps_one_graph_without_a_copy(card, kind):
+    """The stream that captures the mixer's graph leaves ``serial`` 0: its
+    admissions after the capture write into the graph's own K / V through
+    the handle, which stays valid.  A second stream copies its first
+    cache in once (serial 1)."""
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _served(kind)
+    mx, toks, _ = _mix(cm, pruned, _mix_requests(cfg))
+    steps = mx.stats()["steps"]
+    (g,) = compiled.graphs(cm).values()
+    assert g.serial == 0 and g.replays == steps - 1
+    assert g.pos.shape == (3,) and g.tokens.shape == (3,)
+    assert mx.cache.graph() is g
+    assert mx.cache["self"]["k"] is g.cache["self"]["k"]
+    assert any(e["event"] == "admit" and e["step"] > 0 for e in mx.events)
+    _, again, _ = _mix(cm, pruned, _mix_requests(cfg))
+    assert list(compiled.graphs(cm).values()) == [g]
+    assert g.serial == 1 and g.replays == 2 * steps - 1
+    for a, b in zip(toks, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_stale_mixer_cannot_write_another_streams_cache(card, kind):
+    """Two mixers at one key, interleaved: the first one's step captures
+    the graph, the second one's copies its cache in.  An admission through
+    the first mixer's handle then raises and leaves the second stream's
+    K / V as they were, and the second stream decodes on."""
+    from repro_torch.launch import compiled
+    from repro_torch.launch.mixer import Mixer
+    cfg, cm, pruned = _served(kind)
+    reqs = _mix_requests(cfg)
+    first = Mixer(cm, pruned, slots=3, max_len=48)
+    second = Mixer(cm, pruned, slots=3, max_len=48)
+    for mx, batch in ((first, reqs[:2]), (second, reqs[2:5])):
+        for req in batch:
+            mx.admit(req)
+        mx._step()
+    (g,) = compiled.graphs(cm).values()
+    assert g.serial == 1 and second.cache.graph() is g
+    before = {name: t.clone() for name, t in g.cache["self"].items()}
+    with pytest.raises(RuntimeError, match="taken another cache"):
+        first.admit(reqs[5])
+    for name, t in g.cache["self"].items():
+        assert torch.equal(t, before[name])
+    second._step()
+    assert g.serial == 1 and g.replays == 2
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_ragged_generate_graph_equals_eager(card, kind):
+    """Left-padded rows decode with a (B,) position through the graph:
+    tokens equal the eager run's."""
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _served(kind)
+    rng = np.random.default_rng(4)
+    rows = [rng.integers(1, cfg.vocab, (p,)) for p in (3, 7, 5)]
+    batch = torch.tensor(np.stack([np.concatenate([np.zeros(7 - len(r),
+                                                            np.int64), r])
+                                   for r in rows]), device=card)
+    toks, _, _ = cm.generate(pruned, batch, 6, prompt_pad_id=0)
+    ((key, g),) = compiled.graphs(cm).items()
+    assert key[2] == 1 and g.replays == 5 and toks.dtype == torch.int32
+    with compiled.disable():
+        eager, _, _ = cm.generate(pruned, batch, 6, prompt_pad_id=0)
+    assert torch.equal(toks, eager)
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_mixer_fp32_on_the_card_holds_to_the_cpu(card, kind, monkeypatch):
+    """The reduced stream at fp32 (TF32 off) on the card against the same
+    stream on the CPU, same pruned weights and plan: each request, up to
+    and including its first step whose top-2 logit gap on the CPU is
+    within twice the bound, has logits within 1e-4 max|logits| and equal
+    tokens (the kernels sum in another order than the plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    cfg = get_config("chatglm3-6b").reduced()
+    plan = shipped_plan(cfg, "bitmap")
+    if kind == "nm":
+        plan = _as_nm(plan)
+    cm_cpu, pruned_cpu = serve.compressed_model(
+        cfg, Model(cfg).init(seed=0, device="cpu"), plan, device="cpu")
+    cm, pruned = serve.compressed_model(
+        cfg, params_from_numpy(params_to_numpy(pruned_cpu), card), plan,
+        device=card)
+    for group in ("attn", "ffn"):
+        for leaf, w in pruned["blocks"][group].items():
+            assert torch.equal(w.cpu(), pruned_cpu["blocks"][group][leaf])
+    _, toks_cpu, lg_cpu = _mix(cm_cpu, pruned_cpu, _mix_requests(cfg),
+                               record=True)
+    _, toks, lg = _mix(cm, pruned, _mix_requests(cfg), record=True)
+    compared = 0
+    for i, uid in enumerate(lg_cpu):
+        for j, (a, b) in enumerate(zip(lg[uid], lg_cpu[uid])):
+            bound = 1e-4 * b.abs().max().item()
+            assert (a - b).abs().max().item() <= bound, (uid, j)
+            compared += 1
+            top2 = b.topk(2).values
+            if (top2[0] - top2[1]).item() <= 2 * bound:
+                break                     # a near tie: tokens may part
+            assert toks[i][j] == toks_cpu[i][j], (uid, j)
+    assert compared >= len(MIX_PLENS)

@@ -398,12 +398,19 @@ def test_default_device_raises_without_cuda():
 
 
 def test_ragged_prompts_and_overlong_requests_raise():
+    """Ragged (left-padded) prompts serve, each row as it is served alone
+    (``tests/test_torch_mixer.py`` holds them to the reference); an
+    overlong request raises."""
     cfg = get_config("chatglm3-6b").reduced()
     params = Model(cfg).init(seed=0, device="cpu")
+    ragged = torch.tensor([[0, 0, 5, 6], [1, 2, 3, 4]])
+    toks, _, _ = serve.generate(Model(cfg), params, ragged, 2, 6,
+                                prompt_pad_id=0, device="cpu")
+    for r, row in enumerate(([5, 6], [1, 2, 3, 4])):
+        alone, _, _ = serve.generate(Model(cfg), params, torch.tensor([row]),
+                                     2, 6, device="cpu")
+        assert torch.equal(toks[r], alone[0]), r
     prompts = torch.ones(2, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        serve.generate(Model(cfg), params, prompts, 2, 6, prompt_pad_id=0,
-                       device="cpu")
     with pytest.raises(ValueError, match="exceeds"):
         serve.generate(Model(cfg), params, prompts, 4, 6, device="cpu")
     assert serve._rate(5, 0.0) == 5 / 1e-9
