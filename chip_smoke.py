@@ -96,7 +96,40 @@ non-zero exit code when it fails:
    the shortest and of the longest prompt and of one graphed mixer step
    at 4 and at 16 slots give each one's device busy time, its idle share
    of the same call untraced, the sparse kernels' and the copies' share
-   and the kernels that take the most time.
+   and the kernels that take the most time;
+7. guarded serving (``repro_torch.runtime``): full-width chatglm3-6b on
+   both shipped plans, batch 4, prompt 128, 16 tokens, bf16.  The seconds
+   of ``compress_params`` (one checksum pass included), of
+   ``checksum_store`` (its roles in a thread pool) against each role's
+   digest taken alone, in turn, and of ``verify``, which must say ``ok``
+   for every role.  A healthy guarded run (``serve.generate(guarded=True)``, verify
+   on) must report healthy, give tokens ``torch.equal`` to the unguarded
+   run's and launch the served kernel 7 x layers x (1 + 16) times, every
+   decode step a replay of the unguarded run's graph; once more with the
+   naive kernels; then 5 guarded runs (verify off) and 5 unguarded, in
+   turns, give the median and min-max of prefill ms and decode ms/token.
+   Faults on the plan's first role (``attn.wq``), layer 0: a bit flip
+   (``bitflip_payload``) must verify as ``checksum_mismatch``, demote that
+   role, launch 6 x layers x 17 and give the tokens of
+   ``cm.demoted([role])`` served unguarded; ``corrupt_structure``
+   (``truncate_offsets`` on bitmap, ``nm_indices_oob`` on 2:4, checksums
+   stripped) the reference's reason at layer 0; a NaN payload
+   (``poison_payload_nan``) with verify on ``checksum_mismatch``, and with
+   verify off the outcome the store decides: the NaN makes one head's
+   attention output NaN, and where ``attn.wo`` stores no weight on that
+   head's rows the kernels never read it, so the logits stay finite and
+   the tokens are the healthy run's (the card's gap, printed); else
+   ``nonfinite_logits`` and the dense model's tokens.  On ``ffn.w_down``,
+   whose output joins the residual stream, a NaN payload (verify off) and
+   poisoned activations (``poison_activations``) must give
+   ``nonfinite_logits``, one retry, the switch to the dense model at the
+   prefill (the kernels' plain versions over the store give NaN too) and
+   its tokens; a served kernel whose output is overwritten with NaN on the
+   verified store ``KernelNonFiniteError``, with no dense step;
+   ``kernel_failure`` one ``kernel_failure`` row a role, no launch and the
+   dense model's tokens; a deadline of the prefill and 4.5 decode steps
+   ``deadline_hit`` with the healthy run's tokens up to it and the tail
+   padded.
 
 The line before the last is one JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -1341,6 +1374,391 @@ def phase_mixer(cfg, card: str, dev) -> dict[str, int]:
     return launches
 
 
+def _hashed_gb(store) -> float:
+    """GB that one checksum pass over ``store`` hashes: what
+    ``runtime.integrity`` digests (bitmap metadata and N:M indices
+    widened to int64)."""
+    n = 0
+    for e in store:
+        d = e.data
+        if e.kind == "bitmap":
+            nnzb = int(d.counts.sum())
+            n += nnzb * d.bn * d.bk * d.blocks.element_size() \
+                + 8 * (2 * d.counts.numel() + nnzb)
+        elif e.kind == "nm":
+            n += d.values.numel() * d.values.element_size() \
+                + 8 * d.indices.numel()
+        else:
+            n += d.numel() * d.element_size()
+    return n / 1e9
+
+
+def _digests_alone(store, sums: dict, kind: str) -> dict[str, float]:
+    """Seconds of each role's sha256 taken alone, one role after another
+    (``checksum_store`` runs the roles in a thread pool); each digest must
+    equal the pool's."""
+    import hashlib
+    from repro_torch.runtime import integrity
+    by_role: dict = {}
+    for e in store:
+        by_role.setdefault(e.role, []).append(e)
+    out = {}
+    for role in sorted(by_role):
+        t0 = time.perf_counter()
+        h = hashlib.sha256()
+        for e in sorted(by_role[role], key=lambda e: (e.layer, e.expert)):
+            integrity._digest_entry(h, e)
+        out[role] = time.perf_counter() - t0
+        if h.hexdigest() != sums[role]:
+            _fail(f"{kind}: {role}'s digest alone differs from the pool's")
+    return out
+
+
+def _nan_reaches_wo(cfg, store, poisoned, role: str) -> tuple[int, bool]:
+    """(head, reaches) for a NaN payload value in ``role`` (``attn.wq``)
+    of layer 0: the output column the NaN lands in names the head whose
+    attention output turns NaN; it reaches the logits through the kernels
+    only if ``attn.wo`` of layer 0 stores a weight on that head's rows."""
+    import torch
+    entry = poisoned.entries[(0, role, -1)]
+    d = entry.data
+    payload = d.blocks if entry.kind == "bitmap" else d.values
+    where = torch.isnan(payload).nonzero()[0].tolist()
+    if entry.kind == "bitmap":
+        b, _, c = where
+        kj = int(torch.searchsorted(d.offsets.long(), torch.tensor(
+            b, device=d.offsets.device), right=True)) - 1
+        col = kj * d.bk + c
+    else:
+        col = where[1]
+    head = col // cfg.head_dim
+    rows = range(head * cfg.head_dim, (head + 1) * cfg.head_dim)
+    wo = store.entries[(0, "attn.wo", -1)].data
+    if entry.kind == "bitmap":
+        nnzb = int(wo.counts.sum())
+        block_rows = {r // wo.bn for r in rows}
+        return head, any(int(r) in block_rows
+                         for r in wo.row_ids[:nnzb].tolist())
+    # N:M keeps n_sel rows of every group of m_group in every column, and
+    # a head's rows are whole groups: the NaN reaches every output
+    return head, True
+
+
+def phase_guarded(cfg, card: str, dev) -> dict[str, int]:
+    """Phase 7: the guarded serving runtime at full width on both shipped
+    plans (see the module docstring)."""
+    import gc
+    import torch
+    print(f"[guard] chatglm3-6b n_layers={cfg.n_layers} batch={BATCH} "
+          f"prompt={PROMPT} gen={GEN}: repro_torch.runtime.guard through "
+          f"serve.generate(guarded=True) against unguarded serve.generate, "
+          f"{RUNS} runs each in turns (verify off in the timed runs: it "
+          f"runs before the prefill and is timed apart); bf16; host clock, "
+          f"synchronised, on {card}")
+    launches: dict[str, int] = {}
+    for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
+        # one function a plan: its model, store and graphs go with its frame
+        launches.update(_guarded_plan(cfg, kind, kname, card, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[guard {kind}] after the model is deleted: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return launches
+
+
+def _guarded_plan(cfg, kind: str, kname: str, card: str, dev
+                  ) -> dict[str, int]:
+    """Phase 7 on one shipped plan; returns the launches of its healthy
+    guarded runs (pipelined and naive)."""
+    import dataclasses
+    import torch
+    from repro_torch.exec.compress import (CompressedStore, compress_params,
+                                           prune_params)
+    from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled, serve
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import guard, inject, integrity
+
+    layer_calls = 7 * cfg.n_layers
+    expected = layer_calls * (1 + GEN)
+    launches: dict[str, int] = {}
+    plan = shipped_plan(cfg, kind)
+    params = Model(cfg).init(seed=0, device=dev)
+    pruned = prune_params(params, plan, cfg)
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = compress_params(pruned, plan, cfg)
+    torch.cuda.synchronize()
+    t_compress = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sums = integrity.checksum_store(store)
+    t_sums = time.perf_counter() - t0
+    alone = _digests_alone(store, sums, kind)
+    cm = CompressedModel(Model(cfg), store)
+    t0 = time.perf_counter()
+    status = cm.verify()
+    t_verify = time.perf_counter() - t0
+    roles = [op.role for op in plan.ops]
+    if status != {r: "ok" for r in roles} or sums != store.plan.checksums:
+        _fail(f"{kind}: verify after compress gives {status}; checksums "
+              f"{'equal' if sums == store.plan.checksums else 'differ'}")
+    gb = _hashed_gb(store)
+    print(f"[guard {kind}] compress_params {t_compress:.3f} s (one "
+          f"checksum pass included); checksum_store {t_sums:.3f} s; "
+          f"verify {t_verify:.3f} s, all {len(status)} roles ok; "
+          f"{gb:.3f} GB hashed a pass ({gb / t_verify:.2f} GB/s in "
+          f"verify), on {card}")
+    print(f"[guard {kind}] each role's digest alone, in turn: "
+          + ", ".join(f"{r} {t:.3f} s" for r, t in alone.items())
+          + f"; sum {sum(alone.values()):.3f} s against checksum_store's "
+          f"thread pool {t_sums:.3f} s ({sum(alone.values()) / t_sums:.2f}x;"
+          f" the largest role alone {max(alone.values()):.3f} s)")
+    pg = torch.Generator(device=dev).manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                            device=dev)
+
+    def run(model, guarded, **kw):
+        """One counted run: tokens, prefill ms, decode ms/token,
+        launch counts and (guarded) the report."""
+        ops.reset_launch_counts()
+        out = serve.generate(model, pruned, prompts, GEN, PROMPT + GEN,
+                             guarded=guarded, device=dev, **kw)
+        rep = out[3] if guarded else None
+        steps = rep.steps if guarded else GEN
+        return (out[0], 1e3 * out[1], 1e3 * out[2] / max(steps, 1),
+                ops.launch_counts(), rep)
+
+    def only(counts, name, n, label):
+        if counts[name] != n or sum(counts.values()) != n:
+            _fail(f"{kind} {label}: launch counts {counts}; expected "
+                  f"{n} of {name} only")
+
+    # healthy: the unguarded run captures the graph, the guarded one
+    # (verify on) must replay it with the same launches and tokens
+    toks, *_, counts, _ = run(cm, False)
+    only(counts, kname, expected, "unguarded")
+    (g,) = compiled.graphs(cm).values()
+    replays = g.replays
+    toks_g, *_, counts, rep = run(cm, True)
+    only(counts, kname, expected, "guarded")
+    launches[kname] = counts[kname]
+    if not rep.healthy or not torch.equal(toks_g, toks) or \
+            len(compiled.graphs(cm)) != 1 or \
+            next(iter(compiled.graphs(cm).values())) is not g or \
+            g.replays != replays + GEN:
+        _fail(f"{kind} guarded: healthy={rep.healthy}, tokens "
+              f"{'equal' if torch.equal(toks_g, toks) else 'differ'}, "
+              f"replays {replays} -> {g.replays} (expected +{GEN}), "
+              f"{len(compiled.graphs(cm))} graphs")
+    print(f"[guard {kind}] healthy guarded run: report healthy, tokens "
+          f"torch.equal to unguarded serve.generate, {expected} launches "
+          f"of {kname} (7 * {cfg.n_layers} * (1 + {GEN})), every "
+          f"decode step a replay of the unguarded run's graph")
+    with ops.pipeline_default(False):
+        toks_n, *_, counts, rep = run(cm, True, verify=False)
+    only(counts, f"{kname}_naive", expected, "guarded naive")
+    launches[f"{kname}_naive"] = counts[f"{kname}_naive"]
+    if not rep.healthy or not torch.equal(toks_n, toks):
+        _fail(f"{kind} guarded naive: healthy={rep.healthy}, tokens "
+              f"{toks_n.tolist()} against {toks.tolist()}")
+    print(f"[guard {kind} naive] healthy guarded run: tokens equal, "
+          f"{expected} launches of {kname}_naive")
+    times = {True: ([], []), False: ([], [])}
+    for _ in range(RUNS):
+        for guarded in (False, True):
+            out = run(cm, guarded, **({"verify": False} if guarded
+                                      else {}))
+            only(out[3], kname, expected, f"timed guarded={guarded}")
+            if not torch.equal(out[0], toks) or \
+                    (guarded and not out[4].healthy):
+                _fail(f"{kind} timed guarded={guarded}: tokens "
+                      f"{out[0].tolist()}")
+            times[guarded][0].append(out[1])
+            times[guarded][1].append(out[2])
+    med = {m: sorted(times[m][1])[RUNS // 2] for m in times}
+    for guarded in (False, True):
+        pre, dec = times[guarded]
+        print(f"[guard {kind} {'guarded' if guarded else 'unguarded'}] "
+              f"over {RUNS} runs: prefill ms {_spread(pre)}; decode "
+              f"ms/token {_spread(dec)} — bf16, graphed, on {card}")
+    print(f"[guard {kind}] guarded / unguarded median decode ms/token: "
+          f"{med[True] / med[False]:.4f}")
+
+    # the faults target the plan's first role, layer 0
+    role = roles[0]
+    if role != "attn.wq":
+        _fail(f"{kind}: the plan's first role is {role}, not attn.wq")
+    want_dense, *_ = run(cm.model, False)
+    dense_graph = next(iter(compiled.graphs(cm.model).values()))
+    # bit flip: caught by the checksum, the role demoted, 6 of 7 kernels
+    bad = CompressedModel(cm.model, inject.bitflip_payload(store, role))
+    toks_b, *_, counts, rep = run(bad, True)
+    want_verify = dict(status, **{role: "checksum_mismatch"})
+    only(counts, kname, 6 * cfg.n_layers * (1 + GEN), "bit flip")
+    want_b, *_ = run(cm.demoted([role]), False)
+    if rep.verify != want_verify or \
+            rep.fallback_counts() != {"integrity_violation": 1} or \
+            rep.fallbacks[0]["role"] != role or \
+            rep.switched_to_dense_at is not None or \
+            not torch.equal(toks_b, want_b):
+        _fail(f"{kind} bit flip: {rep.stable_dict()}; tokens "
+              f"{'equal' if torch.equal(toks_b, want_b) else 'differ'}")
+    print(f"[guard {kind}] bit flip in {role} layer 0: verify says "
+          f"checksum_mismatch for {role} only, the role demoted, "
+          f"{6 * cfg.n_layers * (1 + GEN)} launches (6 * "
+          f"{cfg.n_layers} * (1 + {GEN})), tokens torch.equal to "
+          f"cm.demoted([{role!r}]) served unguarded")
+    del bad
+    # corrupted structure, caught by the invariants alone
+    mode = "truncate_offsets" if kind == "bitmap" else "nm_indices_oob"
+    stripped = CompressedStore(
+        dataclasses.replace(store.plan, checksums={}), store.entries)
+    broken = inject.corrupt_structure(stripped, role, mode)
+    t0 = time.perf_counter()
+    report = integrity.verify_report(broken)
+    t_struct = time.perf_counter() - t0
+    want_reason = inject.STRUCTURAL_MODES[mode]
+    try:
+        broken.verify()
+        err = None
+    except integrity.IntegrityError as e:
+        err = e
+    if report != dict(status, **{role: want_reason}) or err is None or \
+            (err.role, err.reason, err.layer) != (role, want_reason, 0):
+        _fail(f"{kind} {mode}: verify_report {report}, error {err!r}")
+    print(f"[guard {kind}] {mode} in {role} layer 0, checksums "
+          f"stripped: {want_reason} (layer 0), every other role ok; "
+          f"structure-only verify {t_struct:.3f} s")
+    del stripped, broken
+    # a NaN payload in the first role: verify catches it; with verify off
+    # it turns one head's attention output NaN, which the kernels read
+    # only where attn.wo stores weights on that head's rows (the plain
+    # versions' dense matmul multiplies it by zero, giving NaN)
+    nan_q = inject.poison_payload_nan(store, role)
+    head, reaches = _nan_reaches_wo(cfg, store, nan_q, role)
+    nan = CompressedModel(cm.model, nan_q)
+    toks_q, *_, counts, rep = run(nan, True, verify=False)
+    if reaches:
+        ok = rep.fallback_counts() == {"nonfinite_logits": 1} and \
+            rep.switched_to_dense_at == -1 and \
+            torch.equal(toks_q, want_dense)
+        seen = ("nonfinite_logits, the dense model's tokens")
+    else:
+        ok = rep.healthy and torch.equal(toks_q, toks) and \
+            counts[kname] == expected
+        seen = ("finite logits, a healthy report and the healthy run's "
+                "tokens: the card's gap, the NaN is never read")
+    if not ok:
+        _fail(f"{kind} poison_payload_nan ({role}, head {head}, "
+              f"{'reaches' if reaches else 'misses'} attn.wo's stored "
+              f"weights), verify off: {rep.stable_dict()}")
+    print(f"[guard {kind}] poison_payload_nan ({role} layer 0, head "
+          f"{head}, whose attn.wo rows "
+          f"{'hold' if reaches else 'hold no'} stored weights), verify "
+          f"off: {seen}")
+    toks_q, *_, counts, rep = run(nan, True)
+    if rep.verify != dict(status, **{role: "checksum_mismatch"}) or \
+            rep.fallback_counts() != {"integrity_violation": 1} or \
+            not torch.equal(toks_q, want_b):
+        _fail(f"{kind} poison_payload_nan ({role}), verify on: "
+              f"{rep.stable_dict()}")
+    print(f"[guard {kind}] poison_payload_nan ({role}), verify on: "
+          f"checksum_mismatch, the role demoted, tokens torch.equal to "
+          f"cm.demoted([{role!r}])")
+    del nan, nan_q
+    # poisoned payload (verify off) and poisoned activations: NaN
+    # logits from the prefill on, one retry, the plain versions over the
+    # store give NaN too, the dense model serves.  The NaN goes into
+    # ffn.w_down, whose output joins the residual stream, so it reaches
+    # stored weights of every later projection
+    poisoned = "ffn.w_down"
+    nan = CompressedModel(cm.model, inject.poison_payload_nan(store,
+                                                              poisoned))
+    dense_replays = dense_graph.replays
+    for label, model, ctx in (
+            ("poison_payload_nan", nan, contextlib.nullcontext()),
+            ("poison_activations", cm,
+             inject.poison_activations(poisoned))):
+        with ctx:
+            toks_p, *_, counts, rep = run(model, True, verify=False)
+        only(counts, kname, 2 * layer_calls, label)
+        if rep.fallback_counts() != {"nonfinite_logits": 1} or \
+                rep.switched_to_dense_at != -1 or \
+                rep.dense_steps != GEN or rep.retries != 1 or \
+                not torch.equal(toks_p, want_dense):
+            _fail(f"{kind} {label}: {rep.stable_dict()}; tokens "
+                  f"{toks_p.tolist()} against the dense model's "
+                  f"{want_dense.tolist()}")
+        print(f"[guard {kind}] {label} ({poisoned}): nonfinite_logits, one "
+              f"retry, switched_to_dense_at -1, {GEN} dense steps, "
+              f"tokens torch.equal to the dense model's on the same "
+              f"pruned weights; {2 * layer_calls} launches (two prefill "
+              f"attempts)")
+    if dense_graph.replays != dense_replays + GEN:
+        _fail(f"{kind}: the dense graph replayed "
+              f"{dense_graph.replays - dense_replays} times over both "
+              f"poisons; expected {GEN} (the payload's; the activations' "
+              f"steps are eager)")
+    del nan
+    # a served kernel whose output turns NaN on the verified store: the
+    # plain versions give finite logits, so the fault is the kernel's and
+    # guarded_generate raises; the dense model serves nothing
+    wrapper = "_bitmap" if kind == "bitmap" else "_nm"
+    kernel = getattr(ops, wrapper)
+
+    def nan_out(*args):
+        return torch.full_like(kernel(*args), float("nan"))
+
+    setattr(ops, wrapper, nan_out)
+    dense_replays = dense_graph.replays
+    try:
+        run(cm, True, verify=False)
+        raised = None
+    except guard.KernelNonFiniteError as e:
+        raised = e
+    finally:
+        setattr(ops, wrapper, kernel)
+    if raised is None or dense_graph.replays != dense_replays:
+        _fail(f"{kind}: a kernel's NaN output on a verified store gave "
+              f"{raised!r}, the dense graph replayed "
+              f"{dense_graph.replays - dense_replays} times")
+    print(f"[guard {kind}] a kernel's output overwritten with NaN: "
+          f"KernelNonFiniteError ({raised}), no dense step")
+    # an injected kernel failure: every kernel role demoted, no launch
+    with inject.kernel_failure():
+        toks_k, *_, counts, rep = run(cm, True, verify=False)
+    only(counts, kname, 0, "kernel failure")
+    if sorted(f["role"] for f in rep.fallbacks) != sorted(roles) or \
+            rep.fallback_counts() != {"kernel_failure": len(roles)} or \
+            rep.switched_to_dense_at is not None or \
+            not torch.equal(toks_k, want_dense):
+        _fail(f"{kind} kernel failure: {rep.stable_dict()}")
+    print(f"[guard {kind}] kernel_failure: one kernel_failure row for "
+          f"each of the {len(roles)} roles, no launch, tokens torch.equal "
+          f"to the dense model's")
+    # a deadline of the prefill and four and a half decode steps
+    budget = (sorted(times[True][0])[RUNS // 2]
+              + 4.5 * med[True]) / 1e3
+    toks_t, *_, counts, rep = run(cm, True, verify=False,
+                                  deadline_s=budget, pad_id=-1)
+    steps = rep.steps
+    if not rep.deadline_hit or steps >= GEN or \
+            rep.fallback_counts() != {"deadline_exceeded": 1} or \
+            not bool((toks_t[:, steps:] == -1).all()) or \
+            not torch.equal(toks_t[:, :steps], toks[:, :steps]):
+        _fail(f"{kind} deadline {budget:.4f} s: {rep.stable_dict()}")
+    print(f"[guard {kind}] deadline {1e3 * budget:.3f} ms: deadline_hit, "
+          f"{steps} of {GEN} tokens (equal to the healthy run's), the "
+          f"tail padded")
+    print(f"[guard {kind}] graphs held: {len(compiled.graphs(cm))} "
+          f"(compressed), {len(compiled.graphs(cm.model))} (dense); "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1358,6 +1776,7 @@ def main() -> None:
     flash = phase_flash(cfg, card, dev)
     launches = phase_serving(cfg, card, dev)
     mixer_launches = phase_mixer(cfg, card, dev)
+    guarded_launches = phase_guarded(cfg, card, dev)
 
     sources = {
         "bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
@@ -1377,6 +1796,7 @@ def main() -> None:
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": launches[name],
                  "mixer_launches": mixer_launches[name],
+                 "guarded_launches": guarded_launches[name],
                  "max_abs_err": a.max_abs_err}
         for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
             s = a.sums[(m, torch.bfloat16)]

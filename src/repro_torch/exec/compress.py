@@ -5,7 +5,9 @@ servable structure (block-sparse for bitmap roles, N:M for nm roles);
 :func:`compress_params` stores each (layer, role) weight in the plan's
 chosen representation — :class:`~repro_torch.kernels.ops.BitmapCompressed`,
 :class:`~repro_torch.kernels.ops.NMCompressed` or the dense tensor — on
-the weights' own device, with exact achieved-size accounting.
+the weights' own device, with exact achieved-size accounting, and records
+each role's content digest in the plan (``ExecPlan.checksums``,
+:func:`repro_torch.runtime.integrity.checksum_store`).
 
 The reference also stacks the store along the layer axis for
 ``lax.scan``; the port serves per-layer entries from a Python layer loop,
@@ -85,6 +87,27 @@ class CompressedStore:
         out["total"] = self.achieved_ratio()
         return out
 
+    def verify(self) -> dict[str, str]:
+        """Structural invariants + content checksums for every role.
+
+        Raises :class:`repro_torch.runtime.integrity.IntegrityError` on the
+        first violation; returns ``{role: "ok"}`` otherwise.  Checksums
+        compare against ``plan.checksums`` (recorded by
+        :func:`compress_params`); plans without recorded digests get
+        structure-only verification."""
+        from repro_torch.runtime import integrity
+        return integrity.verify(self)
+
+    def without_roles(self, roles) -> "CompressedStore":
+        """A new store with the given roles' entries removed.
+
+        Dropping a role makes the dispatcher fall through to the dense
+        matmul over the (pruned) params — the guarded serving path's
+        per-role demotion after an integrity violation."""
+        drop = set(roles)
+        return CompressedStore(self.plan, {
+            k: e for k, e in self.entries.items() if e.role not in drop})
+
 
 def _stored_bits(kind: str, data: Any, vb: int) -> float:
     """Exact stored size: payload + metadata of the realized encoding."""
@@ -102,7 +125,8 @@ def compress_params(params: dict, plan: ExecPlan, cfg: ModelConfig
                     ) -> CompressedStore:
     """Compress every planned (layer, role) weight of ``params`` (whose
     weights already carry the plan's structure, see :func:`prune_params`)
-    on the weights' device.  Dense-kind entries keep the tensor."""
+    on the weights' device.  Dense-kind entries keep the tensor.  The
+    store's plan is a copy of ``plan`` with every role's checksum."""
     check_plan(plan, cfg)
     n_sel, m_group = _nm_shape(plan)
     entries: dict[tuple[int, str, int], CompressedTensor] = {}
@@ -122,7 +146,14 @@ def compress_params(params: dict, plan: ExecPlan, cfg: ModelConfig
                 layer=layer, role=op.role, expert=-1, kind=ch.kind,
                 data=data, dense_bits=float(w.numel() * vb),
                 stored_bits=_stored_bits(ch.kind, data, vb))
-    return CompressedStore(plan, entries)
+    store = CompressedStore(plan, entries)
+    # record per-role content digests IN the plan: the plan is the durable
+    # artifact (JSON round-tripped), so a store rebuilt or reloaded later
+    # verifies against what compression actually produced
+    from repro_torch.runtime import integrity
+    store.plan = dataclasses.replace(
+        plan, checksums=integrity.checksum_store(store))
+    return store
 
 
 def prune_params(params: dict, plan: ExecPlan, cfg: ModelConfig) -> dict:

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.exec.compress import CompressedStore
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -122,11 +123,12 @@ def _guarded_kernel(role: str, fn) -> Optional[torch.Tensor]:
 
 def serves_eagerly() -> bool:
     """Whether a compiled decode step must run eagerly: ``instrument()``,
-    :func:`kernel_guard` or a kernel fault / dispatch hook is active.  Each
-    acts in Python at every dispatch, which a CUDA graph's replay does not
-    run (:mod:`repro_torch.launch.compiled`)."""
+    :func:`kernel_guard`, a kernel fault / dispatch hook or a rebound
+    ``layers.proj`` (activation poisoning) is active.  Each acts in Python
+    at every dispatch, which a CUDA graph's replay does not run
+    (:mod:`repro_torch.launch.compiled`)."""
     return _ACTIVE_COUNTERS is not None or _KERNEL_GUARD is not None \
-        or kops.hooks_installed()
+        or kops.hooks_installed() or L.proj_rebound()
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +143,9 @@ class _Dispatcher:
     of the blocks in any block-column (the reference's unrolled
     dispatcher's ``t_max``): the naive kernel's loop bound."""
 
-    def __init__(self, store: CompressedStore):
+    def __init__(self, store: CompressedStore, plain: bool = False):
         self.store = store
+        self.plain = plain
         self._t_max: dict[str, int] = {}
         for e in store:
             if e.kind == "bitmap":
@@ -158,7 +161,12 @@ class _Dispatcher:
         x2 = x.reshape(-1, x.shape[-1])
         m = x2.shape[0]
         d = entry.data
-        if entry.kind == "bitmap":
+        if self.plain and entry.kind == "bitmap":   # the witness: no launch
+            y = ref.bitmap_spmm_ref(x2, d.blocks, d.counts, d.row_ids, d.n,
+                                    d.k)
+        elif self.plain and entry.kind == "nm":
+            y = ref.nm_spmm_ref(x2, d.values, d.indices, d.n_sel, d.m_group)
+        elif entry.kind == "bitmap":
             y = _guarded_kernel(role, lambda: kops.bitmap_spmm(
                 x2, d, t_max=self._t_max[role]))
             if y is None:                     # guarded kernel failure: dense
@@ -183,9 +191,15 @@ class _Dispatcher:
 
 
 @contextlib.contextmanager
-def active(store: CompressedStore) -> Iterator[_Dispatcher]:
-    """Install the dispatch hook for ``store``."""
-    disp = _Dispatcher(store)
+def active(store: CompressedStore, plain: bool = False
+           ) -> Iterator[_Dispatcher]:
+    """Install the dispatch hook for ``store``.  With ``plain``, each
+    compressed projection is computed by its kernel's plain version
+    (:mod:`repro_torch.kernels.ref`) over the same entry, on any device
+    and with no launch: the guarded serving path's witness for a kernel's
+    non-finite output (:mod:`repro_torch.runtime.guard`), never a serving
+    path."""
+    disp = _Dispatcher(store, plain)
     L.set_proj_hook(disp)
     try:
         yield disp
@@ -209,6 +223,23 @@ class CompressedModel:
     @property
     def cfg(self):
         return self.model.cfg
+
+    def verify(self) -> dict[str, str]:
+        """Verify the store this model serves from (checksums +
+        structure).  Raises the first
+        :class:`repro_torch.runtime.integrity.IntegrityError`; returns
+        ``{role: "ok"}`` otherwise.  The reference verifies its
+        layer-stacked store too; the port has none."""
+        return self.store.verify()
+
+    def demoted(self, roles) -> "CompressedModel":
+        """A new model with the given roles served DENSE (entries dropped
+        from the store).  The guarded serving path calls this after an
+        integrity violation so one corrupt role costs its compression
+        ratio, not the whole batch.  A new store is a new graph key
+        (:func:`repro_torch.launch.compiled.key`): the demoted model
+        captures graphs of its own."""
+        return CompressedModel(self.model, self.store.without_roles(roles))
 
     def hidden_states(self, params, tokens: torch.Tensor) -> torch.Tensor:
         with active(self.store):

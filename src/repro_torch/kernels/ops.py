@@ -160,10 +160,16 @@ def kernel_dispatch_hook(fn):
         _DISPATCH_HOOK = prev
 
 
+def fault_hook_installed() -> bool:
+    """Whether a :func:`kernel_fault_hook` is installed: the only source
+    of a :class:`KernelFault`."""
+    return _FAULT_HOOK is not None
+
+
 def hooks_installed() -> bool:
     """Whether a fault or dispatch hook is installed: both act in Python
     at every dispatch."""
-    return _FAULT_HOOK is not None or _DISPATCH_HOOK is not None
+    return fault_hook_installed() or _DISPATCH_HOOK is not None
 
 
 def _dispatch(kind: str, fn, *args):

@@ -38,7 +38,8 @@ into those buffers and replays the graph.
   would act at the capture only (the reference's hooks likewise act at
   trace time).  The step therefore serves eagerly while one is active
   (``instrument()``, ``kernel_guard``, ``kernel_fault_hook``,
-  ``kernel_dispatch_hook``: :func:`repro_torch.exec.dispatch.serves_eagerly`),
+  ``kernel_dispatch_hook``, ``inject.poison_activations``:
+  :func:`repro_torch.exec.dispatch.serves_eagerly`),
   inside :func:`disable` (the counterpart of ``jax.disable_jit()``) and on
   the CPU.
 * The launch counts stay exact: the capture's counts are taken back out

@@ -12,13 +12,15 @@ and decoded with a per-row position vector (the mixer's admission
 primitive).  For continuous batching over a request STREAM (admit/evict
 into a running decode batch, sampled decoding) see
 :mod:`repro_torch.launch.mixer` and the ``--mixer`` CLI mode.
+``guarded=True`` (``--guarded``) serves through the robustness layer of
+:mod:`repro_torch.runtime.guard` and reports a ``HealthReport``.
 
 Usage (on the card; ``--device cpu`` runs the plain PyTorch versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
       [--reduced] --batch 4 --prompt-len 128 --gen 16 [--compressed] \\
-      [--eos ID] [--mixer --slots 2 --temperature 0.8 --top-k 20 \\
-      --deadline S] [--device cuda]
+      [--eos ID] [--guarded [--deadline S]] [--mixer --slots 2 \\
+      --temperature 0.8 --top-k 20 --deadline S] [--device cuda]
 """
 
 from __future__ import annotations
@@ -149,8 +151,9 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
 
 
 def generate(model, params, prompts, gen: int, max_len: int, *,
-             eos_id: Optional[int] = None, pad_id: int = -1,
-             prompt_pad_id: Optional[int] = None, device="cuda"):
+             guarded: bool = False, eos_id: Optional[int] = None,
+             pad_id: int = -1, prompt_pad_id: Optional[int] = None,
+             device="cuda", **guard_kwargs):
     """Greedy decode for a batch of prompts on ``device``.
 
     ``model`` is anything with the serving surface (``prefill`` /
@@ -160,7 +163,28 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
     to serve LEFT-padded ragged rows (each row prefills alone at its real
     length and decodes at its own position).  ``eos_id`` ends rows early:
     the EOS token is emitted, later positions hold ``pad_id``, and decode
-    stops once every row is done."""
+    stops once every row is done.
+
+    ``guarded=True`` routes through the robustness layer
+    (:func:`repro_torch.runtime.guard.guarded_generate`: store
+    verification, per-role dense demotion, NaN/Inf retry, deadline) and
+    appends the :class:`~repro_torch.runtime.guard.HealthReport` to the
+    return tuple; ``guard_kwargs`` (``verify=``, ``deadline_s=``,
+    ``max_retries=``, ``dense_model=``) pass through."""
+    if guarded:
+        from repro_torch.runtime.guard import guarded_generate
+        if prompt_pad_id is not None:
+            raise NotImplementedError(
+                "guarded serving takes equal-length prompts; serve ragged "
+                "streams through repro_torch.launch.mixer")
+        toks, report = guarded_generate(model, params, prompts, gen,
+                                        max_len, eos_id=eos_id,
+                                        pad_id=pad_id, device=device,
+                                        **guard_kwargs)
+        return toks, report.t_prefill_s, report.t_decode_s, report
+    if guard_kwargs:
+        raise TypeError(f"generate: {sorted(guard_kwargs)} need "
+                        f"guarded=True")
     dev = resolve(device)
     prompts = torch.as_tensor(prompts, device=dev).long()
     return _generate(model, params, prompts, gen, max_len, eos_id=eos_id,
@@ -194,9 +218,13 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--compressed", action="store_true",
                     help="serve the shipped bitmap plan's compressed store")
+    ap.add_argument("--guarded", action="store_true",
+                    help="serve through the robustness layer (verify + "
+                         "retry + dense degradation) and print the health "
+                         "report")
     ap.add_argument("--deadline", type=float, default=None,
-                    help="per-request wall-clock budget in seconds (mixer "
-                         "mode)")
+                    help="per-request wall-clock budget in seconds "
+                         "(guarded / mixer modes)")
     ap.add_argument("--mixer", action="store_true",
                     help="continuous batching: serve a mixed-length request "
                          "stream through repro_torch.launch.mixer instead of "
@@ -260,9 +288,16 @@ def main(argv=None) -> None:
 
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))
-    toks, t_prefill, t_gen = generate(
-        model, params, prompts, args.gen, args.prompt_len + args.gen,
-        eos_id=args.eos, device=dev)
+    report = None
+    if args.guarded:
+        toks, t_prefill, t_gen, report = generate(
+            model, params, prompts, args.gen, args.prompt_len + args.gen,
+            guarded=True, deadline_s=args.deadline, eos_id=args.eos,
+            device=dev)
+    else:
+        toks, t_prefill, t_gen = generate(
+            model, params, prompts, args.gen, args.prompt_len + args.gen,
+            eos_id=args.eos, device=dev)
     n_pref = args.batch * args.prompt_len
     n_gen = args.batch * args.gen
     print(f"[serve] {label}: batch={args.batch} on {where}")
@@ -271,6 +306,13 @@ def main(argv=None) -> None:
     print(f"  decode  {n_gen} tok in {t_gen:.3f}s "
           f"({_rate(n_gen, t_gen):.1f} tok/s)")
     print(f"  sample out: {toks[0, :8].tolist()}")
+    if report is not None:
+        print(f"  health: healthy={report.healthy} "
+              f"verify={report.verify or 'skipped'} "
+              f"fallbacks={report.fallback_counts() or 'none'} "
+              f"retries={report.retries} dense_steps={report.dense_steps} "
+              f"deadline_hit={report.deadline_hit} "
+              f"steps={report.steps}/{report.gen}")
 
 
 if __name__ == "__main__":

@@ -53,6 +53,16 @@ def proj(x: torch.Tensor, w: torch.Tensor, role: str) -> torch.Tensor:
     return torch.matmul(x, w.to(COMPUTE_DTYPE))
 
 
+_PROJ = proj
+
+
+def proj_rebound() -> bool:
+    """Whether :func:`proj` has been rebound (fault injection:
+    ``repro_torch.runtime.inject.poison_activations``): Python that acts
+    at every projection, which a CUDA graph's replay does not run."""
+    return proj is not _PROJ
+
+
 # The layer loops publish the index of the layer they are running here, so
 # a hook resolves per-layer operands (compressed weights) without the
 # model knowing about them.

@@ -34,6 +34,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import compiled, serve
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Model
+from repro_torch.runtime import inject
 
 FAST = CoSearchConfig(objective="edp",
                       engine=EngineConfig(max_levels=2,
@@ -219,6 +220,7 @@ def _hooks():
     yield "kernel_fault_hook", ops.kernel_fault_hook(lambda kind: None)
     yield "kernel_dispatch_hook", ops.kernel_dispatch_hook(
         lambda kind, seconds: None)
+    yield "poison_activations", inject.poison_activations("ffn.w_up")
     yield "disable", compiled.disable()
 
 

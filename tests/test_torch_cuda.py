@@ -1008,3 +1008,240 @@ def test_mixer_fp32_on_the_card_holds_to_the_cpu(card, kind, monkeypatch):
                 break                     # a near tie: tokens may part
             assert toks[i][j] == toks_cpu[i][j], (uid, j)
     assert compared >= len(MIX_PLENS)
+
+
+# ---------------------------------------------------------------------------
+# The guarded serving runtime on the compiled decode step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_a_healthy_guarded_run_replays_the_graph(card, kind):
+    """The guarded decode replays the unguarded run's graph: the same
+    launches, the same tokens, one replay a step."""
+    from repro_torch.launch import compiled
+    from repro_torch.runtime import guard
+    cfg, cm, pruned = _served(kind)
+    prompts = _prompts(cfg)
+    toks, _, _ = cm.generate(pruned, prompts, 6)
+    (g,) = compiled.graphs(cm).values()
+    assert g.replays == 5
+    launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    got, rep = guard.guarded_generate(cm, pruned, prompts, 6)
+    assert rep.healthy and set(rep.verify.values()) == {"ok"}
+    assert torch.equal(got, toks)
+    assert ops.launch_counts() == launches
+    (g2,) = compiled.graphs(cm).values()
+    assert g2 is g and g.replays == 11
+
+
+def test_guarded_poisoned_activations_serve_eagerly(card):
+    """While ``poison_activations`` rebinds ``layers.proj`` no graph
+    replays (a replay would skip the poison) or is captured (it would keep
+    poisoning): the prefill fails twice, the dense model serves eagerly
+    and gives its own tokens."""
+    from repro_torch.launch import compiled, serve
+    from repro_torch.runtime import guard, inject
+    cfg, cm, pruned = _served("bitmap")
+    prompts = _prompts(cfg)
+    cm.generate(pruned, prompts, 6)
+    (g,) = compiled.graphs(cm).values()
+    ops.reset_launch_counts()
+    with inject.poison_activations("ffn.w_up"):
+        toks, rep = guard.guarded_generate(cm, pruned, prompts, 6)
+    assert g.replays == 5 and compiled.graphs(cm.model) == {}
+    assert ops.launch_counts()["bitmap_spmm"] == 2 * 7 * cfg.n_layers
+    assert rep.switched_to_dense_at == -1 and rep.dense_steps == 6
+    assert rep.fallback_counts() == {"nonfinite_logits": 1}
+    want, _, _ = serve.generate(cm.model, pruned, prompts, 6, 12)
+    assert torch.equal(toks, want)
+
+
+def test_guarded_dense_switch_adopts_the_graphs_cache(card, monkeypatch):
+    """A data fault at decode position p (NaN logits and K / V after a
+    replay; the plain versions over the store give NaN too) is retried by
+    another replay, then the dense model's graph is captured on the
+    compressed graph's cache and re-steps p: positions before p are as the
+    compressed graph wrote them, the NaN K / V that the step enqueued
+    ahead wrote at p + 1 are cleared, and the tokens are the compressed
+    steps' before p and the dense steps' from p on, as the eager steps
+    give them."""
+    from repro_torch.exec import dispatch
+    from repro_torch.launch import compiled
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import guard
+    cfg, cm, pruned = _served("bitmap")
+    prompts = _prompts(cfg)
+    plen, gen = prompts.shape[1], 6
+    p = plen + 3
+    seen = []
+
+    class PoisonAt(compiled.CompiledStep):
+        def __call__(self, params, cache, tokens, pos):
+            at = int(pos) == p
+            if at:
+                seen.append((self.model, [cache["self"][n][:, :, :p].clone()
+                                          for n in ("k", "v")]))
+            logits, cache = super().__call__(params, cache, tokens, pos)
+            if at and self.model is cm:
+                logits = torch.full_like(logits, float("nan"))
+                for kv in cache["self"].values():
+                    kv[:, :, p] = float("nan")
+            return logits, cache
+
+    step = Model.decode_step
+
+    def witness_sees_it(self, params, cache, tokens, pos):
+        # the plain-version witness steps eagerly: the same data fault
+        logits, cache = step(self, params, cache, tokens, pos)
+        hook = L._PROJ_HOOK
+        if isinstance(hook, dispatch._Dispatcher) and hook.plain and \
+                int(pos) == p:
+            logits = torch.full_like(logits, float("nan"))
+        return logits, cache
+
+    monkeypatch.setattr(compiled, "CompiledStep", PoisonAt)
+    monkeypatch.setattr(Model, "decode_step", witness_sees_it)
+    toks, rep = guard.guarded_generate(cm, pruned, prompts, gen)
+    assert rep.switched_to_dense_at == p and rep.retries == 1
+    assert rep.dense_steps == gen - 3
+    (g,) = compiled.graphs(cm).values()
+    (gd,) = compiled.graphs(cm.model).values()
+    # plen + 1, plen + 2, then p and p + 1 twice: each attempt at p
+    # enqueues p + 1 before its check
+    assert g.replays == 6
+    assert gd.replays == gen - 4 and gd.serial == 0
+    assert [m is cm for m, _ in seen] == [True, True, False]
+    for _, kv in seen[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(kv, seen[0][1]))
+    with compiled.disable():
+        logits, cache = cm.prefill(pruned, prompts, plen + gen)
+        tok, want = logits[:, -1].argmax(-1), []
+        for t in range(plen, plen + gen):
+            want.append(tok)
+            model = cm if t < p else cm.model
+            logits, cache = model.decode_step(
+                pruned, cache, tok, torch.tensor(t, device=card))
+            tok = logits.argmax(-1)
+    assert torch.equal(toks, torch.stack(want, 1).int())
+
+
+def test_guarded_generate_raises_when_a_kernel_fails_to_build(card,
+                                                              monkeypatch):
+    """The guard retries non-finite logits and injected faults only: a
+    kernel that does not build raises through ``guarded_generate``, and
+    nothing is served by the plain matmul."""
+    from repro_torch.kernels import build
+    from repro_torch.runtime import guard
+    cfg, cm, pruned = _served("bitmap")
+
+    def no_build(name):
+        raise RuntimeError(f"{name}: nvcc failed")
+
+    monkeypatch.setattr(build, "library", no_build)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        guard.guarded_generate(cm, pruned, _prompts(cfg), 4)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("where", ["prefill", "decode"])
+def test_guarded_generate_raises_when_a_kernel_gives_nan_on_good_data(
+        card, monkeypatch, where):
+    """A kernel whose output turns NaN on a verified store (a race or an
+    uninitialised read; here its output overwritten, inside the graph at
+    decode) is not served around by the dense model: the retry fails,
+    the plain versions over the same store give finite logits, and
+    ``guarded_generate`` raises."""
+    from repro_torch.launch import compiled
+    from repro_torch.runtime import guard
+    cfg, cm, pruned = _served("bitmap")
+    prompts = _prompts(cfg)
+    kernel = ops._bitmap
+
+    def nan_at(x, w, t_max, pipeline):
+        y = kernel(x, w, t_max, pipeline)
+        if where == "prefill" or x.shape[0] == prompts.shape[0]:
+            y = torch.full_like(y, float("nan"))
+        return y
+
+    monkeypatch.setattr(ops, "_bitmap", nan_at)
+    ops.reset_launch_counts()
+    with pytest.raises(guard.KernelNonFiniteError, match="plain versions"):
+        guard.guarded_generate(cm, pruned, prompts, 4)
+    assert ops.launch_counts()["bitmap_spmm"] > 0
+    assert compiled.graphs(cm.model) == {}      # the dense model never ran
+
+
+def _nan_column_weight(kind, n, k):
+    """(dense (n, k) weight, output columns whose weights on input row 0
+    are pruned).  bitmap: a 4 x 4 grid of (n/4, k/4) blocks, two stored a
+    block-column (so no column walks padding), block-row 0 stored in
+    block-columns 0 and 2 only.  2:4: in each column the first group's
+    two largest magnitudes are rows 0 and 1 in even columns, rows 2 and 3
+    in odd ones."""
+    gen = torch.Generator().manual_seed(7)
+    w = torch.randn(n, k, generator=gen)
+    if kind == "bitmap":
+        bn, bk = n // 4, k // 4
+        stored = {0: (0, 1), 1: (1, 2), 2: (0, 3), 3: (2, 3)}
+        keep = torch.zeros(4, 4, dtype=torch.bool)
+        for col, rows in stored.items():
+            keep[list(rows), col] = True
+        w = w * keep.repeat_interleave(bn, 0).repeat_interleave(bk, 1)
+        pruned = torch.cat([torch.arange(c * bk, (c + 1) * bk)
+                            for c in (1, 3)])
+    else:
+        w = w.clamp(-1.5, 1.5)
+        big = torch.tensor([4.0, 3.0, 0.1, 0.2])
+        w[:4, 0::2] = big[:, None]
+        w[:4, 1::2] = big.flip(0)[:, None]
+        pruned = torch.arange(1, k, 2)
+    return w, pruned
+
+
+@pytest.mark.parametrize("bad", ["nan", "inf"])
+@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("pipeline", [True, False])
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_a_non_finite_input_meeting_a_pruned_weight_is_dropped_by_the_kernel(
+        card, kind, pipeline, m, bad):
+    """The bitmap kernels (both variants) and the pipelined N:M kernel
+    read stored weights only (blocks, or the N:M slots kept): a NaN or Inf
+    in an input column whose weights in an output column are pruned leaves
+    that output finite, and equal to the product with that input column
+    zeroed.  The plain versions expand to dense and multiply it by zero,
+    so every output is non-finite, and so does the naive N:M kernel,
+    which expands each group of 4 densely as the reference's naive kernel
+    does.  This is why a poisoned value can reach the logits on the CPU
+    and not on the card."""
+    n, k = 1024, 512
+    w, pruned = _nan_column_weight(kind, n, k)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(m, n, generator=gen).to(torch.bfloat16)
+    x[:, 0] = float(bad)
+    x = x.to(card)
+    if kind == "bitmap":
+        wc = ops.compress_bitmap(w.to(card), n // 4, k // 4)
+        y = ops.bitmap_spmm(x, wc, pipeline=pipeline)
+        y_plain = ref.bitmap_spmm_ref(x, wc.blocks, wc.counts, wc.row_ids,
+                                      wc.n, wc.k)
+    else:
+        wc = ops.compress_nm(w.to(card))
+        y = ops.nm_spmm(x, wc, pipeline=pipeline)
+        y_plain = ref.nm_spmm_ref(x, wc.values, wc.indices, 2, 4)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(y_plain).any()
+    if kind == "nm" and not pipeline:
+        assert not torch.isfinite(y).any()
+        return
+    kept = torch.ones(k, dtype=torch.bool)
+    kept[pruned] = False
+    assert not torch.isfinite(y[:, kept.to(card)]).any()
+    x0 = x.clone()
+    x0[:, 0] = 0
+    want = (ref.bitmap_spmm_ref(x0, wc.blocks, wc.counts, wc.row_ids, wc.n,
+                                wc.k) if kind == "bitmap" else
+            ref.nm_spmm_ref(x0, wc.values, wc.indices, 2, 4))
+    _close(y[:, pruned.to(card)], want[:, pruned.to(card)])
