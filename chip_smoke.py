@@ -38,7 +38,14 @@ non-zero exit code when it fails:
    N:M 2:4) at every role and every M the mixer's streams of phase 6
    give it (4 and 16 slots at decode, each prompt length at admission),
    x in fp32 and bf16, held to the same tolerance and naive == pipelined,
-   checked but not timed;
+   checked but not timed; and non-finite inputs, checked but not timed:
+   at every role of both plans, M = 4, 16 and 512, x fp32 and bf16, NaN
+   in one input column and +Inf in another (some rows each, one row
+   both, one row neither), where some output column has those slots
+   pruned: the pipelined N:M kernel must equal the naive one (NaN for
+   NaN, finite outputs bit for bit) and both must give the plain
+   version's NaN / +-Inf masks, as must both bitmap variants, whose
+   finite outputs stay within the tolerance of the plain version's;
 4. flash attention vs its plain version at chatglm3-6b's attention width
    (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
    bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
@@ -129,10 +136,39 @@ non-zero exit code when it fails:
    ``kernel_failure`` one ``kernel_failure`` row a role, no launch and the
    dense model's tokens; a deadline of the prefill and 4.5 decode steps
    ``deadline_hit`` with the healthy run's tokens up to it and the tail
-   padded.
+   padded;
+8. grouped-query decode (``repro_torch.models.optflags``, flag
+   ``gqagroup``): full-width chatglm3-6b on both shipped plans.  Under the
+   flag the graph and the eager step must give ``torch.equal`` tokens and
+   logits at every decode step, both variants, bf16 and fp32; at fp32
+   each row's decode logits must stay within 1e-3 max|logits| of the
+   flag-off run while the two runs' tokens agree (greedy agreement
+   printed).  Graphed decode (batch 4, prompt 128, 16 tokens), flag off
+   and on, 5 runs each in turns after a capturing round, gives the median
+   and min-max of prefill ms and decode ms/token, the launches of both
+   variants under the flag must be 7 x layers x (1 + 16), and a CUDA-only
+   trace of one graphed step each gives its busy time, idle share and
+   copy kernels (ms, launches, the largest).  The mixer's graphed step
+   with every slot occupied, at 4 and at 16 slots, flag off and on (two
+   mixers, 5 rounds of 4 steps in turns), is timed and traced the same
+   way.  On the same models, phase 9's overhead row: ``generate`` with
+   the CLI's telemetry on (tracer, registry, ``kernel_timer``,
+   ``instrument()``: decode runs eagerly) and off, 5 runs each in turns;
+   tokens equal, launches as phase 5's, ``kernel_dispatch_total`` equal
+   to them;
+9. the serve CLI's telemetry: ``repro_torch.launch.serve.main`` with
+   ``--compressed --plan KIND --trace T --metrics M`` at full width on the
+   bitmap and the N:M plan, and with ``--mixer`` on the bitmap plan.  The
+   Chrome trace, its stable projection, the JSON snapshot and the
+   Prometheus text must parse; the snapshot's series must be
+   ``telemetry_series`` (the set the CPU tests hold the reference's CLI
+   exports to); ``kernel_dispatch_total{kind}`` and the trace's
+   ``kernel:<kind>`` events must equal the run's launches of that kind's
+   kernels, and no other kernel may launch.
 
-The line before the last is one JSON object describing every kernel; the
-last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+The line before the last is one JSON object describing every kernel (its
+launches in phases 5-9, each counted from zero before the phase's run);
+the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 port's sources beside this script, it exits non-zero and prints no result.
 """
 
@@ -163,6 +199,29 @@ RUNS = 5                     # serving runs per variant and mode
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
 # phase 6: the mixer's stream
 MIX_REQUESTS, MIX_SLOTS, MIX_MAX_LEN, MIX_WIDE = 12, 4, 288, 16
+# phase 8: decode steps a mixer takes in each timed round
+GQA_MIX_STEPS = 4
+# phase 9: the serve CLI's --metrics series beside the dispatcher's per-role
+# exec_* ones (``%s`` the plan's kind), for a static run and a --mixer run;
+# series that only timing can create are left out of the comparison
+EXEC_FAMILIES = (
+    "exec_decode_ops_total", "exec_dispatch_calls_total", "exec_macs_total",
+    "exec_refetch_factor", "exec_w_distinct_bits_total",
+    "exec_w_fetch_bits_total", "exec_w_stream_bits_total",
+    "exec_x_bits_total", "exec_y_bits_total")
+CLI_SERIES = ("kernel_cache_entries", "kernel_cache_hits_total",
+              "kernel_cache_misses_total", "kernel_dispatch_seconds{kind=%s}",
+              "kernel_dispatch_total{kind=%s}",
+              "serve_achieved_compression_ratio")
+CLI_STATIC = ("serve_static_tokens_total",)
+CLI_MIXER = ("mixer_admissions_total", "mixer_decode_step_seconds",
+             "mixer_decode_steps_total",
+             "mixer_evictions_total{reason=budget}", "mixer_slot_occupancy",
+             "mixer_tokens_admitted_total",
+             "serve_dense_steps_total", "serve_requests_total",
+             "serve_retries_total", "serve_tokens_generated_total",
+             "straggler_ewma_seconds", "straggler_flagged_total")
+TIMING_SERIES = ("mixer_straggler_spikes_total",)
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -587,7 +646,117 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                         x, c.values, c.indices, c.n_sel, c.m_group))
         del w
     acc["bitmap_spmm_naive"].masked = _masked_steps(gen, flush, dev)
+    _non_finite_inputs(cfg, dev)
     return acc
+
+
+def _held_non_finite(name: str, y, want, exact: bool) -> tuple[int, int]:
+    """Fail unless ``y`` is NaN, +Inf and -Inf exactly where ``want`` is,
+    and its finite values equal ``want``'s (``exact``) or lie within the
+    kernel tolerance of them; return ``want``'s NaN and Inf counts."""
+    import torch
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(mask(y), mask(want)):
+            _fail(f"{name}: {mask.__name__} differs in "
+                  f"{int((mask(y) != mask(want)).sum())} outputs")
+    fin = torch.isfinite(want)
+    if fin.any():
+        a, b = y[fin], want[fin]
+        if exact and not torch.equal(a, b):
+            _fail(f"{name}: finite outputs differ by "
+                  f"{(a - b).abs().max().item()}")
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        if err > TOL_REL * scale + TOL_ABS:
+            _fail(f"{name}: finite outputs differ by {err} > {TOL_REL} * "
+                  f"{scale} + {TOL_ABS}")
+    return int(torch.isnan(want).sum()), int(torch.isinf(want).sum())
+
+
+def _non_finite_inputs(cfg, dev) -> None:
+    """Phase 3's non-finite inputs, checked and not timed.  For every role
+    of both shipped plans (the bitmap plan's blocks at density 0.5 by
+    block pruning, and 2:4), at M = 4, 16 and 512, x fp32 and bf16: NaN in
+    one input column in rows 0 and 2 (mod 4), +Inf in another in rows 1
+    and 2, row 3 finite.  Bitmap: the NaN column lies in a block-row that
+    some block-column does not store, the +Inf one in a block-row it does;
+    both variants must give the plain version's NaN / +-Inf masks and its
+    finite values within the tolerance.  N:M: columns 1 and N/2 + 2, each
+    pruned in some output column; the pipelined kernel must equal the
+    naive one (NaN for NaN, the rest bit for bit) and give the plain
+    version's masks and, where finite, its values within the
+    tolerance."""
+    import torch
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sparse import masks
+    gen = torch.Generator(device=dev).manual_seed(9)
+    plan = shipped_plan(cfg, "bitmap")
+
+    def poisoned(m, n, a, b, dtype):
+        x = torch.randn((m, n), generator=gen, device=dev)
+        rows = torch.arange(m, device=dev) % 4
+        x[:, a] = torch.where((rows == 0) | (rows == 2), float("nan"),
+                              x[:, a])
+        x[:, b] = torch.where((rows == 1) | (rows == 2), float("inf"),
+                              x[:, b])
+        return x.to(dtype)
+
+    for role in cfg.matmul_roles():
+        op = plan.for_role(role.role)
+        bn, bk = op.choice.block_n, op.choice.block_k
+        w = torch.randn((role.n, role.k), generator=gen, device=dev) \
+            / math.sqrt(role.n)
+        bc = ops.compress_bitmap(masks.block_prune(w, bn, bk, 0.5), bn, bk)
+        nc = ops.compress_nm(masks.nm_prune(w, 2, 4), 2, 4)
+        del w
+        # each block-column's stored block-rows; the NaN goes into a
+        # block-row the first column lacking one does not store, the +Inf
+        # into one that some column stores
+        gn, rows, first, stored = role.n // bn, bc.row_ids.tolist(), 0, []
+        for count in bc.counts.tolist():
+            stored.append(set(rows[first:first + count]))
+            first += count
+        col = next((j for j, st in enumerate(stored) if len(st) < gn), None)
+        if col is None or not any(stored):
+            _fail(f"bitmap_spmm {role.role}: every block-column stores "
+                  f"every block-row, or none stores any")
+        ba = bn * min(set(range(gn)) - stored[col])
+        bb = bn * min(set().union(*stored)) + 1
+        na, nb = 1, role.n // 2 + 2
+        for c in (na, nb):
+            group = nc.indices[c // 4 * 2:c // 4 * 2 + 2].long()
+            if (group == c % 4).any(dim=0).all():
+                _fail(f"nm_spmm {role.role}: input {c} is kept in every "
+                      f"output column")
+        counts = {}
+        for m in (M_DECODE, MIX_WIDE, M_PREFILL):
+            for dtype in (torch.float32, torch.bfloat16):
+                case = f"{role.role} M={m} {str(dtype)[6:]}"
+                x = poisoned(m, role.n, ba, bb, dtype)
+                want = ref.bitmap_spmm_ref(x, bc.blocks, bc.counts,
+                                           bc.row_ids, bc.n, bc.k)
+                for p in (True, False):
+                    name = "bitmap_spmm" if p else "bitmap_spmm_naive"
+                    counts[f"bitmap M={m}"] = _held_non_finite(
+                        f"{name} {case} non-finite x",
+                        ops.bitmap_spmm(x, bc, pipeline=p), want, False)
+                x = poisoned(m, role.n, na, nb, dtype)
+                y3 = ops.nm_spmm(x, nc, pipeline=True)
+                y4 = ops.nm_spmm(x, nc, pipeline=False)
+                _held_non_finite(f"nm_spmm {case} non-finite x vs naive",
+                                 y3, y4, True)
+                counts[f"nm M={m}"] = _held_non_finite(
+                    f"nm_spmm {case} non-finite x vs plain", y3,
+                    ref.nm_spmm_ref(x, nc.values, nc.indices, 2, 4), False)
+        print(f"[kernels] non-finite x, {role.role}: bitmap ({bn}x{bk}, "
+              f"NaN at input {ba}, not stored in block-column {col}; +Inf "
+              f"at {bb}, stored) both variants == plain in NaN / +-Inf "
+              f"masks, finite "
+              f"within the tolerance; N:M 2:4 (NaN at {na}, +Inf at {nb}) "
+              f"pipelined == naive (equal_nan, finite bit for bit) == plain "
+              f"in masks; x fp32 and bf16; (NaN, Inf) outputs at M="
+              f"{M_PREFILL}, bf16: bitmap {counts[f'bitmap M={M_PREFILL}']}, "
+              f"N:M {counts[f'nm M={M_PREFILL}']}")
 
 
 def _masked_steps(gen, flush, dev) -> dict:
@@ -1198,24 +1367,36 @@ def _mixer_fp32_vs_alone(cm, pruned, reqs, name: str, label: str,
     del dmx, dense                    # its graph and pool go with it
 
 
-def _traced_call(label: str, fn, host_ms: list[float]) -> None:
+def _traced_call(label: str, fn, host_ms: list[float],
+                 tag: str = "mixer") -> None:
     """Print ``fn()``'s device busy ms from one CUDA-only trace
     (``_trace``, after one untraced call as its prelude), its idle share
     of the median of ``host_ms`` (the same call untraced, host clock,
     synchronised), its device ops, the sparse kernels' and the copies'
-    share of the busy time, and the kernels that take the most of it."""
+    share of the busy time, the copy kernels (a name holding "copy":
+    strided copies, casts through ``copy_``, the stacks' batched copies;
+    their ms, launches and the three largest) and the kernels that take
+    the most of it, on lines tagged ``[tag label]``."""
     evs = _trace(fn, label, prelude=fn)
     busy, top = _device_time(evs, 1)
     host = sorted(host_ms)[len(host_ms) // 2]
     sparse = sum(e.us for e in evs if e.cat == "kernel" and re.match(
         r"(void )?\(anonymous namespace\)::(nm|bitmap)_", e.name)) / 1e3
     copies = sum(e.us for e in evs if e.cat != "kernel") / 1e3
-    print(f"[mixer {label}] trace: device busy {busy:.3f} ms, idle share "
+    copy_kernels = [e for e in evs if e.cat == "kernel"
+                    and "copy" in e.name.lower()]
+    copy_ms, largest = _device_time(copy_kernels, 1)
+    print(f"[{tag} {label}] trace: device busy {busy:.3f} ms, idle share "
           f"{1 - busy / host:.4f} of the untraced {_spread(host_ms)} ms; "
           f"{len(evs)} device ops; sparse kernels {sparse:.3f} ms "
-          f"({sparse / busy:.1%} of busy), copies and sets {copies:.3f} ms")
+          f"({sparse / busy:.1%} of busy), copies and sets {copies:.3f} ms; "
+          f"copy kernels {copy_ms:.4f} ms ({copy_ms / busy:.1%} of busy) "
+          f"in {len(copy_kernels)} launches")
+    for ms, count, name in largest[:3]:
+        print(f"[{tag} {label}]   copy {ms:.4f} ms {count} calls  "
+              f"{name[:200]}")
     for ms, count, name in top[:4]:
-        print(f"[mixer {label}]   {ms:.4f} ms {count} calls  {name[:240]}")
+        print(f"[{tag} {label}]   {ms:.4f} ms {count} calls  {name[:240]}")
 
 
 def _trace_mixer(cm, pruned, reqs, label: str) -> None:
@@ -1759,6 +1940,332 @@ def _guarded_plan(cfg, kind: str, kname: str, card: str, dev
     return launches
 
 
+def telemetry_series(roles, kind: str, mixer: bool) -> set[str]:
+    """The series a serve CLI run with ``--compressed --metrics`` exports
+    (``_series_str`` form), less :data:`TIMING_SERIES`: the per-role
+    ``exec_*`` families of ``roles``, the kernel and cache series of the
+    plan's ``kind`` and the static or mixer serving series."""
+    return ({f"{f}{{role={r}}}" for f in EXEC_FAMILIES for r in roles}
+            | {s.replace("%s", kind) for s in CLI_SERIES}
+            | set(CLI_MIXER if mixer else CLI_STATIC))
+
+
+def _snapshot_series(snap: dict) -> set[str]:
+    return {k for part in ("counters", "gauges", "histograms")
+            for k in snap[part]
+            if k.split("{")[0] not in TIMING_SERIES}
+
+
+def _gqagroup_decode(cfg, kind: str, kname: str, cm, pruned, prompts,
+                     card: str) -> dict[str, int]:
+    """Phase 8 on one plan's model: graph == eager under the flag (both
+    variants, bf16 and fp32); fp32 logits with the flag against without
+    it; graphed decode with and without it, timed in turns and traced.
+    Returns the launches of the flagged graphed runs, by kernel."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled
+    from repro_torch.models import layers as L
+    from repro_torch.models import optflags
+    on = ("gqagroup",)
+    for dtype in (torch.bfloat16, torch.float32):
+        L.COMPUTE_DTYPE = dtype
+        try:
+            with optflags.optimizations(on):
+                for pipeline in (True, False):
+                    with ops.pipeline_default(pipeline):
+                        _graph_equals_eager(
+                            cm, pruned, prompts,
+                            f"{kind}{'' if pipeline else ' naive'} "
+                            f"gqagroup {str(dtype)[6:]}")
+            if dtype == torch.float32:
+                toks, steps = compiled.greedy(compiled.CompiledStep(cm), cm,
+                                              pruned, prompts, GEN)
+                with optflags.optimizations(on):
+                    toks_g, steps_g = compiled.greedy(
+                        compiled.CompiledStep(cm), cm, pruned, prompts, GEN)
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        compiled.graphs(cm).clear()
+    # fp32: each row's decode steps while its tokens agree (a near tie
+    # that parts them ends the row's comparison)
+    worst, compared = 0.0, 0
+    for r in range(toks.shape[0]):
+        for i, (a, b) in enumerate(zip(steps, steps_g)):
+            if not torch.equal(toks[r, :i + 1], toks_g[r, :i + 1]):
+                break
+            err = (a[r] - b[r]).abs().max().item()
+            scale = b[r].abs().max().item()
+            if err > 1e-3 * scale:
+                _fail(f"{kind} gqagroup fp32: row {r} step {i} logits "
+                      f"differ from the flag-off run's by {err} > 1e-3 * "
+                      f"{scale}")
+            worst, compared = max(worst, err / scale), compared + 1
+    agree = (toks == toks_g).float().mean().item()
+    print(f"[gqagroup {kind}] fp32 logits with the flag against without: "
+          f"{compared} row-steps compared, largest max|diff| / "
+          f"max|logits| {worst:.3e} (bound 1e-3); greedy agreement "
+          f"{agree:.4f}")
+    # graphed decode, flag off and on, in turns
+    expected = 7 * cfg.n_layers * (1 + GEN)
+    times = {"off": ([], []), "on": ([], [])}
+    out = {}
+    for _ in range(RUNS + 1):               # the first round captures
+        for mode in ("off", "on"):
+            ops.reset_launch_counts()
+            with optflags.optimizations(on if mode == "on" else ()):
+                t, t_prefill, t_gen = cm.generate(pruned, prompts, GEN,
+                                                  device=prompts.device)
+            counts = ops.launch_counts()
+            if counts[kname] != expected or sum(counts.values()) != expected:
+                _fail(f"{kind} gqagroup {mode}: launch counts {counts}, "
+                      f"expected {expected} of {kname} only")
+            if mode == "on":
+                out = counts
+            times[mode][0].append(1e3 * t_prefill)
+            times[mode][1].append(1e3 * t_gen / GEN)
+    for mode, (pre, dec) in times.items():
+        print(f"[gqagroup {kind} {mode}] graphed, over {RUNS} runs (the "
+              f"capturing round left out): prefill ms {_spread(pre[1:])}; "
+              f"decode ms/token {_spread(dec[1:])} — bf16, on {card}")
+    med = {m: sorted(d[1:])[RUNS // 2] for m, (_, d) in times.items()}
+    print(f"[gqagroup {kind}] decode on / off {med['on'] / med['off']:.4f}")
+    for mode in ("off", "on"):
+        with optflags.optimizations(on if mode == "on" else ()):
+            # room for the steps of a trace taken again
+            logits, cache = cm.prefill(pruned, prompts, PROMPT + 4 * GEN)
+            state = {"tok": logits[:, -1].argmax(dim=-1), "cache": cache,
+                     "t": PROMPT}
+            step = compiled.CompiledStep(cm)
+            pos = torch.empty((), dtype=torch.long, device=prompts.device)
+
+            def one():
+                pos.fill_(state["t"])
+                lg, state["cache"] = step(pruned, state["cache"],
+                                          state["tok"], pos)
+                state["tok"] = lg.argmax(dim=-1)
+                state["t"] += 1
+                torch.cuda.synchronize()
+            one()                           # the graph takes this cache
+            _traced_call(f"{kind} graphed decode step, flag {mode}", one,
+                         [med[mode]], tag="gqagroup")
+    compiled.graphs(cm).clear()
+    return out
+
+
+def _gqagroup_mixer(cm, pruned, reqs, kind: str, card: str) -> None:
+    """Phase 8's mixer step: two mixers (flag off, flag on) with every
+    slot occupied at ``MIX_SLOTS`` and ``MIX_WIDE`` slots, graphed, timed
+    in turns (``RUNS`` rounds of ``GQA_MIX_STEPS`` steps each, host clock;
+    a step ends on the logits' readback) and traced once each."""
+    import torch
+    from repro_torch.launch import compiled
+    from repro_torch.launch.mixer import Mixer, Request
+    from repro_torch.models import optflags
+    for slots in (MIX_SLOTS, MIX_WIDE):
+        mixers = {}
+        for mode in ("off", "on"):
+            with optflags.optimizations(("gqagroup",) if mode == "on"
+                                        else ()):
+                mx = Mixer(cm, pruned, slots=slots, max_len=MIX_MAX_LEN)
+                for i in range(slots):
+                    src = reqs[i % len(reqs)]
+                    mx.admit(Request(uid=f"g{i}", prompt=src.prompt,
+                                     max_new=MIX_MAX_LEN - len(src.prompt)))
+                mx._step()                  # the graph takes its cache
+            mixers[mode] = mx
+        times = {"off": [], "on": []}
+        for _ in range(RUNS):
+            for mode, mx in mixers.items():
+                with optflags.optimizations(("gqagroup",) if mode == "on"
+                                            else ()):
+                    t0 = time.perf_counter()
+                    for _ in range(GQA_MIX_STEPS):
+                        mx._step()
+                    times[mode].append(1e3 * (time.perf_counter() - t0)
+                                       / GQA_MIX_STEPS)
+        for mode in ("off", "on"):
+            print(f"[gqagroup {kind} mixer {slots} slots {mode}] graphed "
+                  f"step ms over {RUNS} rounds of {GQA_MIX_STEPS}: "
+                  f"{_spread(times[mode])} — bf16, on {card}")
+        for mode, mx in mixers.items():
+            with optflags.optimizations(("gqagroup",) if mode == "on"
+                                        else ()):
+                _traced_call(f"{kind} mixer {slots} slots, flag {mode}",
+                             mx._step, times[mode], tag="gqagroup")
+        del mixers, mx
+        compiled.graphs(cm).clear()
+
+
+def _telemetry_overhead(cfg, kind: str, kname: str, cm, pruned, prompts,
+                        card: str) -> None:
+    """Phase 9's overhead row, the counterpart of the reference's
+    ``bench_serve`` row ``serve_telemetry_overhead``: ``generate`` with
+    the CLI's telemetry on (tracer, registry, ``kernel_timer`` and
+    ``instrument()``, which keep decode eager) and off (graphed), ``RUNS``
+    runs each in turns after one of each.  Tokens must be equal, the
+    launches 7 x layers x (1 + 16) of the served kernel and, with
+    telemetry on, ``kernel_dispatch_total`` equal to them."""
+    import torch
+    from repro_torch.exec.dispatch import instrument
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics as omet
+    from repro_torch.obs import trace as otr
+    from repro_torch.obs.profile import kernel_timer
+    expected = 7 * cfg.n_layers * (1 + GEN)
+    times = {"off": ([], []), "on": ([], [])}
+    first = None
+    for _ in range(RUNS + 1):
+        for mode in ("off", "on"):
+            ops.reset_launch_counts()
+            if mode == "on":
+                tracer, reg = otr.Tracer(), omet.MetricsRegistry()
+                with otr.tracing(tracer), omet.collecting(reg), \
+                        kernel_timer(registry=reg, tracer=tracer), \
+                        instrument():
+                    toks, t_pre, t_gen = cm.generate(
+                        pruned, prompts, GEN, device=prompts.device)
+            else:
+                toks, t_pre, t_gen = cm.generate(pruned, prompts, GEN,
+                                                 device=prompts.device)
+            counts = ops.launch_counts()
+            if counts[kname] != expected or sum(counts.values()) != expected:
+                _fail(f"{kind} telemetry {mode}: launch counts {counts}, "
+                      f"expected {expected} of {kname} only")
+            if mode == "on" and reg.value("kernel_dispatch_total",
+                                          kind=kind) != expected:
+                _fail(f"{kind} telemetry: kernel_dispatch_total "
+                      f"{reg.value('kernel_dispatch_total', kind=kind)} != "
+                      f"{expected} launches")
+            if first is None:
+                first = toks
+            elif not torch.equal(toks, first):
+                _fail(f"{kind} telemetry {mode}: tokens {toks.tolist()} "
+                      f"differ from {first.tolist()}")
+            times[mode][0].append(1e3 * t_pre)
+            times[mode][1].append(1e3 * t_gen / GEN)
+    for mode, (pre, dec) in times.items():
+        print(f"[telemetry {kind} {mode}] over {RUNS} runs: prefill ms "
+              f"{_spread(pre[1:])}; decode ms/token {_spread(dec[1:])} — "
+              f"bf16, on {card}")
+    med = {m: sorted(d[1:])[RUNS // 2] for m, (_, d) in times.items()}
+    print(f"[telemetry {kind}] serve_telemetry_overhead: decode on / off "
+          f"{med['on'] / med['off']:.4f} (on: eager, every dispatch "
+          f"recorded; {len(tracer.events)} trace events, "
+          f"{len(reg.snapshot()['counters'])} counter series; tokens equal)")
+
+
+def phase_gqagroup(cfg, card: str, dev) -> dict[str, int]:
+    """Phases 8 and 9's overhead rows, on one build of each shipped plan
+    at full width: ``gqagroup`` (``_gqagroup_decode``,
+    ``_gqagroup_mixer``) and the telemetry overhead
+    (``_telemetry_overhead``).  Returns the flagged graphed runs'
+    launches, by kernel."""
+    import torch
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import optflags
+    from repro_torch.models.transformer import Model
+    launches = {}
+    reqs = _mixer_requests(cfg)
+    print(f"[gqagroup] chatglm3-6b at full width ({cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} KV heads), batch {BATCH}, prompt {PROMPT}, "
+          f"{GEN} tokens; {RUNS} runs a mode in turns; host clock, "
+          f"synchronised, on {card}")
+    for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
+        params = Model(cfg).init(seed=0, device=dev)
+        cm, pruned = serve.compressed_model(cfg, params,
+                                            shipped_plan(cfg, kind),
+                                            device=dev)
+        del params
+        pg = torch.Generator(device=dev).manual_seed(2)
+        prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                                device=dev)
+        counts = _gqagroup_decode(cfg, kind, kname, cm, pruned, prompts,
+                                  card)
+        with ops.pipeline_default(False), \
+                optflags.optimizations(("gqagroup",)):
+            ops.reset_launch_counts()
+            cm.generate(pruned, prompts, GEN, device=dev)
+            naive = ops.launch_counts()
+        launches[kname] = counts[kname]
+        launches[f"{kname}_naive"] = naive[f"{kname}_naive"]
+        _gqagroup_mixer(cm, pruned, reqs, kind, card)
+        _telemetry_overhead(cfg, kind, kname, cm, pruned, prompts, card)
+        del cm, pruned
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_telemetry(cfg, card: str, dev) -> dict[str, int]:
+    """Phase 9: the port's serve CLI with ``--compressed --trace T
+    --metrics M`` at full width on each shipped plan's kind, and with
+    ``--mixer`` on the bitmap plan.  The four files must parse; the
+    metrics' series must be :func:`telemetry_series` (what the CPU test
+    holds the reference's exports to); ``kernel_dispatch_total{kind}``
+    must equal the run's launches of that kind's kernels, and the kernel
+    events of the trace one per launch.  Returns the launches, by
+    kernel."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    out = build.BUILD_DIR / "telemetry"
+    out.mkdir(parents=True, exist_ok=True)
+    roles = [r.role for r in cfg.matmul_roles()]
+    launches: dict[str, int] = {}
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_]\w*="[^"]*"'
+                        r'(,[a-zA-Z_]\w*="[^"]*")*\})? \S+$')
+    for kind, mixer in (("bitmap", False), ("nm", False), ("bitmap", True)):
+        label = f"{kind}{' --mixer' if mixer else ''}"
+        tpath = str(out / f"{kind}{'-mixer' if mixer else ''}.trace.json")
+        mpath = tpath.replace(".trace.json", ".metrics.json")
+        argv = ["--arch", cfg.name, "--compressed", "--plan", kind,
+                "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                "--gen", str(GEN), "--trace", tpath, "--metrics", mpath]
+        if mixer:
+            argv.append("--mixer")
+        print(f"[telemetry] python -m repro_torch.launch.serve "
+              f"{' '.join(argv)}")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        serve.main(argv)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        with open(tpath) as f:
+            chrome = json.load(f)["traceEvents"]
+        with open(tpath + ".stable.json") as f:
+            stable = json.load(f)
+        with open(mpath) as f:
+            snap = json.load(f)
+        with open(mpath + ".prom") as f:
+            prom = [ln for ln in f.read().splitlines()
+                    if ln and not ln.startswith("#")]
+        bad = [ln for ln in prom if not sample.match(ln)]
+        if bad or not stable or not chrome:
+            _fail(f"telemetry {label}: unparseable exports ({bad[:3]}, "
+                  f"{len(stable)} stable events, {len(chrome)} events)")
+        got = _snapshot_series(snap)
+        want = telemetry_series(roles, kind, mixer)
+        if got != want:
+            _fail(f"telemetry {label}: series {sorted(got ^ want)} differ "
+                  f"from the expected set")
+        name = "bitmap_spmm" if kind == "bitmap" else "nm_spmm"
+        ran = counts[name] + counts[f"{name}_naive"]
+        dispatched = snap["counters"][f"kernel_dispatch_total{{kind={kind}}}"]
+        kernels = sum(1 for e in chrome if e["name"] == f"kernel:{kind}")
+        if dispatched != ran or kernels != ran or sum(counts.values()) != ran:
+            _fail(f"telemetry {label}: kernel_dispatch_total {dispatched}, "
+                  f"{kernels} kernel events, launches {counts}")
+        launches[name] = launches.get(name, 0) + counts[name]
+        print(f"[telemetry {label}] {wall:.2f} s (build and compress "
+              f"included); trace {len(chrome)} events ({len(stable)} "
+              f"stable), metrics {len(got)} series, {len(prom)} Prometheus "
+              f"samples, all parsed; kernel_dispatch_total{{kind={kind}}} "
+              f"= {dispatched:.0f} = the {ran} launches of {name} = the "
+              f"trace's kernel:{kind} events; series as expected")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1777,6 +2284,8 @@ def main() -> None:
     launches = phase_serving(cfg, card, dev)
     mixer_launches = phase_mixer(cfg, card, dev)
     guarded_launches = phase_guarded(cfg, card, dev)
+    gqa_launches = phase_gqagroup(cfg, card, dev)
+    telemetry_launches = phase_telemetry(cfg, card, dev)
 
     sources = {
         "bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
@@ -1797,6 +2306,8 @@ def main() -> None:
                  "replaces": sources[name][1], "launches": launches[name],
                  "mixer_launches": mixer_launches[name],
                  "guarded_launches": guarded_launches[name],
+                 "gqagroup_launches": gqa_launches[name],
+                 "telemetry_launches": telemetry_launches.get(name, 0),
                  "max_abs_err": a.max_abs_err}
         for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
             s = a.sums[(m, torch.bfloat16)]

@@ -72,6 +72,24 @@
 // in ascending n, so the result is theirs bit for bit on finite inputs.
 // Masks sit in the loads and the store, never around the FMAs.
 //
+// Non-finite x (both pipelined kernels).  The reference's kernels expand
+// each group densely and multiply, so an x that is NaN or Inf at a position
+// that an output column's group does not keep meets a zero there and makes
+// that output NaN (a kept slot multiplies it itself).  The pipelined
+// kernels skip the zeros, so they note whether x holds a non-finite value
+// -- the decode kernel while it stages its slice (one block-wide vote), the
+// prefill kernel from flags that nm_transpose_x_kernel writes for every
+// 32 x 32 tile of x -- and only then run a second pass over the groups that
+// writes NaN into those outputs (nan_pass_decode, nan_pass_prefill).  The
+// result is the naive entry's: NaN where it has NaN, the same +-Inf and
+// finite values elsewhere.  The pass is an out-of-line function called
+// after the store, when the accumulators are dead: inlined, its code took
+// 23 of the small-M kernel's 127 registers at MT = 4 and cost it 6 % at
+// M = 4 (tools/nm_parent_bench.py --variants); out of line the kernels keep
+// the parent's registers, and finite inputs pay the votes and the flags.
+// A masked row at decode reads a column of zeros staged after the slice,
+// so it never multiplies a staged x by its zero.
+//
 // Pipelined decode entry (nm_spmm_small_m_*, M <= 16, K % 4 == 0):
 // nm_spmm_small_m_kernel.  At
 // M = 4 the work is a stream of the payload with 8 FLOPs per kept entry,
@@ -229,6 +247,17 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// Whether v is NaN or +-Inf: its exponent bits all set.
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
+// A quiet NaN, what the reference's dense product gives where a non-finite
+// x meets a pruned (zero) slot.
+__device__ __forceinline__ float quiet_nan() {
+  return __uint_as_float(0x7fc00000u);
+}
+
 // 16 bytes global -> shared without a register; `bytes` 0 fills zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
@@ -248,18 +277,29 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // xt[c * mp + i] = x[i, c] for i < m, 0 for m <= i < mp: the prefill
 // kernels' column-major copy of x, in x's own type (U = T) or widened to
-// fp32 (U = float), mp a multiple of PF_MT.
-template <typename T, typename U = T>
+// fp32 (U = float), mp a multiple of PF_MT.  FLAGS (the pipelined entry):
+// flags[blockIdx.y * gridDim.x + blockIdx.x] is set to whether the block's
+// 32 x 32 tile of x holds a value that is not finite, every flag written.
+template <typename T, typename U = T, bool FLAGS = false>
 __global__ void __launch_bounds__(256)
 nm_transpose_x_kernel(const T* __restrict__ x, U* __restrict__ xt, int m,
-                      int mp, int n) {
+                      int mp, int n, int* __restrict__ flags) {
   __shared__ T t[32][33];
   const int c0 = blockIdx.x * 32, i0 = blockIdx.y * 32;
+  bool bad = false;
   for (int r = threadIdx.y; r < 32; r += 8) {
     const int i = i0 + r, c = c0 + threadIdx.x;
-    t[r][threadIdx.x] = i < m && c < n ? x[(size_t)i * n + c] : T(0.f);
+    const T v = i < m && c < n ? x[(size_t)i * n + c] : T(0.f);
+    t[r][threadIdx.x] = v;
+    if constexpr (FLAGS) bad |= nonfinite(to_f32(v));
   }
-  __syncthreads();
+  if constexpr (FLAGS) {
+    const int any = __syncthreads_or(bad);
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+      flags[blockIdx.y * gridDim.x + blockIdx.x] = any;
+  } else {
+    __syncthreads();
+  }
   for (int r = threadIdx.y; r < 32; r += 8) {
     const int c = c0 + r;
     if (c < n) {
@@ -367,16 +407,79 @@ __device__ __forceinline__ void fma_strip(const __nv_bfloat16* xc, float b,
   }
 }
 
+// Bit i set where x row i of the R values at xc (16-byte aligned; fp32,
+// or bf16 as its 16 bits) is not finite.
+template <int R>
+__device__ __forceinline__ unsigned nonfinite_rows(const float* xc) {
+  unsigned rows = 0;
+#pragma unroll
+  for (int i = 0; i < R; i += 4) {
+    const float4 t = *reinterpret_cast<const float4*>(xc + i);
+    rows |= (unsigned)nonfinite(t.x) << i |
+            (unsigned)nonfinite(t.y) << (i + 1) |
+            (unsigned)nonfinite(t.z) << (i + 2) |
+            (unsigned)nonfinite(t.w) << (i + 3);
+  }
+  return rows;
+}
+template <int R>
+__device__ __forceinline__ unsigned nonfinite_rows(const __nv_bfloat16* xc) {
+  unsigned rows = 0;
+#pragma unroll
+  for (int i = 0; i < R; i += 8) {
+    const uint4 t = *reinterpret_cast<const uint4*>(xc + i);
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      rows |= (unsigned)((w[u] & 0x7f80u) == 0x7f80u) << (i + 2 * u);
+      rows |= (unsigned)((w[u] & 0x7f800000u) == 0x7f800000u)
+              << (i + 2 * u + 1);
+    }
+  }
+  return rows;
+}
+
+// The prefill kernel's non-finite pass for one output column: for each
+// group, the positions the column's kept entries (indices, row stride k)
+// do not hold; rows whose x there (xt, the block's first row of the
+// column-major copy) is not finite get NaN in y (row stride k).  Out of
+// line, so the kernel's FMA nest is compiled as without it.
+template <int R, typename T>
+__device__ __noinline__ void nan_pass_prefill(
+    const T* __restrict__ xt, const int8_t* __restrict__ indices, int mp,
+    int k, int groups, int n_sel, int m_group, float* __restrict__ y,
+    int rows) {
+  unsigned nan_rows = 0;
+  for (int g = 0; g < groups; ++g) {
+    unsigned kept = 0;
+    for (int s = 0; s < n_sel; ++s) {
+      const unsigned p = (unsigned char)indices[(size_t)(g * n_sel + s) * k];
+      kept |= p < (unsigned)m_group ? 1u << p : 0u;
+    }
+    for (int p = 0; p < m_group; ++p)
+      if (!(kept >> p & 1u))
+        nan_rows |= nonfinite_rows<R>(xt + (size_t)(g * m_group + p) * mp);
+  }
+  for (int i = 0; i < rows; ++i)
+    if (nan_rows >> i & 1u) y[(size_t)i * k] = quiet_nan();
+}
+
 // Prefill entry: one TT::TM x TT::TK output tile per block, grid (M tiles,
-// K tiles) with M fastest.  xt: nm_transpose_x_kernel's (N, mp) copy of x.
+// K tiles) with M fastest.  xt: nm_transpose_x_kernel's (N, mp) copy of x;
+// flags its non-finite flags, one per 32 x 32 tile, flag_cols tiles a row.
 // Warp (wm, wk) owns rows [R wm, +R) and columns [32 wk, +32) of the tile.
+// Where a row of the block's tiles holds a non-finite x, a second pass
+// makes output (i, c) NaN wherever such an x[i][g m_group + p] meets a
+// position p that column c's group g does not keep, as the reference's
+// dense expansion multiplies it by zero; finite inputs never take it.
 template <class TT, typename T, bool VEC>
 __global__ void __launch_bounds__(TT::NT, TT::MIN_BLOCKS)
 nm_spmm_prefill_kernel(const T* __restrict__ xt,
                        const float* __restrict__ values,
                        const int8_t* __restrict__ indices,
                        float* __restrict__ y, int m, int mp, int n, int k,
-                       int n_sel, int m_group, int run_groups) {
+                       int n_sel, int m_group, int run_groups,
+                       const int* __restrict__ flags, int flag_cols) {
   constexpr int R = TT::R, TK = TT::TK, XS = x_stride<TT, T>();
   constexpr int EQ = 16 / (int)sizeof(T);          // rows per 16-byte load
   extern __shared__ float4 smem4[];
@@ -406,6 +509,13 @@ nm_spmm_prefill_kernel(const T* __restrict__ xt,
   };
   issue(0);
   cp_async_commit();
+  // the flags of the 32-row tiles the block's rows lie in
+  int bad_x = 0;
+  {
+    const int tr0 = m0 / 32, trows = (TT::TM + 31) / 32;
+    for (int e = threadIdx.x; e < trows * flag_cols; e += TT::NT)
+      bad_x |= flags[(tr0 + e / flag_cols) * flag_cols + e % flag_cols];
+  }
   for (int run = 0; run < runs; ++run) {
     cp_async_wait<0>();
     __syncthreads();       // the run has landed; the other stage is free
@@ -440,12 +550,18 @@ nm_spmm_prefill_kernel(const T* __restrict__ xt,
       if (row < m) y[(size_t)row * k + c] = acc[i];
     }
   }
+  // the non-finite pass, after the store and out of line (acc is dead)
+  if (__syncthreads_or(bad_x) && c < k)
+    nan_pass_prefill<R>(xt + m0 + r0, indices + c, mp, k, groups, n_sel,
+                        m_group, y + (size_t)(m0 + r0) * k + c,
+                        min(R, m - m0 - r0));
 }
 
 template <class TT, typename T, bool VEC>
 int launch_prefill(const T* xt, const void* values, const void* indices,
                    float* y, int m, int mp, int n, int k, int n_sel,
-                   int m_group, int run_groups, cudaStream_t st) {
+                   int m_group, int run_groups, const int* flags,
+                   cudaStream_t st) {
   const int smem = 2 * prefill_stage_bytes<TT, T>(run_groups * m_group,
                                                   run_groups * n_sel);
   cudaError_t e = cudaFuncSetAttribute(
@@ -455,7 +571,7 @@ int launch_prefill(const T* xt, const void* values, const void* indices,
   dim3 grid((m + TT::TM - 1) / TT::TM, (k + TT::TK - 1) / TT::TK);
   nm_spmm_prefill_kernel<TT, T, VEC><<<grid, TT::NT, smem, st>>>(
       xt, (const float*)values, (const int8_t*)indices, y, m, mp, n, k, n_sel,
-      m_group, run_groups);
+      m_group, run_groups, flags, (n + 31) / 32);
   return (int)cudaGetLastError();
 }
 
@@ -510,6 +626,25 @@ __device__ __forceinline__ void stage_x_slice(const T* __restrict__ x,
   __syncthreads();
 }
 
+// The pipelined decode kernel's staging: stage_x_slice's copy of the slice,
+// then a column of zeros after it (column xw, which the masked rows read:
+// a masked row multiplies 0 by 0, never a staged x), a barrier, and whether
+// any staged x is not finite, the same answer in every thread.
+template <typename T, int MT>
+__device__ __forceinline__ bool stage_x_slice_checked(
+    const T* __restrict__ x, float* __restrict__ xs, int m, int n,
+    size_t c0, int xw) {
+  bool bad = false;
+  for (int e = threadIdx.x; e < MT * xw; e += SK_THREADS) {
+    const int i = e / xw, c = e - i * xw;
+    const float v = i < m ? to_f32(x[(size_t)i * n + c0 + c]) : 0.f;
+    xs[c * MT + i] = v;
+    bad |= nonfinite(v);
+  }
+  if (threadIdx.x < MT) xs[xw * MT + threadIdx.x] = 0.f;
+  return __syncthreads_or(bad) != 0;
+}
+
 // Rows below m of a thread's 4 adjacent output columns at o (row stride k).
 template <int MT>
 __device__ __forceinline__ void store_cols(const float (&acc)[MT][4],
@@ -522,10 +657,51 @@ __device__ __forceinline__ void store_cols(const float (&acc)[MT][4],
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
+// The small-M kernel's non-finite pass for a thread's 4 output columns:
+// for each of the slice's gcur groups, the positions the columns' kept
+// entries (gp: one word of four int8 indices a kept row, step words a row)
+// do not hold; rows whose staged x there (xs, [column][MT]) is not finite
+// get NaN in the partial o (row stride k).  Out of line, so the kernel's
+// FMA nest is compiled as without it.
+template <int MT>
+__device__ __noinline__ void nan_pass_decode(
+    const float* __restrict__ xs, const int* __restrict__ gp, int step,
+    int gcur, int n_sel, int m_group, float* __restrict__ o, int m, int k) {
+  unsigned nan_rows[4] = {0u, 0u, 0u, 0u};   // rows (bits) of column j
+  for (int g = 0; g < gcur; ++g) {
+    unsigned kept[4] = {0u, 0u, 0u, 0u};
+    for (int s = 0; s < n_sel; ++s) {
+      const unsigned w = (unsigned)__ldg(gp + (size_t)(g * n_sel + s) * step);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned pj = (w >> (8 * j)) & 0xffu;
+        kept[j] |= pj < (unsigned)m_group ? 1u << pj : 0u;
+      }
+    }
+    for (int q = 0; q < m_group; ++q) {
+      const float* xc = xs + (g * m_group + q) * MT;
+      unsigned bad = 0;                      // rows whose x is not finite
+#pragma unroll
+      for (int i = 0; i < MT; ++i) bad |= (unsigned)nonfinite(xc[i]) << i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) nan_rows[j] |= kept[j] >> q & 1u ? 0u : bad;
+    }
+  }
+  for (int i = 0; i < m; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (nan_rows[j] >> i & 1u) o[(size_t)i * k + j] = quiet_nan();
+}
+
 // Small-M entry (M <= SK_MAX_M): the partial of slice blockIdx.y over
 // output columns [4 * thread, +4) of tile blockIdx.x, into out + slice *
 // M * K (out is y itself when S = 1).  Needs K % 4 == 0, values 16-byte
-// and indices 4-byte aligned.
+// and indices 4-byte aligned, and MT (xw + 1) floats of shared memory.
+// Where the slice's x holds a value that is not finite, a second pass
+// over its groups makes the partial (i, j) NaN wherever such an x[i] sits
+// at a position column j's group does not keep (the reference's dense
+// expansion multiplies it by zero): the partial then carries the NaN
+// through the ordered reduce.  Finite slices never take it.
 template <typename T, int MT>
 __global__ void __launch_bounds__(SK_THREADS)
 nm_spmm_small_m_kernel(const T* __restrict__ x,
@@ -550,7 +726,8 @@ nm_spmm_small_m_kernel(const T* __restrict__ x,
   int p[SK_ROWS];
   load_rows(vp, ip, step, rows, v, p);         // in flight while x is staged
 
-  stage_x_slice<T, MT>(x, xs, m, n, (size_t)g0 * m_group, xw);
+  const bool bad_x =
+      stage_x_slice_checked<T, MT>(x, xs, m, n, (size_t)g0 * m_group, xw);
 
   float acc[MT][4];
 #pragma unroll
@@ -573,7 +750,7 @@ nm_spmm_small_m_kernel(const T* __restrict__ x,
         const bool ok = pj < (unsigned)m_group;
         const float b = ok ? b4[j] : 0.f;
         float xv[MT];
-        load_x<MT>(xs + (ok ? base + (int)pj : 0) * MT, xv);
+        load_x<MT>(xs + (ok ? base + (int)pj : xw) * MT, xv);
 #pragma unroll
         for (int i = 0; i < MT; ++i) acc[i][j] = fmaf(xv[i], b, acc[i][j]);
       }
@@ -588,7 +765,13 @@ nm_spmm_small_m_kernel(const T* __restrict__ x,
     }
   }
 
-  if (col < k) store_cols(acc, out + (size_t)blockIdx.y * m * k + col, m, k);
+  float* const o = out + (size_t)blockIdx.y * m * k + col;
+  if (col < k) store_cols(acc, o, m, k);
+  // the non-finite pass, after the store and out of line: acc is dead by
+  // then, and the FMA nest keeps the registers it has without the pass
+  if (bad_x && col < k)
+    nan_pass_decode<MT>(xs, reinterpret_cast<const int*>(indices + at0),
+                        step, gcur, n_sel, m_group, o, m, k);
 }
 
 // y = ws[0] + ws[1] + ... + ws[S-1], left to right, four outputs a thread.
@@ -1103,23 +1286,33 @@ enum Entry { PREFILL, SMALL_M, NAIVE };
 
 // One decode launch (M <= SK_MAX_M, K % 4 == 0): the pipelined entry's
 // small-M kernel, or the naive entry's decode kernel with 16-byte / 4-byte
-// row loads (vec) or plain ones.
+// row loads (vec) or plain ones.  The small-M kernel's zero column takes
+// its shared memory past 48 KB at a slice of SK_SMEM: the launch then
+// raises the kernel's limit first.
 template <typename T, int MT>
-void launch_decode(Entry entry, bool vec, dim3 grid, int smem,
-                   cudaStream_t st, const void* x, const void* values,
-                   const void* indices, float* out, int m, int n, int k,
-                   int n_sel, int m_group, int slice_groups) {
+int launch_decode(Entry entry, bool vec, dim3 grid, int smem,
+                  cudaStream_t st, const void* x, const void* values,
+                  const void* indices, float* out, int m, int n, int k,
+                  int n_sel, int m_group, int slice_groups) {
   auto go = entry == SMALL_M ? nm_spmm_small_m_kernel<T, MT>
             : vec            ? nm_spmm_naive_small_m_kernel<T, MT, true>
                              : nm_spmm_naive_small_m_kernel<T, MT, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        go, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   go<<<grid, SK_THREADS, smem, st>>>((const T*)x, (const float*)values,
                                      (const int8_t*)indices, out, m, n, k,
                                      n_sel, m_group, slice_groups);
+  return 0;
 }
 
 // ws: the (slices, M, K) fp32 workspace when slices > 1; for the prefill
 // kernels the (N, ceil(M / PF_MT) * PF_MT) column-major copy of x in x's
-// type; unused else.  Decode shapes (M <= SK_MAX_M, K % 4 == 0) take the
+// type (the naive one's in fp32), the pipelined one's followed, after N mp
+// fp32 elements, by its ceil(N / 32) x mp / 32 int non-finite flags;
+// unused else.  Decode shapes (M <= SK_MAX_M, K % 4 == 0) take the
 // small-M kernel (pipelined) or the naive decode kernel, on a grid of
 // (ceil(K / SK_TK), slices); the others the prefill kernel (pipelined) or
 // the naive prefill one, with one slice, after nm_transpose_x_kernel.
@@ -1148,9 +1341,9 @@ int launch(const void* x, const void* values, const void* indices, void* y,
     if (!decode || smem > SK_SMEM || (entry == SMALL_M && !aligned))
       return (int)cudaErrorInvalidValue;
     dim3 grid((k + SK_TK - 1) / SK_TK, slices);
-    void (*go)(Entry, bool, dim3, int, cudaStream_t, const void*,
-               const void*, const void*, float*, int, int, int, int, int,
-               int);
+    int (*go)(Entry, bool, dim3, int, cudaStream_t, const void*,
+              const void*, const void*, float*, int, int, int, int, int,
+              int);
     switch (mt) {
       case 1: go = launch_decode<T, 1>; break;
       case 2: go = launch_decode<T, 2>; break;
@@ -1158,8 +1351,12 @@ int launch(const void* x, const void* values, const void* indices, void* y,
       case 8: go = launch_decode<T, 8>; break;
       default: go = launch_decode<T, 16>;
     }
-    go(entry, aligned, grid, (int)smem, st, x, values, indices, out, m, n, k,
-       n_sel, m_group, slice_groups);
+    const int e = go(entry, aligned, grid,
+                     (int)smem + (entry == SMALL_M ? mt * (int)sizeof(float)
+                                                   : 0),
+                     st, x, values, indices, out, m, n, k, n_sel, m_group,
+                     slice_groups);
+    if (e) return e;
   } else {
     const int mp = (m + PF_MT - 1) / PF_MT * PF_MT;
     const bool vec = k % 16 == 0 && (uintptr_t)values % 16 == 0 &&
@@ -1170,7 +1367,7 @@ int launch(const void* x, const void* values, const void* indices, void* y,
       using XS = float;                      // x's type in the copy
       XS* xt = (XS*)ws;                      // (n, mp)
       nm_transpose_x_kernel<T, XS><<<tgrid, dim3(32, 8), 0, st>>>(
-          (const T*)x, xt, m, mp, n);
+          (const T*)x, xt, m, mp, n, nullptr);
       // the big tile unless its grid has fewer than NV_MIN_GRID blocks
       const bool big = (long)((m + NaiveBig::TM - 1) / NaiveBig::TM) *
                            ((k + NaiveBig::TK - 1) / NaiveBig::TK) >=
@@ -1185,21 +1382,22 @@ int launch(const void* x, const void* values, const void* indices, void* y,
              st);
     } else {
       T* xt = (T*)ws;                        // (n, mp) in x's type
-      nm_transpose_x_kernel<T><<<tgrid, dim3(32, 8), 0, st>>>((const T*)x,
-                                                              xt, m, mp, n);
+      int* flags = (int*)((float*)ws + (size_t)n * mp);
+      nm_transpose_x_kernel<T, T, true><<<tgrid, dim3(32, 8), 0, st>>>(
+          (const T*)x, xt, m, mp, n, flags);
       const int run_groups = std::max(1, PF_XC / m_group);
       // the big tile unless its grid has fewer blocks than the card's 132
       // SMs
       const bool big = (long)((m + BigTile::TM - 1) / BigTile::TM) *
                            ((k + BigTile::TK - 1) / BigTile::TK) >= 132;
       int (*go)(const T*, const void*, const void*, float*, int, int, int,
-                int, int, int, int, cudaStream_t) =
+                int, int, int, int, const int*, cudaStream_t) =
           big ? (vec ? launch_prefill<BigTile, T, true>
                      : launch_prefill<BigTile, T, false>)
               : (vec ? launch_prefill<SmallTile, T, true>
                      : launch_prefill<SmallTile, T, false>);
       e = go(xt, values, indices, (float*)y, m, mp, n, k, n_sel, m_group,
-             run_groups, st);
+             run_groups, flags, st);
     }
     if (e) return e;
   }

@@ -26,6 +26,8 @@ from typing import Iterator, Optional
 import torch
 
 from repro_torch.exec.compress import CompressedStore
+from repro_torch.kernels import bitmap_spmm as bm_cuda
+from repro_torch.kernels import nm_spmm as nm_cuda
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
@@ -46,6 +48,26 @@ class OpCounters:
     y_bits: float = 0.0
     macs: float = 0.0             # useful MACs (compressed operand elems × M)
     decode_ops: float = 0.0       # metadata units decoded (blocks / indices)
+    # distinct bits cross HBM once per call; stream bits count every pass
+    # the chosen CUDA kernels make over the payload (one per row of tiles
+    # of their grid), so stream / distinct is the realized refetch factor
+    w_distinct_bits: float = 0.0
+    w_stream_bits: float = 0.0
+
+    @property
+    def w_fetch_bits_per_call(self) -> float:
+        return self.w_fetch_bits / self.calls if self.calls else 0.0
+
+    @property
+    def w_stream_bits_per_call(self) -> float:
+        return self.w_stream_bits / self.calls if self.calls else 0.0
+
+    @property
+    def refetch_factor(self) -> float:
+        """Measured stream / distinct ratio (≥ 1)."""
+        if not self.w_distinct_bits:
+            return 1.0
+        return self.w_stream_bits / self.w_distinct_bits
 
 
 _ACTIVE_COUNTERS: Optional[dict[str, OpCounters]] = None
@@ -66,7 +88,12 @@ def instrument() -> Iterator[dict[str, OpCounters]]:
 
 
 def _record(role: str, x2: torch.Tensor, y_k: int, w_bits: float,
-            macs: float, decode_ops: float) -> None:
+            macs: float, decode_ops: float, stream_passes: int = 1) -> None:
+    """Record one dispatch; ``stream_passes`` is how many times its
+    kernels stream the whole payload (``stream_passes`` of
+    :mod:`repro_torch.kernels.bitmap_spmm` / :mod:`~.nm_spmm`: the CUDA
+    grid's rows of tiles, on either device; the reference counts its TPU
+    grid's, M / tile_M)."""
     if _ACTIVE_COUNTERS is None:
         return
     c = _ACTIVE_COUNTERS.setdefault(role, OpCounters())
@@ -76,6 +103,8 @@ def _record(role: str, x2: torch.Tensor, y_k: int, w_bits: float,
     c.y_bits += float(x2.shape[0] * y_k * 32)        # kernels emit f32
     c.macs += macs
     c.decode_ops += decode_ops
+    c.w_distinct_bits += w_bits
+    c.w_stream_bits += w_bits * stream_passes
 
 
 # ---------------------------------------------------------------------------
@@ -171,18 +200,22 @@ class _Dispatcher:
                 x2, d, t_max=self._t_max[role]))
             if y is None:                     # guarded kernel failure: dense
                 return None
-            if _ACTIVE_COUNTERS is not None:  # counts.sum() syncs the card
-                nnzb = int(d.counts.sum())
+            if _ACTIVE_COUNTERS is not None:
                 _record(role, x2, d.k, w_bits=entry.stored_bits,
-                        macs=float(m) * nnzb * d.bn * d.bk,
-                        decode_ops=float(nnzb))
+                        macs=float(m) * d.nnzb * d.bn * d.bk,
+                        decode_ops=float(d.nnzb),
+                        stream_passes=bm_cuda.stream_passes(
+                            m, d.bk, d.k, d.blocks.data_ptr() % 16 == 0))
         elif entry.kind == "nm":
             y = _guarded_kernel(role, lambda: kops.nm_spmm(x2, d))
             if y is None:                     # guarded kernel failure: dense
                 return None
-            _record(role, x2, d.k, w_bits=entry.stored_bits,
-                    macs=float(m) * d.values.numel(),
-                    decode_ops=float(d.indices.numel()))
+            if _ACTIVE_COUNTERS is not None:
+                _record(role, x2, d.k, w_bits=entry.stored_bits,
+                        macs=float(m) * d.values.numel(),
+                        decode_ops=float(d.indices.numel()),
+                        stream_passes=nm_cuda.stream_passes(
+                            m, d.k, kops.resolve_pipeline(None)))
         else:
             _record(role, x2, w.shape[-1], w_bits=entry.stored_bits,
                     macs=float(m) * w.numel(), decode_ops=0.0)

@@ -101,6 +101,19 @@ class ExecPlan:
                 return op
         raise KeyError(role)
 
+    def fallbacks(self) -> dict[str, FallbackReason]:
+        """Roles whose format winner could not be served natively."""
+        return {op.role: op.choice.fallback for op in self.ops
+                if op.choice.fallback is not None}
+
+    def fallback_counts(self) -> dict[str, int]:
+        """Fallback occurrences by reason code: how many planned roles run
+        dense, and why (the serve CLI's compressed label prints them)."""
+        counts: dict[str, int] = {}
+        for fb in self.fallbacks().values():
+            counts[fb.code] = counts.get(fb.code, 0) + 1
+        return counts
+
     @property
     def sparsity(self) -> dict:
         """The weight sparsity model, as the plan's ``w_sparsity`` dict

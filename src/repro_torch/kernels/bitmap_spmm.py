@@ -141,6 +141,20 @@ def route(m: int, bk: int, aligned: bool) -> str:
     return "decode" if m <= SPLIT_MAX_M else "prefill"
 
 
+def stream_passes(m: int, bk: int, k: int, aligned: bool) -> int:
+    """How many times the kernels either entry picks for x of M rows
+    stream the whole payload (:func:`route`): once at decode (a block
+    stages all M rows of its slice), else once per row of tiles of the
+    prefill grid (:func:`prefill_plan`) or of the tiled kernel's (64 rows a
+    tile)."""
+    kind = route(m, bk, aligned)
+    if kind == "decode":
+        return 1
+    if kind == "prefill":
+        return prefill_plan(m, bk, k).grid[0]
+    return _cdiv(m, 64)
+
+
 def naive_kernel(m: int, n: int, k: int, bn: int, bk: int, max_per_col: int,
                  aligned: bool) -> tuple[tuple[str, tuple[int, ...]], ...]:
     """The kernels the naive C entry launches for x (M, N) and a

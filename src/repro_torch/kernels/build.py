@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_STATS = {"hits": 0, "misses": 0}
 #: per-source compiler output (ptxas register / spill report) of the last
 #: build in this process
 BUILD_LOG: dict[str, str] = {}
@@ -91,4 +92,21 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build_all()[name]
             lib = _LIBS[name] = ctypes.CDLL(str(path))
+            _STATS["misses"] += 1
+        else:
+            _STATS["hits"] += 1
         return lib
+
+
+def cache_stats() -> dict[str, int]:
+    """Lookups of :func:`library` that found a loaded library (hits) and
+    that loaded one (misses), and the libraries loaded (entries)."""
+    with _LOCK:
+        return dict(_STATS, entries=len(_LIBS))
+
+
+def clear_cache() -> None:
+    """Drop the loaded libraries and zero :func:`cache_stats`."""
+    with _LOCK:
+        _LIBS.clear()
+        _STATS["hits"] = _STATS["misses"] = 0

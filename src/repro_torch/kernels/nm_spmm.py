@@ -47,6 +47,10 @@ SPLIT_MAX_SLICE_COLS = 768
 #: the prefill entry pads its copy of x to a multiple of this many rows
 #: (``PF_MT``)
 PREFILL_TILE_M = 128
+#: (rows, columns) of the pipelined prefill kernel's tiles: ``BigTile``,
+#: and ``SmallTile`` where the big tiles' grid has fewer blocks than the
+#: card's 132 SMs
+PREFILL_TILES = ((128, 64), (8, 64))
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
@@ -114,6 +118,25 @@ def naive_prefill_plan(m: int, k: int) -> NaivePrefillPlan:
                   for tile, (tm, tk) in enumerate(NAIVE_PREFILL_TILES))
     return big if big.grid[0] * big.grid[1] >= NAIVE_PREFILL_MIN_BLOCKS \
         else small
+
+
+def prefill_tile(m: int, k: int) -> tuple[int, int]:
+    """The pipelined prefill kernel's tile (rows, columns) for (M, K), as
+    ``launch`` in the source picks it."""
+    big, small = PREFILL_TILES
+    return big if _cdiv(m, big[0]) * _cdiv(k, big[1]) >= 132 else small
+
+
+def stream_passes(m: int, k: int, pipeline: bool) -> int:
+    """How many times the kernels the wrapper picks for x of M rows stream
+    the whole payload: once at decode (:func:`small_m`: a block stages all
+    M rows of its slice), else once per row of tiles of the prefill
+    kernel's grid (:func:`prefill_tile` pipelined, :func:`naive_prefill_plan`
+    naive)."""
+    if small_m(m, k):
+        return 1
+    tm = prefill_tile(m, k)[0] if pipeline else naive_prefill_plan(m, k).tm
+    return _cdiv(m, tm)
 
 
 def prefill_rows(m: int) -> int:
@@ -189,16 +212,25 @@ def select_entry(x: torch.Tensor, values: torch.Tensor,
     return (entry, *split_plan(m, n, k, n_sel, m_group))
 
 
+def nonfinite_flags(m: int, n: int) -> int:
+    """int32 flags the pipelined prefill entry keeps beside its copy of x:
+    one per 32 x 32 tile of the (N, :func:`prefill_rows`) copy, set where
+    the tile holds a NaN or an Inf."""
+    return _cdiv(n, 32) * (prefill_rows(m) // 32)
+
+
 def workspace_numel(entry: str, m: int, n: int, k: int, slices: int) -> int:
     """fp32 elements of the workspace ``entry`` needs: the (S, M, K)
     partials of a split reduction (either entry at decode), room for the
     prefill kernels' (N, :func:`prefill_rows`) column-major copy of x where
     the pipelined or the naive entry takes a prefill shape (in x's own type
-    for the pipelined entry, widened to fp32 for the naive one), else
-    none."""
+    for the pipelined entry, followed by its :func:`nonfinite_flags`;
+    widened to fp32 for the naive one), else none."""
     if slices > 1:
         return slices * m * k
-    if entry == "nm_spmm" or entry == "nm_spmm_naive" and not small_m(m, k):
+    if entry == "nm_spmm":
+        return n * prefill_rows(m) + nonfinite_flags(m, n)
+    if entry == "nm_spmm_naive" and not small_m(m, k):
         return n * prefill_rows(m)
     return 0
 

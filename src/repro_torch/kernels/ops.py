@@ -37,6 +37,7 @@ import time
 import torch
 
 from repro_torch.kernels import bitmap_spmm as _bitmap_cuda
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _flash_cuda
 from repro_torch.kernels import nm_spmm as _nm_cuda
 from repro_torch.kernels import ref
@@ -76,6 +77,20 @@ def add_launches(counts: dict[str, int]) -> None:
     capture :func:`captured_launches` recorded."""
     for name, n in counts.items():
         _LAUNCHES[name] += n
+
+
+def kernel_cache_stats() -> dict[str, int]:
+    """Hits and misses of the loaded-library cache
+    (:func:`repro_torch.kernels.build.library`: one library per CUDA
+    source, looked up at every launch), and its entries: the counterpart
+    of the reference's jitted-wrapper cache counters."""
+    return build.cache_stats()
+
+
+def clear_kernel_cache() -> None:
+    """Forget the loaded libraries and zero the counters; the next launch
+    loads its library again (built files are kept)."""
+    build.clear_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -141,23 +156,28 @@ def _fault_check(kind: str) -> None:
 
 
 _DISPATCH_HOOK = None
+_DISPATCH_EVENTS = False
 
 
 @contextlib.contextmanager
-def kernel_dispatch_hook(fn):
+def kernel_dispatch_hook(fn, device_events: bool = False):
     """Install a hook called as ``fn(kind, seconds)`` after every kernel
     dispatch (``kind`` ∈ {"bitmap", "nm", "flash"}).  ``seconds`` is the
     host-side time of the call: PyTorch launches asynchronously, so on a
-    CUDA device it is the launch cost, not the kernel's device time (time
-    that with CUDA events); on the CPU it includes the plain version's
-    execution.  Zero cost uninstalled: one ``None`` check per dispatch."""
-    global _DISPATCH_HOOK
-    prev = _DISPATCH_HOOK
-    _DISPATCH_HOOK = fn
+    CUDA device it is the launch cost, not the kernel's device time; on
+    the CPU it includes the plain version's execution.  With
+    ``device_events``, a dispatch on a CUDA tensor passes ``(start, end)``
+    instead: two CUDA events recorded on the current stream around the
+    launch, for the hook to read once the device has passed them
+    (:func:`repro_torch.obs.profile.kernel_timer`).  Zero cost
+    uninstalled: one ``None`` check per dispatch."""
+    global _DISPATCH_HOOK, _DISPATCH_EVENTS
+    prev = _DISPATCH_HOOK, _DISPATCH_EVENTS
+    _DISPATCH_HOOK, _DISPATCH_EVENTS = fn, bool(device_events)
     try:
         yield
     finally:
-        _DISPATCH_HOOK = prev
+        _DISPATCH_HOOK, _DISPATCH_EVENTS = prev
 
 
 def fault_hook_installed() -> bool:
@@ -175,6 +195,14 @@ def hooks_installed() -> bool:
 def _dispatch(kind: str, fn, *args):
     if _DISPATCH_HOOK is None:
         return fn(*args)
+    if _DISPATCH_EVENTS and args[0].is_cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        _DISPATCH_HOOK(kind, (start, end))
+        return out
     t0 = time.perf_counter()
     out = fn(*args)
     _DISPATCH_HOOK(kind, time.perf_counter() - t0)
@@ -198,6 +226,7 @@ class BitmapCompressed:
     bn: int
     bk: int
     max_per_col: int
+    nnzb: int                  # stored blocks, counts.sum(), a host int
 
     @property
     def compression_ratio(self) -> float:
@@ -214,7 +243,8 @@ def compress_bitmap(w: torch.Tensor, bn: int = 128, bk: int = 128
     return BitmapCompressed(
         blocks=blocks, counts=counts, row_ids=row_ids, offsets=offsets,
         n=w.shape[0], k=w.shape[1], bn=bn, bk=bk,
-        max_per_col=int(counts.max()) if counts.numel() else 1)
+        max_per_col=int(counts.max()) if counts.numel() else 1,
+        nnzb=int(counts.sum()))
 
 
 def _bitmap(x: torch.Tensor, w: BitmapCompressed, t_max: int,

@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the kernels, and the compressors.
 
 The sparse plain versions compute the same function as the CUDA kernels
-from the same compressed operands, by decompressing to a dense weight and
-running one fp32 matmul (x is converted to fp32 exactly, as ``jnp.dot``
-promotes bf16 × f32); the pipelined and naive kernel variants share them.
+from the same compressed operands, in fp32 (x is converted to fp32
+exactly, as ``jnp.dot`` promotes bf16 × f32), and give a NaN or Inf in x
+the reference kernels' reach: the bitmap version multiplies the stored
+blocks only, the N:M version the dense weight its groups expand to,
+pruned zeros included.  The pipelined and naive kernel variants share
+them.
 :func:`flash_attention_ref` is dense softmax attention with the flash
 kernel's masking and rounding.  The wrappers in
 :mod:`repro_torch.kernels.ops` use them for CPU tensors; tests and
@@ -25,26 +28,34 @@ import torch
 NEG_INF = -1e30
 
 
-def bitmap_dense(blocks: torch.Tensor, counts: torch.Tensor,
-                 row_ids: torch.Tensor, n: int, k: int) -> torch.Tensor:
-    """Scatter CSC-ordered payload blocks back into the dense (N, K)."""
-    _, bn, bk = blocks.shape
-    gn, gk = n // bn, k // bk
-    dense = blocks.new_zeros((gn, gk, bn, bk))
-    cols = torch.repeat_interleave(
-        torch.arange(gk, device=blocks.device), counts.long())
-    total = cols.shape[0]
-    dense[row_ids[:total].long(), cols] = blocks[:total]
-    return dense.permute(0, 2, 1, 3).reshape(n, k)
-
-
 def bitmap_spmm_ref(x: torch.Tensor, blocks: torch.Tensor,
                     counts: torch.Tensor, row_ids: torch.Tensor, n: int,
                     k: int) -> torch.Tensor:
-    """Y = X @ W for block-bitmap W.  x: (M, N) → (M, K) float32.  (The
-    kernel's ``offsets`` are the exclusive cumsum of ``counts``.)"""
-    w = bitmap_dense(blocks, counts, row_ids, n, k)
-    return torch.matmul(x.float(), w.float())
+    """Y = X @ W for block-bitmap W, over the stored blocks only.  x: (M, N)
+    → (M, K) float32.
+
+    As the kernels (the port's and the reference's) do, each stored block
+    multiplies its own block-row of x, and a block-column's products are
+    summed: an x entry under no stored block of a block-column never
+    reaches it, so a NaN or Inf there leaves that column's outputs alone.
+    Slot ``t`` of the CSC payload belongs to block-column ``j`` while
+    ``offsets[j] <= t < offsets[j] + counts[j]`` (the kernel's
+    ``offsets`` are the exclusive cumsum of ``counts``); a column's slots
+    are gathered into a (K/bk, T) table with T = min(N/bn, nnzb), the most
+    a valid column holds, and the slots past its count are masked before
+    the sum, never multiplied in.  Shapes and counts stay on the device:
+    no host read."""
+    m = x.shape[0]
+    nnzb, bn, bk = blocks.shape
+    gn, gk = n // bn, k // bk
+    xs = x.float().reshape(m, gn, bn).index_select(1, row_ids.long())
+    prod = torch.bmm(xs.transpose(0, 1), blocks.float())    # (nnzb, M, bk)
+    t = torch.arange(min(gn, nnzb), device=x.device)
+    live = t < counts[:, None]                              # (gk, T)
+    first = torch.cumsum(counts, 0) - counts
+    slot = torch.where(live, first[:, None] + t, 0)
+    y = torch.where(live[..., None, None], prod[slot], 0.0).sum(1)
+    return y.transpose(0, 1).reshape(m, k)
 
 
 def nm_expand_ref(wc: torch.Tensor, idx: torch.Tensor, n_sel: int,

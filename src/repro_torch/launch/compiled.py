@@ -61,6 +61,7 @@ import torch
 from repro_torch.exec import dispatch
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import optflags
 
 _DISABLED = False
 # graphs held per model: each pins its static cache and its memory pool
@@ -156,13 +157,14 @@ def graphs(model) -> dict[tuple, Graph]:
 
 def key(model, params, cache: dict, tokens: torch.Tensor, pos) -> tuple:
     """What a graph is captured for: batch, cache length, the rank of
-    ``pos``, the compute dtype, the resolved kernel variant and the
-    identity of ``params`` and of the compressed store (None for the
-    dense model)."""
+    ``pos``, the compute dtype, the resolved kernel variant, the identity
+    of ``params`` and of the compressed store (None for the dense model)
+    and the active optimization flags (``gqagroup`` changes the step's
+    ops)."""
     return (tokens.shape[0], cache["self"]["k"].shape[2],
             pos.ndim if isinstance(pos, torch.Tensor) else 0,
             L.COMPUTE_DTYPE, ops.resolve_pipeline(None), id(params),
-            id(getattr(model, "store", None)))
+            id(getattr(model, "store", None)), optflags.active())
 
 
 _CAPTURE_STREAMS: dict[int, Any] = {}

@@ -18,14 +18,23 @@ into a running decode batch, sampled decoding) see
 Usage (on the card; ``--device cpu`` runs the plain PyTorch versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
-      [--reduced] --batch 4 --prompt-len 128 --gen 16 [--compressed] \\
-      [--eos ID] [--guarded [--deadline S]] [--mixer --slots 2 \\
-      --temperature 0.8 --top-k 20 --deadline S] [--device cuda]
+      [--reduced] --batch 4 --prompt-len 128 --gen 16 [--compressed \\
+      [--plan bitmap|nm]] [--eos ID] [--guarded [--deadline S]] \\
+      [--mixer --slots 2 --temperature 0.8 --top-k 20 --deadline S] \\
+      [--trace PATH] [--metrics PATH] [--device cuda]
+
+``--trace PATH`` writes the serving run's span trace as Chrome trace-event
+JSON to PATH and its deterministic projection to PATH.stable.json;
+``--metrics PATH`` a metrics snapshot to PATH and its Prometheus text to
+PATH.prom.  Either installs :func:`repro_torch.obs.profile.kernel_timer`
+(and, with ``--compressed``, the dispatcher's ``instrument()``), which
+keeps decode eager: every executed dispatch is counted.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Optional
 
@@ -35,7 +44,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve, synchronize
 from repro_torch.exec.compress import compress_params, prune_params
-from repro_torch.exec.dispatch import CompressedModel
+from repro_torch.exec.dispatch import CompressedModel, instrument
 from repro_torch.exec.plans import ExecPlan, shipped_plan
 from repro_torch.launch.compiled import CompiledStep
 from repro_torch.launch.mixer import (Mixer, Request, prefill_request,
@@ -43,6 +52,7 @@ from repro_torch.launch.mixer import (Mixer, Request, prefill_request,
 from repro_torch.models.transformer import Model
 from repro_torch.obs import metrics as omet
 from repro_torch.obs import trace as otr
+from repro_torch.obs.profile import kernel_timer
 
 
 def _rate(n: float, t: float) -> float:
@@ -217,7 +227,9 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--compressed", action="store_true",
-                    help="serve the shipped bitmap plan's compressed store")
+                    help="serve a shipped plan's compressed store")
+    ap.add_argument("--plan", choices=("bitmap", "nm"), default="bitmap",
+                    help="the kind of shipped plan --compressed serves")
     ap.add_argument("--guarded", action="store_true",
                     help="serve through the robustness layer (verify + "
                          "retry + dense degradation) and print the health "
@@ -240,6 +252,14 @@ def main(argv=None) -> None:
     ap.add_argument("--top-k", type=int, default=0,
                     help="top-k cutoff for sampled --mixer decoding "
                          "(0 = full vocab)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="capture a span trace of the run and write Chrome "
+                         "trace-event JSON (load in chrome://tracing) plus "
+                         "PATH.stable.json, the deterministic projection")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="collect serving metrics and write a JSON snapshot "
+                         "to PATH plus Prometheus text exposition to "
+                         "PATH.prom")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -250,11 +270,52 @@ def main(argv=None) -> None:
     model = Model(cfg)
     params = model.init(seed=0, device=dev)
     label = f"{cfg.name} (d_model={cfg.d_model}, layers={cfg.n_layers})"
+    ratio = None
     if args.compressed:
-        model, params = compressed_model(cfg, params, device=dev)
-        label += f" [compressed: ratio={model.store.achieved_ratio():.3f}]"
+        model, params = compressed_model(
+            cfg, params, shipped_plan(cfg, args.plan), device=dev)
+        ratio = model.store.achieved_ratio()
+        fb = model.store.plan.fallback_counts()
+        label += f" [compressed: ratio={ratio:.3f} fallbacks={fb or 'none'}]"
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     rng = np.random.default_rng(0)
+
+    # telemetry (--trace / --metrics): the contexts wrap the serving run
+    # only, so model build and planning stay out of the exports
+    tel = contextlib.ExitStack()
+    tracer = otr.Tracer() if args.trace is not None else None
+    registry = omet.MetricsRegistry() if args.metrics is not None else None
+    exec_counters = None
+    if tracer is not None:
+        tel.enter_context(otr.tracing(tracer))
+    if registry is not None:
+        tel.enter_context(omet.collecting(registry))
+    if tracer is not None or registry is not None:
+        tel.enter_context(kernel_timer(registry=registry, tracer=tracer))
+        if args.compressed:
+            exec_counters = tel.enter_context(instrument())
+
+    def _telemetry_done(mx=None) -> None:
+        """Close the capture contexts, fold the passive sources in,
+        export."""
+        tel.close()
+        if registry is not None:
+            if exec_counters is not None:
+                omet.ingest_instrument(registry, exec_counters)
+            omet.collect_caches(registry)
+            if mx is not None:
+                omet.ingest_straggler(registry, mx.straggler)
+            if ratio is not None:
+                registry.gauge_set("serve_achieved_compression_ratio", ratio)
+            registry.save(args.metrics)
+            with open(args.metrics + ".prom", "w") as fh:
+                fh.write(registry.prometheus_text())
+            print(f"  metrics: {args.metrics} (+ {args.metrics}.prom)")
+        if tracer is not None:
+            tracer.save_chrome(args.trace)
+            tracer.save_stable(args.trace + ".stable.json")
+            print(f"  trace: {args.trace} ({len(tracer.events)} events; "
+                  f"stable projection at {args.trace}.stable.json)")
 
     if args.mixer:
         slots = args.slots or args.batch
@@ -284,6 +345,7 @@ def main(argv=None) -> None:
               f"over {st['steps']} steps "
               f"({_rate(st['tokens'], st['t_decode_s']):.1f} tok/s) "
               f"slot_reuse_admits={st['slot_reuse_admits']}")
+        _telemetry_done(mx)
         return
 
     prompts = torch.as_tensor(
@@ -313,6 +375,7 @@ def main(argv=None) -> None:
               f"retries={report.retries} dense_steps={report.dense_steps} "
               f"deadline_hit={report.deadline_hit} "
               f"steps={report.steps}/{report.gen}")
+    _telemetry_done()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import optflags
 
 NEG_INF = -1e30
 
@@ -103,6 +104,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def decode_attention_gqa(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, length: torch.Tensor
+                         ) -> torch.Tensor:
+    """Grouped-query decode attention without repeating the cache (optflag
+    ``gqagroup``).
+
+    q: (B, H, D); caches (B, S, Hkv, D) with H = r·Hkv, read in their
+    stored layout; ``length`` a scalar or (B,) per-row lengths.  Scores
+    ``bgrd,bsgd->bgrs`` in the compute dtype scaled by :func:`_scale`, the
+    softmax in fp32, its weights cast to the compute dtype, then
+    ``bgrs,bsgd->bgrd``: the reference's rounding points.  Each KV head's
+    products are one ``bmm`` over the batch, which takes the cache's
+    strided (S at Hkv·D) slice as it is: one batched product over (B,
+    Hkv) would copy the cache, since no single batch stride spans both."""
+    b, s, hk, d = k_cache.shape
+    r = q.shape[1] // hk
+    qg = q.reshape(b, hk, r, d)
+    scores = torch.stack(
+        [torch.bmm(qg[:, g], k_cache[:, :, g].transpose(1, 2))
+         for g in range(hk)], dim=1) * _scale(d, q.dtype)
+    valid = _valid_mask(s, length)[:, None, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores.float(), dim=-1).to(L.COMPUTE_DTYPE)
+    out = torch.stack([torch.bmm(w[:, g], v_cache[:, :, g])
+                       for g in range(hk)], dim=1)
+    return out.reshape(b, hk * r, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention blocks (projections + rope + attention + out-proj)
 # ---------------------------------------------------------------------------
@@ -138,8 +167,11 @@ def attention_decode_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     x: (B, d); caches (B, S, Hkv, D) are written IN PLACE at ``pos`` (the
     reference returns updated copies; writing into the caller's cache saves
     a cache-sized copy per layer per token; with no sliding window the
-    cache position is the token position).  ``pos`` is a scalar (lockstep
-    batch) or a (B,) per-row vector.  Returns the block output (B, d)."""
+    cache position is the token position; the reference's ``maskedkv``
+    blend writes the same values).  ``pos`` is a scalar (lockstep batch)
+    or a (B,) per-row vector.  Under the ``gqagroup`` flag the attention
+    is :func:`decode_attention_gqa`, else :func:`decode_attention` over
+    the repeated caches.  Returns the block output (B, d)."""
     b, _ = x.shape
     nh, nk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.proj(x, p["wq"], "attn.wq")
@@ -155,7 +187,10 @@ def attention_decode_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     k_cache.index_put_((rows, pos), k.to(k_cache.dtype))
     v_cache.index_put_((rows, pos), v.to(v_cache.dtype))
     length = torch.clamp(pos + 1, max=k_cache.shape[1])
-    rep = nh // max(nk, 1)
-    o = decode_attention(q, _repeat_kv(k_cache, rep),
-                         _repeat_kv(v_cache, rep), length)
+    if optflags.enabled("gqagroup"):
+        o = decode_attention_gqa(q, k_cache, v_cache, length)
+    else:
+        rep = nh // max(nk, 1)
+        o = decode_attention(q, _repeat_kv(k_cache, rep),
+                             _repeat_kv(v_cache, rep), length)
     return L.proj(o.reshape(b, nh * hd), p["wo"], "attn.wo")

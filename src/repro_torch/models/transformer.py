@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import optflags
 
 PyTree = Any
 
@@ -63,11 +64,17 @@ class Model:
     def __post_init__(self):
         _check_served(self.cfg)
 
+    def _check_flags(self) -> None:
+        """Raise for an active optimization flag the port does not serve
+        (:func:`repro_torch.models.optflags.check_served`)."""
+        optflags.check_served(self.cfg.n_heads)
+
     # ---------------- params ----------------
     def init(self, seed: int = 0, device="cuda") -> PyTree:
         """Random params drawn on ``device`` from a seeded
         ``torch.Generator`` (normal / sqrt(fan_in), zero norms), stacked
         along a leading layer axis like the reference's pytree."""
+        self._check_flags()
         cfg = self.cfg
         dev = resolve(device)
         gen = torch.Generator(device=dev)
@@ -88,6 +95,7 @@ class Model:
     # ---------------- forward ----------------
     def hidden_states(self, params: PyTree, tokens: torch.Tensor
                       ) -> torch.Tensor:
+        self._check_flags()
         cfg = self.cfg
         s = tokens.shape[1]
         x = L.embed(tokens, params["embed"])
@@ -110,6 +118,7 @@ class Model:
         each layer's post-RoPE, pre-GQA-repeat (K, V), so
         ``decode_step(pos=s)`` continues seamlessly.  Returns
         (logits (B, S, V) float32, cache)."""
+        self._check_flags()
         cfg = self.cfg
         b, s = tokens.shape
         if s > max_len:
@@ -148,6 +157,7 @@ class Model:
         With ``pos`` a tensor on the tokens' device the step reads nothing
         back to the host and copies nothing to the device, so a CUDA graph
         can capture it (:mod:`repro_torch.launch.compiled`)."""
+        self._check_flags()
         cfg = self.cfg
         pos = torch.as_tensor(pos, device=tokens.device)
         if pos.ndim not in (0, 1) or \

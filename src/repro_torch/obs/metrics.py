@@ -8,9 +8,11 @@ no-ops when none is — the same zero-cost-when-off contract as
 :mod:`repro_torch.obs.trace`), and the ``ingest_*`` adapters fold a
 :class:`~repro_torch.runtime.fault.StragglerMonitor` and a per-request
 :class:`~repro_torch.runtime.guard.HealthReport` into the same registry
-without touching their source of truth.  The reference's adapters over its
-dispatch counters' refetch fields, its memo registry and its kernel cache
-have no source in the port yet.
+without touching their source of truth, as do
+:func:`ingest_instrument` (the dispatcher's per-role traffic counters) and
+:func:`ingest_kernel_cache` (the loaded-library cache).  The reference's
+memo registry has no source in the port yet, so :func:`collect_caches`
+folds the kernel cache alone.
 
 Exports: :meth:`MetricsRegistry.snapshot` (JSON-able dict, saved with
 :meth:`save`) and :meth:`MetricsRegistry.prometheus_text` (Prometheus
@@ -228,6 +230,43 @@ def observe(name: str, value: float, **labels) -> None:
 # ---------------------------------------------------------------------------
 # Adapters
 # ---------------------------------------------------------------------------
+
+def ingest_instrument(reg: MetricsRegistry, counters: dict) -> None:
+    """Fold :func:`repro_torch.exec.dispatch.instrument` per-role traffic
+    counters in, one labelled series per role — values equal the
+    ``OpCounters`` fields exactly."""
+    for role in sorted(counters):
+        c = counters[role]
+        reg.counter_inc("exec_dispatch_calls_total", c.calls, role=role)
+        reg.counter_inc("exec_w_fetch_bits_total", c.w_fetch_bits, role=role)
+        reg.counter_inc("exec_w_distinct_bits_total", c.w_distinct_bits,
+                        role=role)
+        reg.counter_inc("exec_w_stream_bits_total", c.w_stream_bits,
+                        role=role)
+        reg.counter_inc("exec_x_bits_total", c.x_bits, role=role)
+        reg.counter_inc("exec_y_bits_total", c.y_bits, role=role)
+        reg.counter_inc("exec_macs_total", c.macs, role=role)
+        reg.counter_inc("exec_decode_ops_total", c.decode_ops, role=role)
+        reg.gauge_set("exec_refetch_factor", c.refetch_factor, role=role)
+
+
+def ingest_kernel_cache(reg: MetricsRegistry,
+                        stats: Optional[dict] = None) -> None:
+    """Fold the loaded-library cache counters in
+    (:func:`repro_torch.kernels.ops.kernel_cache_stats`)."""
+    if stats is None:
+        from repro_torch.kernels import ops as kops
+        stats = kops.kernel_cache_stats()
+    reg.counter_inc("kernel_cache_hits_total", stats["hits"])
+    reg.counter_inc("kernel_cache_misses_total", stats["misses"])
+    reg.gauge_set("kernel_cache_entries", stats["entries"])
+
+
+def collect_caches(reg: MetricsRegistry) -> None:
+    """Ingest the global cache sources: the kernel cache (the reference
+    folds its memo registry too, which the port has not yet)."""
+    ingest_kernel_cache(reg)
+
 
 def ingest_straggler(reg: MetricsRegistry, monitor) -> None:
     """Fold a :class:`~repro_torch.runtime.fault.StragglerMonitor` in: the EWMA

@@ -33,6 +33,7 @@ from repro_torch.exec import dispatch
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import compiled, serve
 from repro_torch.models import layers as L
+from repro_torch.models import optflags
 from repro_torch.models.transformer import Model
 from repro_torch.runtime import inject
 
@@ -211,6 +212,9 @@ def test_the_key_differs_in_each_part(served):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(L, "COMPUTE_DTYPE", torch.bfloat16)
         variants.append(compiled.key(cm, pruned, cache, tok, pos))
+    for flags in (("gqagroup",), ("maskedkv",), ("gqagroup", "maskedkv")):
+        with optflags.optimizations(flags):
+            variants.append(compiled.key(cm, pruned, cache, tok, pos))
     assert len({base, *variants}) == len(variants) + 1
 
 

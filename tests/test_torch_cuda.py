@@ -793,6 +793,72 @@ def test_a_hook_is_called_at_every_step(card, name):
     assert torch.equal(toks, eager)
 
 
+def test_kernel_timer_reads_device_seconds_once_at_exit(card):
+    """On the card ``kernel_timer`` records a CUDA event pair around each
+    dispatch and reads none of them before the context exits: inside it
+    the trace's kernel events have no duration and the histogram holds
+    nothing; after it there is one positive device duration per dispatch,
+    and the counts equal the launches."""
+    from repro_torch.obs import metrics as omet
+    from repro_torch.obs import trace as otr
+    from repro_torch.obs.profile import kernel_timer
+    cfg, cm, pruned = _served("bitmap")
+    reg, tracer = omet.MetricsRegistry(), otr.Tracer()
+    with kernel_timer(registry=reg, tracer=tracer):
+        cm.generate(pruned, _prompts(cfg), 5)
+        inside = [e for e in tracer.events if e["ph"] == "X"]
+        assert inside and all(e["dur"] == 0.0 for e in inside)
+        assert reg.snapshot()["histograms"] == {}
+    n = 7 * cfg.n_layers * (1 + 5)
+    assert ops.launch_counts()["bitmap_spmm"] == n
+    assert reg.value("kernel_dispatch_total", kind="bitmap") == n
+    xs = [e for e in tracer.events if e["ph"] == "X"]
+    assert len(xs) == n and all(e["dur"] > 0 for e in xs)
+    assert all(e["name"] == "kernel:bitmap" for e in xs)
+    hist = reg.snapshot()["histograms"][
+        "kernel_dispatch_seconds{kind=bitmap}"]
+    assert hist["count"] == n and hist["sum"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_gqagroup_graph_equals_eager(card, kind, dtype, monkeypatch):
+    """Under the ``gqagroup`` flag the graph's tokens and every decode
+    step's logits are ``torch.equal`` to the eager step's, both variants,
+    a scalar and a per-row position."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import optflags
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", dtype)
+    cfg, cm, pruned = _served(kind)
+    with optflags.optimizations(("gqagroup",)):
+        for pipeline in (True, False):
+            with ops.pipeline_default(pipeline):
+                for per_row in (False, True):
+                    _graph_equals_eager(cm, pruned, _prompts(cfg), 6,
+                                        per_row)
+
+
+def test_a_graph_is_never_replayed_across_a_flag_change(card):
+    """A graph captured with ``gqagroup`` off is not replayed with it on:
+    the flags are part of the key, so each setting captures its own graph
+    and replays only under it, each step equal to the eager step under
+    the same flags."""
+    from repro_torch.launch import compiled
+    from repro_torch.models import optflags
+    cfg, cm, pruned = _served("bitmap")
+    prompts = _prompts(cfg)
+    _graph_equals_eager(cm, pruned, prompts, 6)
+    (off,) = compiled.graphs(cm).values()
+    with optflags.optimizations(("gqagroup",)):
+        _graph_equals_eager(cm, pruned, prompts, 6)
+    on = [g for g in compiled.graphs(cm).values() if g is not off]
+    assert len(on) == 1 and off.replays == 4 and on[0].replays == 4
+    assert {k[-1] for k in compiled.graphs(cm)} == {
+        frozenset(), frozenset({"gqagroup"})}
+    _graph_equals_eager(cm, pruned, prompts, 6)   # 5 steps, all replays
+    assert off.replays == 9 and on[0].replays == 4
+
+
 def test_memory_returns_after_the_model_is_deleted(card):
     import gc
     from repro_torch.launch import compiled
@@ -1201,47 +1267,86 @@ def _nan_column_weight(kind, n, k):
     return w, pruned
 
 
+def _same_masks(y, want):
+    """y is NaN, +Inf and -Inf exactly where ``want`` is."""
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(mask(y), mask(want)), mask.__name__
+
+
 @pytest.mark.parametrize("bad", ["nan", "inf"])
 @pytest.mark.parametrize("m", [4, 512])
 @pytest.mark.parametrize("pipeline", [True, False])
 @pytest.mark.parametrize("kind", ["bitmap", "nm"])
 def test_a_non_finite_input_meeting_a_pruned_weight_is_dropped_by_the_kernel(
         card, kind, pipeline, m, bad):
-    """The bitmap kernels (both variants) and the pipelined N:M kernel
-    read stored weights only (blocks, or the N:M slots kept): a NaN or Inf
-    in an input column whose weights in an output column are pruned leaves
-    that output finite, and equal to the product with that input column
-    zeroed.  The plain versions expand to dense and multiply it by zero,
-    so every output is non-finite, and so does the naive N:M kernel,
-    which expands each group of 4 densely as the reference's naive kernel
-    does.  This is why a poisoned value can reach the logits on the CPU
-    and not on the card."""
+    """A NaN or Inf in input column 0 reaches the outputs the reference's
+    kernels give it.  The bitmap kernels (both variants) and their plain
+    version read stored blocks only, as the reference's do: an output
+    whose weights on that column are pruned stays finite, equal to the
+    product with the column zeroed.  The N:M kernels (both variants) and
+    their plain version expand each group densely, as the reference's
+    do: an output whose group does not keep input 0 is NaN, the others NaN
+    or +Inf with x; the pipelined kernel equals the naive one, NaN for
+    NaN."""
     n, k = 1024, 512
     w, pruned = _nan_column_weight(kind, n, k)
     gen = torch.Generator().manual_seed(8)
     x = torch.randn(m, n, generator=gen).to(torch.bfloat16)
     x[:, 0] = float(bad)
     x = x.to(card)
+    kept = torch.ones(k, dtype=torch.bool)
+    kept[pruned] = False
+    kept, pruned = kept.to(card), pruned.to(card)
     if kind == "bitmap":
         wc = ops.compress_bitmap(w.to(card), n // 4, k // 4)
         y = ops.bitmap_spmm(x, wc, pipeline=pipeline)
         y_plain = ref.bitmap_spmm_ref(x, wc.blocks, wc.counts, wc.row_ids,
                                       wc.n, wc.k)
-    else:
-        wc = ops.compress_nm(w.to(card))
-        y = ops.nm_spmm(x, wc, pipeline=pipeline)
-        y_plain = ref.nm_spmm_ref(x, wc.values, wc.indices, 2, 4)
-    torch.cuda.synchronize()
-    assert not torch.isfinite(y_plain).any()
-    if kind == "nm" and not pipeline:
-        assert not torch.isfinite(y).any()
+        torch.cuda.synchronize()
+        assert not torch.isfinite(y[:, kept]).any()
+        _same_masks(y, y_plain)
+        x0 = x.clone()
+        x0[:, 0] = 0
+        want = ref.bitmap_spmm_ref(x0, wc.blocks, wc.counts, wc.row_ids,
+                                   wc.n, wc.k)
+        _close(y[:, pruned], want[:, pruned])
+        _close(y[:, pruned], y_plain[:, pruned])
         return
-    kept = torch.ones(k, dtype=torch.bool)
-    kept[pruned] = False
-    assert not torch.isfinite(y[:, kept.to(card)]).any()
-    x0 = x.clone()
-    x0[:, 0] = 0
-    want = (ref.bitmap_spmm_ref(x0, wc.blocks, wc.counts, wc.row_ids, wc.n,
-                                wc.k) if kind == "bitmap" else
-            ref.nm_spmm_ref(x0, wc.values, wc.indices, 2, 4))
-    _close(y[:, pruned.to(card)], want[:, pruned.to(card)])
+    wc = ops.compress_nm(w.to(card))
+    y = ops.nm_spmm(x, wc, pipeline=pipeline)
+    y_naive = ops.nm_spmm(x, wc, pipeline=False)
+    y_plain = ref.nm_spmm_ref(x, wc.values, wc.indices, 2, 4)
+    torch.cuda.synchronize()
+    assert torch.isnan(y[:, pruned]).all()
+    assert (torch.isnan(y) if bad == "nan"
+            else torch.isposinf(y[:, kept])).all()
+    _same_masks(y, y_plain)
+    torch.testing.assert_close(y, y_naive, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("m,n,k,n_sel,m_group", NM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_pipelined_equals_naive_on_non_finite_x(card, m, n, k, n_sel,
+                                                   m_group, dtype):
+    """NaN, +Inf and -Inf in x: the pipelined kernel (decode and prefill
+    entries) gives the naive one's result, the same NaN / +-Inf masks and
+    the same finite values bit for bit, and the plain version's masks."""
+    rng = np.random.default_rng(m + n + k + 2)
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(card)
+    c = ops.compress_nm(w, n_sel, m_group)
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    x[0, 1] = float("nan")
+    x[m - 1, n // 2] = float("inf")
+    x[m // 2, n - 1] = float("-inf")
+    x = x.to(card, dtype)
+    y = ops.nm_spmm(x, c)
+    y_naive = ops.nm_spmm(x, c, pipeline=False)
+    y_plain = ref.nm_spmm_ref(x, c.values, c.indices, n_sel, m_group)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_naive, rtol=0, atol=0, equal_nan=True)
+    _same_masks(y, y_naive)
+    _same_masks(y, y_plain)
+    fin = torch.isfinite(y_plain)
+    assert not fin.all()
+    if fin.any():
+        _close(y[fin], y_plain[fin])

@@ -160,17 +160,22 @@ def test_workspace_holds_the_partials_or_a_column_major_x(m, n, k,
                                                          pipeline):
     """A split reduction gets its (S, M, K) partials; a prefill shape, on
     the pipelined or the naive entry, its (N, M rounded up to the 128-row
-    tile) copy of x, so every tile's x columns are whole; an unsplit decode
-    shape none."""
+    tile) copy of x, so every tile's x columns are whole, and on the
+    pipelined entry the copy's non-finite flags after it; an unsplit
+    decode shape none."""
     x, v, i = _operands(m, n, k)
     entry, slices, _ = nm.select_entry(x, v, i, 2, 4, pipeline)
     numel = nm.workspace_numel(entry, m, n, k, slices)
     if slices > 1:
         assert numel == slices * m * k
     elif not nm.small_m(m, k):
-        mp = numel // n
-        assert numel == n * mp and mp % nm.PREFILL_TILE_M == 0
+        # the pipelined entry keeps one non-finite flag per 32 x 32 tile
+        flags = nm.nonfinite_flags(m, n) if entry == "nm_spmm" else 0
+        mp = (numel - flags) // n
+        assert numel == n * mp + flags and mp % nm.PREFILL_TILE_M == 0
         assert m <= mp < m + nm.PREFILL_TILE_M
-        assert numel == nm.workspace_numel("nm_spmm", m, n, k, 1)
+        assert flags in (0, -(-n // 32) * mp // 32)
+        assert numel - flags == nm.workspace_numel(
+            "nm_spmm", m, n, k, 1) - nm.nonfinite_flags(m, n)
     else:
         assert numel == 0
