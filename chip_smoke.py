@@ -164,10 +164,31 @@ non-zero exit code when it fails:
    ``telemetry_series`` (the set the CPU tests hold the reference's CLI
    exports to); ``kernel_dispatch_total{kind}`` and the trace's
    ``kernel:<kind>`` events must equal the run's launches of that kind's
-   kernels, and no other kernel may launch.
+   kernels, and no other kernel may launch.  The CLI searches its plan
+   (``serve._fast_plan``), so the snapshot also holds the memo registry's
+   ``memo_*`` series, which must be there and are left out of the
+   comparison (they count every search the process ran);
+10. search and calibrate (``repro_torch.core``, ``repro_torch.exec``): the
+   port's own search, on this machine without JAX, for full-width
+   chatglm3-6b under both sparsity models with the CLI's settings (tokens
+   64, value_bits 32, ``serve.FAST_SEARCH``), cold (memo cleared) and warm,
+   its host seconds printed; each plan's JSON must equal
+   ``plans/chatglm3-6b.{bitmap,nm}.json`` byte for byte.  On phase 8's
+   model of each shipped plan (before it is deleted): one prefill of the
+   batch (M = 512) and one eager decode step (M = 4) under
+   ``instrument()``, pipelined (2 x 7 x layers launches of the plan's
+   kernel), and the decode step naive (7 x layers launches, the same
+   counters).  ``calibrate`` on each set of counters, both plans,
+   re-searching under the CLI's budget, prints ``scale``, ``glb_scale``,
+   ``max_rel_err``, ``max_residual``, ``energy_drift``,
+   ``max_stream_rel_err`` and ``kinds_changed``; the bitmap plan's M = 4
+   fit must lie in 0.9 < scale < 1.1 with max_residual < 0.05 (the
+   reference's bounds), every fitted number must be finite and positive,
+   and the calibrated plan must come back from its JSON equal, with its
+   hardware resolved.
 
 The line before the last is one JSON object describing every kernel (its
-launches in phases 5-9, each counted from zero before the phase's run);
+launches in phases 5-10, each counted from zero before the phase's run);
 the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 port's sources beside this script, it exits non-zero and prints no result.
 """
@@ -1951,9 +1972,12 @@ def telemetry_series(roles, kind: str, mixer: bool) -> set[str]:
 
 
 def _snapshot_series(snap: dict) -> set[str]:
+    """The snapshot's series less :data:`TIMING_SERIES` and the memo
+    registry's (``memo_*``: they count every search the process ran)."""
     return {k for part in ("counters", "gauges", "histograms")
             for k in snap[part]
-            if k.split("{")[0] not in TIMING_SERIES}
+            if k.split("{")[0] not in TIMING_SERIES
+            and not k.startswith("memo_")}
 
 
 def _gqagroup_decode(cfg, kind: str, kname: str, cm, pruned, prompts,
@@ -2155,12 +2179,14 @@ def _telemetry_overhead(cfg, kind: str, kname: str, cm, pruned, prompts,
           f"{len(reg.snapshot()['counters'])} counter series; tokens equal)")
 
 
-def phase_gqagroup(cfg, card: str, dev) -> dict[str, int]:
+def phase_gqagroup(cfg, card: str, dev, then=None) -> dict[str, int]:
     """Phases 8 and 9's overhead rows, on one build of each shipped plan
     at full width: ``gqagroup`` (``_gqagroup_decode``,
     ``_gqagroup_mixer``) and the telemetry overhead
-    (``_telemetry_overhead``).  Returns the flagged graphed runs'
-    launches, by kernel."""
+    (``_telemetry_overhead``); ``then(kind, cm, pruned, prompts)`` runs on
+    each plan's model before it is deleted (phase 10's instrumented
+    forwards, so ``compress_params`` is not paid again).  Returns the
+    flagged graphed runs' launches, by kernel."""
     import torch
     from repro_torch.exec.plans import shipped_plan
     from repro_torch.kernels import ops
@@ -2193,6 +2219,8 @@ def phase_gqagroup(cfg, card: str, dev) -> dict[str, int]:
         launches[f"{kname}_naive"] = naive[f"{kname}_naive"]
         _gqagroup_mixer(cm, pruned, reqs, kind, card)
         _telemetry_overhead(cfg, kind, kname, cm, pruned, prompts, card)
+        if then is not None:
+            then(kind, cm, pruned, prompts)
         del cm, pruned
         torch.cuda.empty_cache()
     return launches
@@ -2249,6 +2277,10 @@ def phase_telemetry(cfg, card: str, dev) -> dict[str, int]:
         if got != want:
             _fail(f"telemetry {label}: series {sorted(got ^ want)} differ "
                   f"from the expected set")
+        memo = [k for k in snap["counters"] if k.startswith("memo_")]
+        if not memo:
+            _fail(f"telemetry {label}: no memo_* series although the CLI "
+                  f"searched its plan")
         name = "bitmap_spmm" if kind == "bitmap" else "nm_spmm"
         ran = counts[name] + counts[f"{name}_naive"]
         dispatched = snap["counters"][f"kernel_dispatch_total{{kind={kind}}}"]
@@ -2259,11 +2291,146 @@ def phase_telemetry(cfg, card: str, dev) -> dict[str, int]:
         launches[name] = launches.get(name, 0) + counts[name]
         print(f"[telemetry {label}] {wall:.2f} s (build and compress "
               f"included); trace {len(chrome)} events ({len(stable)} "
-              f"stable), metrics {len(got)} series, {len(prom)} Prometheus "
+              f"stable), metrics {len(got)} series (+ {len(memo)} memo), "
+              f"{len(prom)} Prometheus "
               f"samples, all parsed; kernel_dispatch_total{{kind={kind}}} "
               f"= {dispatched:.0f} = the {ran} launches of {name} = the "
               f"trace's kernel:{kind} events; series as expected")
     return launches
+
+
+def _calibration_forwards(cfg, kind: str, kname: str, cm, pruned, prompts,
+                          card: str, dev) -> dict:
+    """Phase 10's forwards, on phase 8's compressed model of ``kind``'s
+    shipped plan: one prefill of the batch (M = BATCH x PROMPT) and one eager
+    decode step of it (M = BATCH), each under ``instrument()`` with the
+    pipelined kernels; the decode step once more with the naive kernels,
+    whose counters must equal the pipelined ones'.  Returns the counters
+    by M and the launches, by kernel, counted from zero."""
+    import torch
+    from repro_torch.exec.dispatch import instrument
+    from repro_torch.kernels import ops
+    layer_calls = 7 * cfg.n_layers
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with instrument() as pre:
+        logits, cache = cm.prefill(pruned, prompts, PROMPT + 1)
+    tok = logits[:, -1].argmax(dim=-1)
+    pos = torch.tensor(PROMPT, device=dev)
+    with instrument() as dec:
+        cm.decode_step(pruned, cache, tok, pos)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    with ops.pipeline_default(False), instrument() as naive:
+        cm.decode_step(pruned, cache, tok, pos)
+    torch.cuda.synchronize()
+    naive_counts = ops.launch_counts()
+    if counts[kname] != 2 * layer_calls or sum(counts.values()) != \
+            2 * layer_calls or naive_counts[f"{kname}_naive"] != \
+            layer_calls or sum(naive_counts.values()) != layer_calls:
+        _fail(f"calibration forwards {kind}: launches {counts}, naive "
+              f"{naive_counts}; expected {2 * layer_calls} of {kname} and "
+              f"{layer_calls} of {kname}_naive")
+    roles = {op.role for op in cm.store.plan.ops}
+    for m, c in ((M_PREFILL, pre), (M_DECODE, dec)):
+        if set(c) != roles or {x.calls for x in c.values()} != \
+                {cfg.n_layers}:
+            _fail(f"calibration forwards {kind} M={m}: counters for "
+                  f"{sorted(c)} with calls {[x.calls for x in c.values()]}")
+    bad = [r for r in dec
+           if (dec[r].w_fetch_bits, dec[r].w_stream_bits)
+           != (naive[r].w_fetch_bits, naive[r].w_stream_bits)]
+    if bad:
+        _fail(f"calibration forwards {kind}: naive counters differ at {bad}")
+    print(f"[search {kind}] instrumented forwards on phase 8's model: "
+          f"prefill M={M_PREFILL} + one eager decode step M={M_DECODE} in "
+          f"{wall:.3f} s, {counts[kname]} launches of {kname}; the decode "
+          f"step naive: {layer_calls} launches of {kname}_naive, counters "
+          f"equal; refetch factor at M={M_PREFILL}: "
+          + ", ".join(f"{r} {pre[r].refetch_factor:g}" for r in sorted(pre))
+          + f"; on {card}")
+    launches = dict(counts)
+    launches[f"{kname}_naive"] = naive_counts[f"{kname}_naive"]
+    return {"counters": {M_DECODE: dec, M_PREFILL: pre},
+            "launches": launches}
+
+
+def phase_search(cfg, card: str, forwards: dict) -> None:
+    """Phase 10: the port's own search at full width under both sparsity
+    models with the serve CLI's settings, cold (memo cleared) and warm;
+    each plan's JSON must be the shipped one.  Then ``calibrate`` on each
+    set of phase 8's counters (``forwards``: by kind, by M), re-searching
+    under the CLI's budget: the fit, its errors and the drift printed; the
+    M = 4 bitmap fit inside the reference's bounds; every fitted number
+    finite and positive; the calibrated plan through JSON and back, its
+    hardware resolved."""
+    from repro_torch.core import memo
+    from repro_torch.exec import ExecPlan, calibrate
+    from repro_torch.exec.plans import PLANS_DIR
+    from repro_torch.launch import serve
+    plans = {}
+    for kind in ("bitmap", "nm"):
+        sp = serve.PLAN_SPARSITY[kind]
+        memo.clear()
+        t0 = time.perf_counter()
+        plan = serve._fast_plan(cfg, 64, sp)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = serve._fast_plan(cfg, 64, sp)
+        warm = time.perf_counter() - t0
+        shipped = (PLANS_DIR / f"{cfg.name}.{kind}.json").read_text()
+        if plan.to_json() != shipped.rstrip("\n") or \
+                again.to_json() != plan.to_json():
+            _fail(f"search {kind}: the port's plan is not "
+                  f"plans/{cfg.name}.{kind}.json")
+        plans[kind] = plan
+        print(f"[search {kind}] {cfg.name} full width ({cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}) under {sp}, tokens 64, "
+              f"value_bits 32: the port's search {cold:.4f} s cold (memo "
+              f"cleared), {warm:.4f} s warm, host clock; "
+              f"{plan.search.evaluations} evaluations; JSON equal to "
+              f"plans/{cfg.name}.{kind}.json byte for byte; on {card}")
+    for kind in ("bitmap", "nm"):
+        for m, counters in sorted(forwards[kind]["counters"].items()):
+            t0 = time.perf_counter()
+            rep = calibrate(cfg, plans[kind], counters,
+                            search_cfg=serve.FAST_SEARCH)
+            secs = time.perf_counter() - t0
+            fitted = {"scale": rep.scale, "glb_scale": rep.glb_scale,
+                      "energy_scale": rep.calibrated_plan.energy_scale,
+                      "glb_energy_scale":
+                          rep.calibrated_plan.glb_energy_scale,
+                      "baseline_energy": rep.baseline_energy,
+                      "calibrated_energy": rep.calibrated_energy}
+            bad = {k: v for k, v in fitted.items()
+                   if not (math.isfinite(v) and v > 0)}
+            errs = (rep.max_rel_err, rep.max_residual, rep.energy_drift,
+                    rep.max_stream_rel_err, rep.max_refetch_residual)
+            if bad or not all(math.isfinite(x) for x in errs):
+                _fail(f"calibrate {kind} M={m}: not finite and positive: "
+                      f"{bad}, errors {errs}")
+            loaded = ExecPlan.from_json(rep.calibrated_plan.to_json())
+            hw = loaded.hardware()
+            if loaded != rep.calibrated_plan or \
+                    hw != rep.calibrated_plan.hardware() or \
+                    not hw.name.startswith(plans[kind].arch):
+                _fail(f"calibrate {kind} M={m}: the calibrated plan does "
+                      f"not round-trip ({hw.name})")
+            if kind == "bitmap" and m == M_DECODE and not (
+                    0.9 < rep.scale < 1.1 and rep.max_residual < 0.05):
+                _fail(f"calibrate bitmap M={m}: scale {rep.scale!r}, "
+                      f"max_residual {rep.max_residual!r} outside (0.9, "
+                      f"1.1) and < 0.05")
+            print(f"[search {kind}] calibrate M={m}: scale {rep.scale!r} "
+                  f"glb_scale {rep.glb_scale!r} max_rel_err "
+                  f"{rep.max_rel_err!r} max_residual {rep.max_residual!r} "
+                  f"energy_drift {rep.energy_drift!r} max_stream_rel_err "
+                  f"{rep.max_stream_rel_err!r} kinds_changed "
+                  f"{rep.kinds_changed or 'none'}; {secs:.4f} s with the "
+                  f"re-search, host clock; calibrated plan round-trips, "
+                  f"hardware {hw.name}; counters from {card}")
 
 
 def main() -> None:
@@ -2284,8 +2451,20 @@ def main() -> None:
     launches = phase_serving(cfg, card, dev)
     mixer_launches = phase_mixer(cfg, card, dev)
     guarded_launches = phase_guarded(cfg, card, dev)
-    gqa_launches = phase_gqagroup(cfg, card, dev)
+    forwards: dict[str, dict] = {}
+
+    def calibration_forwards(kind, cm, pruned, prompts):
+        kname = "bitmap_spmm" if kind == "bitmap" else "nm_spmm"
+        forwards[kind] = _calibration_forwards(cfg, kind, kname, cm, pruned,
+                                               prompts, card, dev)
+
+    gqa_launches = phase_gqagroup(cfg, card, dev, then=calibration_forwards)
     telemetry_launches = phase_telemetry(cfg, card, dev)
+    phase_search(cfg, card, forwards)
+    search_launches: dict[str, int] = {}
+    for f in forwards.values():
+        for name, n in f["launches"].items():
+            search_launches[name] = search_launches.get(name, 0) + n
 
     sources = {
         "bitmap_spmm": ("src/repro_torch/csrc/bitmap_spmm.cu",
@@ -2308,6 +2487,7 @@ def main() -> None:
                  "guarded_launches": guarded_launches[name],
                  "gqagroup_launches": gqa_launches[name],
                  "telemetry_launches": telemetry_launches.get(name, 0),
+                 "search_launches": search_launches.get(name, 0),
                  "max_abs_err": a.max_abs_err}
         for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
             s = a.sums[(m, torch.bfloat16)]

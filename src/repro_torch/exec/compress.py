@@ -23,6 +23,7 @@ from typing import Any, Iterator, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparsity import NM
 from repro_torch.exec.plans import ExecPlan, check_plan
 from repro_torch.kernels import ops as kops
 from repro_torch.sparse import masks
@@ -41,7 +42,7 @@ def _role_path(role: str) -> tuple[str, str]:
 def _nm_shape(plan: ExecPlan) -> tuple[int, int]:
     """(n_sel, m_group) of an N:M plan; the reference's 2:4 otherwise."""
     sp = plan.sparsity
-    return (sp["n"], sp["m"]) if sp["kind"] == "nm" else (2, 4)
+    return (sp.n, sp.m) if isinstance(sp, NM) else (2, 4)
 
 
 @dataclasses.dataclass
@@ -178,7 +179,7 @@ def prune_params(params: dict, plan: ExecPlan, cfg: ModelConfig) -> dict:
         for layer in range(w.shape[0]):
             if ch.kind == "bitmap":
                 pruned[layer] = masks.block_prune(
-                    w[layer], ch.block_n, ch.block_k, sp["density"])
+                    w[layer], ch.block_n, ch.block_k, sp.density)
             else:
                 pruned[layer] = masks.nm_prune(w[layer], n_sel, m_group)
         blocks[group] = dict(blocks[group])

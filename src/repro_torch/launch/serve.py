@@ -23,6 +23,10 @@ Usage (on the card; ``--device cpu`` runs the plain PyTorch versions)::
       [--mixer --slots 2 --temperature 0.8 --top-k 20 --deadline S] \\
       [--trace PATH] [--metrics PATH] [--device cuda]
 
+``--compressed`` co-searches a plan (:func:`_fast_plan`, the reference
+CLI's small budget; ``--plan`` picks the sparsity model it searches under)
+and serves its compressed store.
+
 ``--trace PATH`` writes the serving run's span trace as Chrome trace-event
 JSON to PATH and its deterministic projection to PATH.stable.json;
 ``--metrics PATH`` a metrics snapshot to PATH and its Prometheus text to
@@ -42,10 +46,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.cosearch import CoSearchConfig
+from repro_torch.core.engine import EngineConfig
+from repro_torch.core.sparsity import NM, BlockBernoulli, Sparsity
 from repro_torch.device import resolve, synchronize
 from repro_torch.exec.compress import compress_params, prune_params
 from repro_torch.exec.dispatch import CompressedModel, instrument
-from repro_torch.exec.plans import ExecPlan, shipped_plan
+from repro_torch.exec.plans import ExecPlan, build_exec_plan
 from repro_torch.launch.compiled import CompiledStep
 from repro_torch.launch.mixer import (Mixer, Request, prefill_request,
                                       write_slot)
@@ -201,11 +208,35 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
                      pad_id=pad_id, prompt_pad_id=prompt_pad_id)
 
 
+#: the sparsity model ``--plan`` searches under: block-pruned weights at
+#: density 0.5 in 32 x 32 blocks, or 2:4
+PLAN_SPARSITY: dict[str, Sparsity] = {"bitmap": BlockBernoulli(0.5, 32 * 32),
+                                      "nm": NM(2, 4)}
+#: the small search budget of the CLI's plans (the reference's
+#: ``_fast_plan``); calibration re-searches under it too
+FAST_SEARCH = CoSearchConfig(objective="edp",
+                             engine=EngineConfig(max_levels=2,
+                                                 max_allocs_per_pattern=16),
+                             spatial_top=2, max_pairs=6)
+
+
+def _fast_plan(cfg, tokens: int, sparsity: Optional[Sparsity] = None
+               ) -> ExecPlan:
+    """A small-budget co-searched plan for CLI/demo serving (the
+    reference's, at fp32 value width); ``sparsity`` defaults to the
+    bitmap model."""
+    if sparsity is None:
+        sparsity = PLAN_SPARSITY["bitmap"]
+    return build_exec_plan(cfg, sparsity, tokens=tokens,
+                           search_cfg=FAST_SEARCH, value_bits=32)
+
+
 def compressed_model(cfg, params, plan: Optional[ExecPlan] = None,
                      device="cuda"):
     """Plan → prune → compress → :class:`CompressedModel` in one call.
 
-    ``plan`` defaults to the bitmap plan shipped for ``cfg``.  ``params``
+    With no ``plan`` the bitmap plan is co-searched for ``cfg`` at 64
+    tokens (:func:`_fast_plan`), as the reference does.  ``params``
     must already lie on ``device``.  Returns (compressed_model,
     pruned_params) — serve with the PRUNED tree."""
     dev = resolve(device)
@@ -213,7 +244,7 @@ def compressed_model(cfg, params, plan: Optional[ExecPlan] = None,
         raise ValueError(f"params lie on {params['embed'].device}, "
                          f"not on {dev}")
     if plan is None:
-        plan = shipped_plan(cfg, "bitmap")
+        plan = _fast_plan(cfg, 64)
     pruned = prune_params(params, plan, cfg)
     store = compress_params(pruned, plan, cfg)
     return CompressedModel(Model(cfg), store), pruned
@@ -227,9 +258,10 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--compressed", action="store_true",
-                    help="serve a shipped plan's compressed store")
-    ap.add_argument("--plan", choices=("bitmap", "nm"), default="bitmap",
-                    help="the kind of shipped plan --compressed serves")
+                    help="co-search a plan and serve the compressed store")
+    ap.add_argument("--plan", choices=tuple(PLAN_SPARSITY), default="bitmap",
+                    help="the sparsity model --compressed searches under: "
+                         "block-pruned (bitmap kernels) or 2:4 (N:M)")
     ap.add_argument("--guarded", action="store_true",
                     help="serve through the robustness layer (verify + "
                          "retry + dense degradation) and print the health "
@@ -272,8 +304,8 @@ def main(argv=None) -> None:
     label = f"{cfg.name} (d_model={cfg.d_model}, layers={cfg.n_layers})"
     ratio = None
     if args.compressed:
-        model, params = compressed_model(
-            cfg, params, shipped_plan(cfg, args.plan), device=dev)
+        plan = _fast_plan(cfg, 64, PLAN_SPARSITY[args.plan])
+        model, params = compressed_model(cfg, params, plan, device=dev)
         ratio = model.store.achieved_ratio()
         fb = model.store.plan.fallback_counts()
         label += f" [compressed: ratio={ratio:.3f} fallbacks={fb or 'none'}]"

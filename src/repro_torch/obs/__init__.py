@@ -8,8 +8,8 @@ off and deterministic where they must be.
   * :mod:`repro_torch.obs.metrics` — named counters / gauges / histograms
     with adapters over :class:`~repro_torch.runtime.fault.StragglerMonitor`
     and :class:`~repro_torch.runtime.guard.HealthReport`, the dispatch
-    counters and the kernel cache; JSON + Prometheus text exposition
-    exports.
+    counters, the memo registry and the kernel cache; JSON + Prometheus
+    text exposition exports.
   * :mod:`repro_torch.obs.profile` — an opt-in ``torch.profiler`` capture
     and a per-kernel-dispatch timing hook (device seconds on the card).
 
@@ -19,7 +19,8 @@ Surfaced by the serve CLI's ``--trace PATH`` / ``--metrics PATH`` flags.
 from repro_torch.obs.metrics import (MetricsRegistry, collect_caches,
                                      collecting, current_metrics,
                                      ingest_health, ingest_instrument,
-                                     ingest_kernel_cache, ingest_straggler)
+                                     ingest_kernel_cache, ingest_memo_stats,
+                                     ingest_straggler)
 from repro_torch.obs.profile import annotation, kernel_timer, torch_trace
 from repro_torch.obs.trace import (Tracer, current_tracer, event, span,
                                    trace_id, tracing)
@@ -28,6 +29,6 @@ __all__ = [
     "MetricsRegistry", "Tracer", "annotation", "collect_caches",
     "collecting", "current_metrics", "current_tracer", "event",
     "ingest_health", "ingest_instrument", "ingest_kernel_cache",
-    "ingest_straggler", "kernel_timer", "span", "torch_trace", "trace_id",
+    "ingest_memo_stats", "ingest_straggler", "kernel_timer", "span", "torch_trace", "trace_id",
     "tracing",
 ]

@@ -9,10 +9,9 @@ no-ops when none is — the same zero-cost-when-off contract as
 :class:`~repro_torch.runtime.fault.StragglerMonitor` and a per-request
 :class:`~repro_torch.runtime.guard.HealthReport` into the same registry
 without touching their source of truth, as do
-:func:`ingest_instrument` (the dispatcher's per-role traffic counters) and
-:func:`ingest_kernel_cache` (the loaded-library cache).  The reference's
-memo registry has no source in the port yet, so :func:`collect_caches`
-folds the kernel cache alone.
+:func:`ingest_instrument` (the dispatcher's per-role traffic counters),
+:func:`ingest_memo_stats` (the search plane's memo registry) and
+:func:`ingest_kernel_cache` (the loaded-library cache).
 
 Exports: :meth:`MetricsRegistry.snapshot` (JSON-able dict, saved with
 :meth:`save`) and :meth:`MetricsRegistry.prometheus_text` (Prometheus
@@ -250,6 +249,21 @@ def ingest_instrument(reg: MetricsRegistry, counters: dict) -> None:
         reg.gauge_set("exec_refetch_factor", c.refetch_factor, role=role)
 
 
+def ingest_memo_stats(reg: MetricsRegistry, stats: Optional[dict] = None,
+                      only_active: bool = True) -> None:
+    """Fold the memo registry's per-cache hit/miss counters in
+    (:func:`repro_torch.core.memo.stats`)."""
+    if stats is None:
+        from repro_torch.core import memo
+        stats = memo.stats()
+    for name in sorted(stats):
+        st = stats[name]
+        if only_active and not st.lookups:
+            continue
+        reg.counter_inc("memo_hits_total", st.hits, cache=name)
+        reg.counter_inc("memo_misses_total", st.misses, cache=name)
+
+
 def ingest_kernel_cache(reg: MetricsRegistry,
                         stats: Optional[dict] = None) -> None:
     """Fold the loaded-library cache counters in
@@ -263,8 +277,8 @@ def ingest_kernel_cache(reg: MetricsRegistry,
 
 
 def collect_caches(reg: MetricsRegistry) -> None:
-    """Ingest the global cache sources: the kernel cache (the reference
-    folds its memo registry too, which the port has not yet)."""
+    """Ingest both global cache sources (memo + kernel)."""
+    ingest_memo_stats(reg)
     ingest_kernel_cache(reg)
 
 

@@ -1350,3 +1350,22 @@ def test_nm_pipelined_equals_naive_on_non_finite_x(card, m, n, k, n_sel,
     assert not fin.all()
     if fin.any():
         _close(y[fin], y_plain[fin])
+
+
+# ---------------------------------------------------------------------------
+# The search plane on the card's host
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_full_width_search_equals_the_shipped_plan(card, kind):
+    """On the machine with the card, which has no JAX, the port's own
+    search (the serve CLI's ``_fast_plan``) writes the shipped full-width
+    plan byte for byte, and its compressed model serves it."""
+    from repro_torch.configs import get_config
+    from repro_torch.exec.plans import PLANS_DIR, check_plan
+    from repro_torch.launch import serve
+    cfg = get_config("chatglm3-6b")
+    plan = serve._fast_plan(cfg, 64, serve.PLAN_SPARSITY[kind])
+    shipped = (PLANS_DIR / f"chatglm3-6b.{kind}.json").read_text()
+    assert plan.to_json() == shipped.rstrip("\n")
+    assert check_plan(plan, cfg) is plan

@@ -9,6 +9,10 @@ in silence; the reference's kernels take any group.  On the CPU the port's
 plain version serves them, equal to the reference.
 """
 
+import dataclasses
+import os
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,6 +125,105 @@ def test_stream_passes_follow_the_cuda_tiling(kind):
     # the two tilings part here: the bitmap prefill grid's 32-row tiles, the
     # N:M prefill kernel's 8-row ones on grids under 132 big tiles
     assert any(got[r].w_stream_bits != want[r].w_stream_bits for r in want)
+
+
+def _fast(pkg):
+    """The serve CLI's search budget in one package (``repro`` or
+    ``repro_torch``)."""
+    import importlib
+    cs = importlib.import_module(f"{pkg}.core.cosearch")
+    eng = importlib.import_module(f"{pkg}.core.engine")
+    return cs.CoSearchConfig(
+        objective="edp",
+        engine=eng.EngineConfig(max_levels=2, max_allocs_per_pattern=16),
+        spatial_top=2, max_pairs=6)
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_glb_scale_follows_the_cuda_tiling_at_prefill(kind):
+    """``calibrate`` at M = 512.  The distinct-fetch fit (``scale``, its
+    errors and residuals) is the reference's: it reads sizes of the store.
+    The stream side counts the CUDA kernels' passes (above), so the stream
+    rows and ``max_stream_rel_err`` differ.  The searched plans predict no
+    refetch (their loop orders keep W stationary), so ``glb_scale`` is the
+    identity on both sides; on the same plan with four predicted passes
+    a role (the reference's M / 128) the refetch fit is each package's fit
+    of its own rows: about 1 for the reference, the CUDA passes' share
+    above it for the port."""
+    import importlib
+    from repro import exec as rexec
+    from repro_torch import exec as texec
+    rcal = importlib.import_module("repro.exec.calibrate")
+    tcal = importlib.import_module("repro_torch.exec.calibrate")
+    rcfg, cfg, rcm, rpruned, cm, pruned = _reduced_pair(kind)
+    plan = dataclasses.replace(cm.store.plan, checksums={})
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 128))
+    with rexec.instrument() as want:
+        rcm.hidden_states(rpruned, jnp.asarray(toks, jnp.int32))
+    with texec.instrument() as got:
+        cm.hidden_states(pruned, torch.from_numpy(toks))
+    four = dataclasses.replace(plan, ops=tuple(
+        dataclasses.replace(op, predicted_w_stream_bits=4 *
+                            op.predicted_w_fetch_bits) for op in plan.ops))
+    for p, refetch in ((plan, False), (four, True)):
+        rp = rexec.ExecPlan.from_json(p.to_json())
+        rrep = rexec.calibrate(rcfg, rp, want, search_cfg=_fast("repro"))
+        rep = texec.calibrate(cfg, p, got, search_cfg=_fast("repro_torch"))
+        assert (rep.scale, rep.max_rel_err, rep.max_residual) == \
+            (rrep.scale, rrep.max_rel_err, rrep.max_residual)
+        assert [(r.measured_bits, r.predicted_bits) for r in rep.rows] == \
+            [(r.measured_bits, r.predicted_bits) for r in rrep.rows]
+        assert [r.measured_stream_bits for r in rep.rows] != \
+            [r.measured_stream_bits for r in rrep.rows]
+        assert rep.max_stream_rel_err != rrep.max_stream_rel_err
+        assert rep.glb_scale == tcal.fit_glb_scale(tcal.compare(p, got))
+        assert rrep.glb_scale == rcal.fit_glb_scale(rcal.compare(rp, want))
+        assert rep.calibrated_plan.glb_energy_scale == rep.glb_scale
+        if refetch:
+            assert abs(rrep.glb_scale - 1.0) < 0.1
+            assert rep.glb_scale > 1.5 * rrep.glb_scale
+        else:
+            assert rep.glb_scale == rrep.glb_scale == 1.0
+            assert rep.calibrated_plan.to_json() == \
+                rrep.calibrated_plan.to_json()
+
+
+def test_memo_fingerprint_is_the_ports_own(tmp_path):
+    """``memo.code_fingerprint`` hashes the port's own sources, so a
+    durable snapshot the reference wrote is stale to the port (``load``
+    gives False and imports nothing) and the other way round; each
+    package loads its own."""
+    import hashlib
+    from repro.core import memo as rmemo
+    from repro.core import sparsity as rsp
+    from repro.core.formats import standard_formats as rstd
+    from repro_torch.core import memo as tmemo
+    from repro_torch.core import sparsity as tsp
+    from repro_torch.core.formats import standard_formats as tstd
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(tmemo.__file__)))
+    h = hashlib.sha256()
+    for root, dirs, files in sorted(os.walk(pkg)):
+        for f in sorted(x for x in files if x.endswith(".py")):
+            path = os.path.join(root, f)
+            h.update(os.path.relpath(path, pkg).encode())
+            h.update(pathlib.Path(path).read_bytes())
+    assert os.path.basename(pkg) == "repro_torch"
+    assert tmemo.code_fingerprint() == h.hexdigest()
+    assert tmemo.code_fingerprint() != rmemo.code_fingerprint()
+    dims = {"N": 64, "K": 32}
+    for memo, sp, std in ((rmemo, rsp, rstd), (tmemo, tsp, tstd)):
+        memo.clear()
+        spec = sp.TensorSpec(dims, sp.Bernoulli(0.3))
+        for fmt in std(dims).values():
+            sp.analyze(fmt, spec)
+    rpath, tpath = str(tmp_path / "ref.pkl"), str(tmp_path / "port.pkl")
+    assert rmemo.save(rpath) > 0 and tmemo.save(tpath) > 0
+    rmemo.clear()
+    tmemo.clear()
+    assert not tmemo.load(rpath) and not rmemo.load(tpath)
+    assert not any(tmemo.export_state().values())
+    assert tmemo.load(tpath) and rmemo.load(rpath)
+    assert any(tmemo.export_state().values())
 
 
 def test_telemetry_counts_every_executed_dispatch():

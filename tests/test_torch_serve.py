@@ -10,6 +10,7 @@ switches both packages to the naive kernels), and the kernel-failure
 guard is held against the reference's.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -350,7 +351,9 @@ def test_kernel_guard_demotes_failing_roles_to_dense(served):
 ])
 def test_shipped_plans_equal_a_fresh_search(name, reduce, sparsity):
     """The shipped JSONs are what the reference's search writes with the
-    serve CLI's settings (tokens=64, value_bits=32)."""
+    serve CLI's settings (tokens=64, value_bits=32), and what the port's
+    own search writes (``serve._fast_plan``, which the CLI's
+    ``--compressed --plan`` runs), byte for byte."""
     rcfg = rget_config("chatglm3-6b")
     if reduce:
         rcfg = rcfg.reduced()
@@ -364,6 +367,9 @@ def test_shipped_plans_equal_a_fresh_search(name, reduce, sparsity):
     plan = tplans.load_plan(tplans.PLANS_DIR / name, cfg)
     assert plan.to_json() == fresh.to_json()
     assert plan == tplans.shipped_plan(cfg, sparsity)
+    own = serve._fast_plan(cfg, 64, serve.PLAN_SPARSITY[sparsity])
+    assert own.to_json() == fresh.to_json() == shipped.rstrip("\n")
+    assert own == plan
 
 
 def test_plan_checks_roles_and_version():
@@ -414,6 +420,32 @@ def test_ragged_prompts_and_overlong_requests_raise():
     with pytest.raises(ValueError, match="exceeds"):
         serve.generate(Model(cfg), params, prompts, 4, 6, device="cpu")
     assert serve._rate(5, 0.0) == 5 / 1e-9
+
+
+def test_compressed_model_searches_the_references_plan():
+    """With no plan, ``compressed_model`` co-searches one as the
+    reference's does (``src/repro/launch/serve.py:205-228``): the same plan
+    JSON, less the checksums compression records."""
+    from repro.launch import serve as rserve
+    cfg = get_config("chatglm3-6b").reduced()
+    params = Model(cfg).init(seed=0, device="cpu")
+    cm, _ = serve.compressed_model(cfg, params, device="cpu")
+    plan = dataclasses.replace(cm.store.plan, checksums={})
+    want = rserve._fast_plan(rget_config("chatglm3-6b").reduced(), 64)
+    assert plan.to_json() == want.to_json()
+    assert set(cm.store.plan.checksums) == {op.role for op in plan.ops}
+
+
+@pytest.mark.parametrize("kind,ratio", [("bitmap", "0.500"),
+                                        ("nm", "0.531")])
+def test_serve_cli_searches_under_the_plans_sparsity(kind, ratio, capsys):
+    """``--compressed --plan KIND`` searches under KIND's sparsity model:
+    the reduced config serves 2:4 too, which no shipped plan covers."""
+    serve.main(["--arch", "chatglm3-6b", "--reduced", "--batch", "2",
+                "--prompt-len", "4", "--gen", "2", "--compressed",
+                "--plan", kind, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"compressed: ratio={ratio} fallbacks=none" in out
 
 
 def test_serve_cli_reduced_on_cpu(capsys):

@@ -13,8 +13,10 @@ contexts): the same metric names and label sets, and for a static
 ``generate`` the same stable trace.  Values that depend on how often a
 dispatch is recorded differ on purpose (the port counts every executed
 dispatch, the reference one per jit trace;
-``tests/test_torch_divergences.py``), and the reference's memo registry
-has no source in the port yet, so its ``memo_*`` series are left out.
+``tests/test_torch_divergences.py``).  The ``memo_*`` series count every
+search the process ran before, so the CLI comparison leaves them out;
+``test_collect_caches_memo_series_equal_the_references`` holds them to
+the reference's after the same search from a cleared registry.
 """
 
 import dataclasses
@@ -161,6 +163,45 @@ def test_kernel_cache_stats_and_collect_caches_equal_their_source(
     assert reg.value("kernel_cache_entries") == stats["entries"]
     ops.clear_kernel_cache()
     assert ops.kernel_cache_stats() == {"hits": 0, "misses": 0, "entries": 0}
+
+
+@pytest.mark.parametrize("reduce", [True, False], ids=["reduced", "full"])
+def test_collect_caches_memo_series_equal_the_references(reduce):
+    """After the serve CLI's search (``_fast_plan``) from a cleared memo
+    registry with its counters zeroed, ``collect_caches`` folds the memo
+    registry in as the reference's does: the same ``memo_hits_total`` /
+    ``memo_misses_total`` series, cache by cache, with the same values;
+    ``ingest_memo_stats(only_active=False)`` every registered cache (the
+    port's registry is the package's own; the reference's may also hold
+    caches other tests registered, ``tests/test_memo.py``)."""
+    from repro.core import memo as rmemo
+    from repro_torch.core import memo as tmemo
+    rcfg = rget_config("chatglm3-6b")
+    cfg = get_config("chatglm3-6b")
+    if reduce:
+        rcfg, cfg = rcfg.reduced(), cfg.reduced()
+    snaps = []
+    for memo, search, metrics in (
+            (rmemo, lambda: rserve._fast_plan(rcfg, 64), rmetrics),
+            (tmemo, lambda: serve._fast_plan(cfg, 64), ometrics)):
+        memo.clear()
+        memo.reset_stats()
+        search()
+        search()                    # the second search replays the caches
+        reg = metrics.MetricsRegistry()
+        metrics.collect_caches(reg)
+        every = metrics.MetricsRegistry()
+        metrics.ingest_memo_stats(every, only_active=False)
+        snaps.append(({k: v for k, v in reg.snapshot()["counters"].items()
+                       if k.startswith("memo_")},
+                      every.snapshot()["counters"]))
+    (want, want_all), (got, got_all) = snaps
+    assert got == want
+    assert got_all == {k: v for k, v in want_all.items() if k in got_all}
+    assert len(got_all) == 2 * len(tmemo.stats())
+    assert got and any(v > 0 for k, v in got.items()
+                       if k.startswith("memo_hits_total"))
+    assert set(got) <= set(got_all)
 
 
 def test_fallbacks_equal_the_reference():
