@@ -185,10 +185,42 @@ non-zero exit code when it fails:
    fit must lie in 0.9 < scale < 1.1 with max_residual < 0.05 (the
    reference's bounds), every fitted number must be finite and positive,
    and the calibrated plan must come back from its JSON equal, with its
-   hardware resolved.
+   hardware resolved;
+11. every other model the compressed plane serves (``repro_torch.configs``:
+   granite-moe-3b-a800m with all 32 layers on the bitmap and the 2:4
+   plan; qwen3-moe-30b-a3b, deepseek-coder-33b, internlm2-20b and
+   pixtral-12b cut to 4 layers, whose full depth does not fit the card
+   with fp32 params beside a pruned copy and a store; full width,
+   seeded random weights), each initialised on the card, its plan from
+   the port's own search (the same choices as the full config's), then
+   ``prune_params`` -> ``compress_params`` -> ``CompressedModel``, with
+   init, search, prune and compress seconds, the store's entries (expert
+   entries too) and ratio, and the peak device memory printed.  Both
+   variants of both sparse kernels against their plain versions at every
+   role a plan dispatches (7 a dense or vlm layer, the 4 attention roles
+   of a MoE layer: the experts run dense), M = 4, 16 and 512, x fp32 and
+   bf16, with the tolerance of phase 3 and naive == pipelined; each
+   model's roles timed at M = 4 and 512 (bf16) beside the plain version,
+   the bound and one fp32 ``torch.matmul`` (they run the kernel instances
+   phase 2 built and checked for spills).  ``serve.generate`` (batch 4, prompt
+   128, 16 tokens, bf16) captures its graph, then 3 runs graphed and 3
+   eager in turns give prefill ms and decode ms/token; every run launches
+   the plan's kernel (kernel roles) x layers x (1 + 16) times and no
+   other; the naive kernels give the same tokens; graph and eager give
+   ``torch.equal`` tokens and logits at every step; at fp32 the
+   compressed prefill logits stay within 1e-3 max|logits| of the dense
+   model's on the same pruned weights (a row whose MoE routing parts
+   where the swapped experts' gates lie within ``NEAR_TIE`` of each
+   other is left out and printed), greedy agreement printed.  granite on
+   the bitmap plan also serves phase 6's stream (graphed, eager, graphed
+   again, pipelined and naive: tokens equal) and
+   a guarded run with one bit flipped in an expert entry of
+   ``moe.w_up``: ``verify`` names the role, the guard demotes it and the
+   tokens are the healthy run's.
 
 The line before the last is one JSON object describing every kernel (its
-launches in phases 5-10, each counted from zero before the phase's run);
+launches in phases 5-11, each counted from zero before the phase's run;
+``families`` holds phase 11's per-model sums);
 the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 port's sources beside this script, it exits non-zero and prints no result.
 """
@@ -243,6 +275,21 @@ CLI_MIXER = ("mixer_admissions_total", "mixer_decode_step_seconds",
              "serve_retries_total", "serve_tokens_generated_total",
              "straggler_ewma_seconds", "straggler_flagged_total")
 TIMING_SERIES = ("mixer_straggler_spikes_total",)
+# phase 11: every model the compressed plane serves beside chatglm3-6b:
+# (arch, layers on the card, 0 for all of them; the plans it serves)
+FAMILIES = (
+    ("granite-moe-3b-a800m", 0, ("bitmap", "nm")),
+    ("qwen3-moe-30b-a3b", 4, ("bitmap",)),
+    ("deepseek-coder-33b", 4, ("bitmap",)),
+    ("internlm2-20b", 4, ("bitmap",)),
+    ("pixtral-12b", 4, ("bitmap",)),
+)
+FAMILY_RUNS = 3              # serving runs a mode
+FAMILY_MS = (M_DECODE, MIX_WIDE, M_PREFILL)
+# the relative gap between two experts' fp32 gates below which the
+# attention kernels' summation order may swap them in a MoE router (a few
+# fp32 roundings; phase 11)
+NEAR_TIE = 1e-5
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -390,7 +437,8 @@ def phase_build() -> None:
 
 
 class _Acc:
-    """Per-kernel accumulation of the kernel-vs-plain phase."""
+    """Per-kernel accumulation of the kernel-vs-plain cases (phases 3 and
+    11); ``sums`` is keyed by (arch, M, x dtype)."""
 
     def __init__(self):
         self.max_abs_err = 0.0
@@ -405,12 +453,13 @@ class _Acc:
             return
         s = self.sums.setdefault(key, dict(ms=0.0, plain_ms=0.0,
                                            library_ms=0.0, bytes=0.0,
-                                           flops=0.0))
+                                           flops=0.0, roles=0))
         s["ms"] += ms
         s["plain_ms"] += plain_ms
         s["library_ms"] += lib_ms
         s["bytes"] += nbytes
         s["flops"] += flops
+        s["roles"] += 1
 
 
 def _check(name, y, y_plain) -> float:
@@ -421,6 +470,85 @@ def _check(name, y, y_plain) -> float:
         _fail(f"{name}: max|y - y_plain| = {err} > {TOL_REL} * {scale} "
               f"+ {TOL_ABS}")
     return err
+
+
+def _bitmap_case(c) -> tuple:
+    """A bitmap-compressed weight's case: ``kernel(x, pipeline)``, its
+    plain version ``plain(x)``, the bytes of the stored weight, the
+    operations a row of x and the columns of x the kernel reads (the rows
+    of its stored blocks)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    rows_used = int(torch.unique(c.row_ids[:c.nnzb]).numel())
+    return (lambda x, p: ops.bitmap_spmm(x, c, pipeline=p),
+            lambda x: ref.bitmap_spmm_ref(x, c.blocks, c.counts, c.row_ids,
+                                          c.n, c.k),
+            c.nnzb * c.bn * c.bk * 4 + (2 * c.counts.numel() + c.nnzb) * 4,
+            2.0 * c.nnzb * c.bn * c.bk, rows_used * c.bn)
+
+
+def _nm_case(c) -> tuple:
+    """An N:M-compressed weight's case, as :func:`_bitmap_case`."""
+    from repro_torch.kernels import ops, ref
+    return (lambda x, p: ops.nm_spmm(x, c, pipeline=p),
+            lambda x: ref.nm_spmm_ref(x, c.values, c.indices, c.n_sel,
+                                      c.m_group),
+            c.values.numel() * 4 + c.indices.numel(),
+            2.0 * c.values.numel(), c.n)
+
+
+def _run_case(acc: dict, key, kname: str, label: str, x, case: tuple,
+              w_dense, flush=None, log: bool = True) -> float:
+    """Both variants of ``case``'s kernel (:func:`_bitmap_case`,
+    :func:`_nm_case`) on the same ``x`` against its plain version: each
+    within the tolerance, naive == pipelined; their errors go into
+    ``acc``.  Returns the larger error's share of the tolerance.  With
+    ``flush`` the case is timed too, beside the plain version and one
+    fp32 ``torch.matmul`` with ``w_dense``, and added to ``acc``'s sums
+    under ``key`` (None keeps it out of them: a case the serving path does
+    not run).  The naive variant computes the same function as the
+    pipelined one, so it shares their plain and library times; it is
+    timed at bf16 only."""
+    import torch
+    kernel, plain, nbytes_w, flops_per_row, x_cols = case
+    y, y_naive, y_plain = kernel(x, True), kernel(x, False), plain(x)
+    torch.cuda.synchronize()
+    m, dtype = x.shape[0], x.dtype
+    label = f"{label} M={m} {dtype}"
+    tol = TOL_REL * y_plain.abs().max().item() + TOL_ABS
+    err = _check(f"{kname} {label}", y, y_plain)
+    err_naive = _check(f"{kname}_naive {label}", y_naive, y_plain)
+    if not torch.equal(y_naive, y):
+        _fail(f"{kname} {label}: the naive result differs from the "
+              f"pipelined one by {(y_naive - y).abs().max().item()}")
+    share = max(err, err_naive) / tol
+    if flush is None or dtype != torch.bfloat16:
+        a = acc[f"{kname}_naive"]
+        a.max_abs_err = max(a.max_abs_err, err_naive)
+    if flush is None:
+        acc[kname].max_abs_err = max(acc[kname].max_abs_err, err)
+        return share
+    reps = 10 if m <= M_DECODE else 5
+    ms = _time_ms(lambda: kernel(x, True), reps, flush)
+    plain_ms = _time_ms(lambda: plain(x), reps, flush)
+    lib_ms = _time_ms(lambda: torch.matmul(x.float(), w_dense), reps, flush)
+    nbytes = nbytes_w + m * x_cols * x.element_size() + m * y.shape[1] * 4
+    flops = flops_per_row * m
+    acc[kname].add(key, err, ms, plain_ms, lib_ms, nbytes, flops)
+    if log:
+        bound, by = _bound_ms(nbytes, flops)
+        print(f"[kernels] {kname} {label}: err {err:.3e} kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms library {lib_ms:.4f} ms bound "
+              f"{bound:.4f} ms ({by}; {bound / ms:.1%} of it reached)")
+    if dtype != torch.bfloat16:
+        return share
+    ms_naive = _time_ms(lambda: kernel(x, False), reps, flush)
+    acc[f"{kname}_naive"].add(key, err_naive, ms_naive, plain_ms, lib_ms,
+                              nbytes, flops)
+    if log:
+        print(f"[kernels] {kname}_naive {label}: err {err_naive:.3e} "
+              f"kernel {ms_naive:.4f} ms (equal to the pipelined result)")
+    return share
 
 
 def _trace(fn, label: str, prelude=None):
@@ -477,7 +605,7 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
     from repro_torch.exec.plans import shipped_plan
     from repro_torch.kernels import bitmap_spmm as bm_cuda
     from repro_torch.kernels import nm_spmm as nm_cuda
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.sparse import masks
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -495,72 +623,28 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
           f"+ {TOL_ABS}; naive == pipelined bit for bit; times are device "
           f"ms with a cold L2, on {card}")
 
-    def held_at_mixer_shapes(kname, label, n, kernel, plain):
-        """Both variants of ``kernel(x, pipeline)`` against ``plain(x)``
-        at each of the mixer's M, x in fp32 and bf16 (checked, not
-        timed): each within the tolerance, naive == pipelined."""
+    def held_at_mixer_shapes(kname, label, n, case):
+        """Both variants of ``case``'s kernel against its plain version at
+        each of the mixer's M, x in fp32 and bf16 (checked, not timed)."""
         worst = 0.0
         for m in mix_ms:
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn((m, n), generator=mix_gen,
                                 device=dev).to(dtype)
-                y, y_naive, y_plain = kernel(x, True), kernel(x, False), \
-                    plain(x)
-                case = f"{label} M={m} {dtype}"
-                tol = TOL_REL * y_plain.abs().max().item() + TOL_ABS
-                for name, out in ((kname, y), (f"{kname}_naive", y_naive)):
-                    err = _check(f"{name} {case}", out, y_plain)
-                    acc[name].max_abs_err = max(acc[name].max_abs_err, err)
-                    worst = max(worst, err / tol)
-                if not torch.equal(y_naive, y):
-                    _fail(f"{kname} {case}: the naive result differs from "
-                          f"the pipelined one by "
-                          f"{(y_naive - y).abs().max().item()}")
+                worst = max(worst, _run_case(acc, None, kname, label, x,
+                                             case, None))
         print(f"[kernels] {kname} and {kname}_naive {label} at the mixer's "
               f"M={mix_ms}, x fp32 and bf16: within the tolerance (largest "
               f"share of it {worst:.4f}), naive == pipelined")
 
-    def run(kname, label, m, dtype, n, kernel, plain, w_dense, nbytes_w,
-            flops_per_row, x_cols, main_path):
-        """``kernel(x, pipeline)``: both variants on the same x.  The
-        naive variant computes the same function as the pipelined one,
-        so it shares its plain and library times."""
-        x = torch.randn((m, n), generator=gen, device=dev).to(dtype)
-        y = kernel(x, True)
-        y_naive = kernel(x, False)
-        y_plain = plain(x)
-        torch.cuda.synchronize()
-        case = f"{label} M={m} {dtype}"
-        err = _check(f"{kname} {case}", y, y_plain)
-        err_naive = _check(f"{kname}_naive {case}", y_naive, y_plain)
-        if not torch.equal(y_naive, y):
-            _fail(f"{kname} {case}: the naive result differs from the "
-                  f"pipelined one by {(y_naive - y).abs().max().item()}")
-        reps = 10 if m <= M_DECODE else 5
-        ms = _time_ms(lambda: kernel(x, True), reps, flush)
-        plain_ms = _time_ms(lambda: plain(x), reps, flush)
-        lib_ms = _time_ms(lambda: torch.matmul(x.float(), w_dense), reps,
-                          flush)
-        k = y.shape[1]
-        nbytes = nbytes_w + m * x_cols * x.element_size() + m * k * 4
-        flops = flops_per_row * m
-        bound, by = _bound_ms(nbytes, flops)
-        key = (m, dtype) if main_path else None
-        acc[kname].add(key, err, ms, plain_ms, lib_ms, nbytes, flops)
-        print(f"[kernels] {kname} {label} M={m} x={str(dtype)[6:]}: "
-              f"err {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"library {lib_ms:.4f} ms bound {bound:.4f} ms ({by}; "
-              f"{bound / ms:.1%} of it reached)")
-        if dtype != torch.bfloat16:              # naive timed at bf16 only
-            a = acc[f"{kname}_naive"]
-            a.max_abs_err = max(a.max_abs_err, err_naive)
-            return
-        ms_naive = _time_ms(lambda: kernel(x, False), reps, flush)
-        acc[f"{kname}_naive"].add(key, err_naive, ms_naive, plain_ms,
-                                  lib_ms, nbytes, flops)
-        print(f"[kernels] {kname}_naive {label} M={m} x=bfloat16: "
-              f"err {err_naive:.3e} kernel {ms_naive:.4f} ms (equal to "
-              f"the pipelined result)")
+    def run(kname, label, n, case, w_dense, main_path):
+        """Both variants timed on the same x at the decode and the prefill
+        M, x in fp32 and bf16."""
+        for m in (M_DECODE, M_PREFILL):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+                _run_case(acc, (cfg.name, m, dtype) if main_path else None,
+                          kname, label, x, case, w_dense, flush)
 
     for role in cfg.matmul_roles():
         op = plan.for_role(role.role)
@@ -572,9 +656,7 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
             cases.append(("d0", torch.zeros_like(w)))
         for tag, wp in cases:
             c = ops.compress_bitmap(wp, bn, bk)
-            nnzb = int(c.counts.sum())
-            rows_used = int(torch.unique(c.row_ids[:nnzb]).numel())
-            nbytes_w = nnzb * bn * bk * 4 + (2 * c.counts.numel() + nnzb) * 4
+            nnzb = c.nnzb
             slices, pieces = bm_cuda.split_plan(M_DECODE, bn, bk, role.k,
                                                 c.max_per_col)
             tiles = role.k // bk * -(-bk // bm_cuda.SMALL_M_TILE_K)
@@ -608,21 +690,12 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                 print(f"[kernels] bitmap_spmm_naive {role.role} ({bn}x{bk} "
                       f"{tag}) M={m} x=bfloat16: ran {runs}")
             del x
-            for m in (M_DECODE, M_PREFILL):
-                for dtype in (torch.float32, torch.bfloat16):
-                    run("bitmap_spmm", f"{role.role} ({bn}x{bk} {tag})", m,
-                        dtype, role.n,
-                        lambda x, p, c=c: ops.bitmap_spmm(x, c, pipeline=p),
-                        lambda x, c=c: ref.bitmap_spmm_ref(
-                            x, c.blocks, c.counts, c.row_ids, c.n, c.k),
-                        wp, nbytes_w, 2.0 * nnzb * bn * bk, rows_used * bn,
-                        tag == "d0.5")
+            label = f"{role.role} ({bn}x{bk} {tag})"
+            run("bitmap_spmm", label, role.n, _bitmap_case(c), wp,
+                tag == "d0.5")
             if tag == "d0.5":
-                held_at_mixer_shapes(
-                    "bitmap_spmm", f"{role.role} ({bn}x{bk} {tag})", role.n,
-                    lambda x, p, c=c: ops.bitmap_spmm(x, c, pipeline=p),
-                    lambda x, c=c: ref.bitmap_spmm_ref(
-                        x, c.blocks, c.counts, c.row_ids, c.n, c.k))
+                held_at_mixer_shapes("bitmap_spmm", label, role.n,
+                                     _bitmap_case(c))
         for n_sel in (2, 1):
             wp = masks.nm_prune(w, n_sel, 4)
             c = ops.compress_nm(wp, n_sel, 4)
@@ -650,21 +723,10 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
                 print(f"[kernels] nm_spmm_naive {role.role} ({n_sel}:4) "
                       f"M={m} x=bfloat16: ran {runs}{tile}")
             del x
-            for m in (M_DECODE, M_PREFILL):
-                for dtype in (torch.float32, torch.bfloat16):
-                    run("nm_spmm", f"{role.role} ({n_sel}:4)", m, dtype,
-                        role.n,
-                        lambda x, p, c=c: ops.nm_spmm(x, c, pipeline=p),
-                        lambda x, c=c: ref.nm_spmm_ref(
-                            x, c.values, c.indices, c.n_sel, c.m_group),
-                        wp, nbytes_w, 2.0 * c.values.numel(), role.n,
-                        n_sel == 2)
+            label = f"{role.role} ({n_sel}:4)"
+            run("nm_spmm", label, role.n, _nm_case(c), wp, n_sel == 2)
             if n_sel == 2:
-                held_at_mixer_shapes(
-                    "nm_spmm", f"{role.role} ({n_sel}:4)", role.n,
-                    lambda x, p, c=c: ops.nm_spmm(x, c, pipeline=p),
-                    lambda x, c=c: ref.nm_spmm_ref(
-                        x, c.values, c.indices, c.n_sel, c.m_group))
+                held_at_mixer_shapes("nm_spmm", label, role.n, _nm_case(c))
         del w
     acc["bitmap_spmm_naive"].masked = _masked_steps(gen, flush, dev)
     _non_finite_inputs(cfg, dev)
@@ -1215,8 +1277,8 @@ def _serve_stream(cm, pruned, reqs, slots: int, name: str, label: str,
     """One counted mixer stream: its tokens, stats, per-step wall times
     and (with ``record``) each request's logits.  Fails unless the stream
     admits and evicts every request, emits every token and launches the
-    served kernel 7 x layers x (admissions + decode steps) times and no
-    other kernel.  ``capturing``: the stream's first step captures a
+    served kernel (kernel roles a layer: 7, or 4 for MoE) x layers x
+    (admissions + decode steps) times and no other kernel.  ``capturing``: the stream's first step captures a
     graph, left out of the step spread."""
     import torch
     from repro_torch.kernels import ops
@@ -1241,14 +1303,15 @@ def _serve_stream(cm, pruned, reqs, slots: int, name: str, label: str,
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     st = mx.stats()
-    want = 7 * cm.cfg.n_layers * (st["admits"] + st["steps"])
+    per_layer = len(_kernel_roles(cm.cfg))
+    want = per_layer * cm.cfg.n_layers * (st["admits"] + st["steps"])
     if st["admits"] != len(reqs) or st["evictions"] != len(reqs) or \
             st["tokens"] != sum(r.max_new for r in reqs):
         _fail(f"{label}: stream accounting {st}")
     if counts[name] != want or sum(counts.values()) != want:
         _fail(f"{label}: launch counts {counts}, expected {want} launches "
-              f"of {name} only (7 * {cm.cfg.n_layers} * ({st['admits']} "
-              f"admissions + {st['steps']} steps))")
+              f"of {name} only ({per_layer} * {cm.cfg.n_layers} * "
+              f"({st['admits']} admissions + {st['steps']} steps))")
     steps = [1e3 * w for w in (walls[1:] if capturing else walls)]
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     print(f"[mixer {label}] {st['admits']} admissions "
@@ -2433,6 +2496,390 @@ def phase_search(cfg, card: str, forwards: dict) -> None:
                   f"hardware {hw.name}; counters from {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: every model the compressed plane serves
+# ---------------------------------------------------------------------------
+
+def _kernel_roles(cfg) -> list:
+    """The projection roles a plan dispatches to a kernel: every role but
+    the MoE experts, which run dense inside the MoE block (seven a dense
+    or vlm layer, four a MoE one)."""
+    return [r for r in cfg.matmul_roles() if not r.role.startswith("moe.")]
+
+
+@contextlib.contextmanager
+def _routes(out: list):
+    """Record every MoE block's routing while the context is open: per
+    call, the experts the block routes each (group, token) to, in slot
+    order, and the fp32 gates it chose them by (``models.moe._route``'s
+    own results)."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod._route
+
+    def recorded(xg, p, cfg):
+        gates, topw, tope = route(xg, p, cfg)
+        out.append((tope, gates))
+        return gates, topw, tope
+
+    moe_mod._route = recorded
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+
+
+def _held_rows(label: str, lc, ld, routes_c: list, routes_d: list):
+    """fp32 prefill logits of the compressed model ``lc`` against the
+    dense model's ``ld`` on the same pruned weights, row by row, within
+    1e-3 max|ld|.  A MoE router whose fp32 gates tie to within a few
+    roundings can pick another expert when the attention kernels'
+    summation order moves its input by an ulp; the two runs then compute
+    different functions of that row (its routing group) from there on.
+    Such a row is left out of the comparison and printed if, at the first
+    layer where its routing parts, every expert that changed slot lies
+    within ``NEAR_TIE`` of the expert the dense run put there, in the
+    dense run's gates, relative to the larger of the two; a wider gap
+    fails, and at least one row must be held.  Returns (the largest share
+    of the bound, held rows, parted rows: row -> (layer, token, gap))."""
+    import torch
+    b, s, _ = ld.shape
+    if len(routes_c) != len(routes_d):
+        _fail(f"{label}: {len(routes_c)} MoE blocks ran compressed, "
+              f"{len(routes_d)} dense")
+    parted: dict[int, tuple] = {}
+    for layer, ((ic, _), (idn, gd)) in enumerate(zip(routes_c, routes_d)):
+        if ic.shape[:2] != (b, s):
+            _fail(f"{label}: a routing group is not one row ({ic.shape})")
+        here: dict[int, tuple] = {}
+        for g, t in (ic != idn).any(-1).nonzero().tolist():
+            if g in parted:              # parted at an earlier layer
+                continue
+            moved = ic[g, t] != idn[g, t]
+            was, now = gd[g, t, idn[g, t][moved]], gd[g, t, ic[g, t][moved]]
+            gap = ((was - now).abs() / torch.maximum(was, now)).max().item()
+            if gap > NEAR_TIE:
+                _fail(f"{label}: row {g} routes token {t} at layer {layer} "
+                      f"to experts {ic[g, t].tolist()} where the dense run "
+                      f"takes {idn[g, t].tolist()}, whose gates lie "
+                      f"{gap:.3e} apart (> {NEAR_TIE})")
+            if gap > here.get(g, (0, 0, -1.0))[2]:
+                here[g] = (layer, t, gap)
+        parted.update(here)
+    held = [r for r in range(b) if r not in parted]
+    if not held:
+        _fail(f"{label}: every row's routing parts: {parted}")
+    scale = ld.abs().max().item()
+    err = max((lc[r] - ld[r]).abs().max().item() for r in held)
+    if not err <= 1e-3 * scale:
+        _fail(f"{label}: fp32 compressed logits differ from dense by {err} "
+              f"> 1e-3 * {scale} (rows {held})")
+    return err / (1e-3 * scale), held, parted
+
+
+def _family_kernels(cfg, store, pruned, card: str, dev, acc: dict) -> None:
+    """Both variants of both sparse kernels against their plain versions
+    at each kernel role of ``cfg`` (the served store's layer-0 entry for
+    the plan's kernel; the layer's pruned weight pruned 2:4 for the other;
+    the library multiplies the dense weight of the same function), M =
+    4, 16 and 512, x fp32 and bf16 (:func:`_run_case`); each role timed
+    at M = 4 and 512, bf16, into ``acc``'s sums under (arch, M, bf16)."""
+    import torch
+    from repro_torch.exec.compress import _layer_weight
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import masks
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    worst = 0.0
+    for role in _kernel_roles(cfg):
+        w = _layer_weight(pruned, 0, role.role, -1)
+        entry = store.get(0, role.role)
+        wn = masks.nm_prune(w, 2, 4)
+        cases = {"nm_spmm": (_nm_case(entry.data if entry.kind == "nm"
+                                      else ops.compress_nm(wn, 2, 4)), wn)}
+        if entry.kind == "bitmap":
+            cases["bitmap_spmm"] = (_bitmap_case(entry.data), w)
+        for kname, (case, w_dense) in cases.items():
+            for m in FAMILY_MS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, role.n), generator=gen,
+                                    device=dev).to(dtype)
+                    timed = dtype == torch.bfloat16 and m != MIX_WIDE
+                    worst = max(worst, _run_case(
+                        acc, (cfg.name, m, dtype), kname,
+                        f"{cfg.name} {role.role}", x, case, w_dense,
+                        flush if timed else None, log=False))
+        del w, wn, cases
+    print(f"[family {cfg.name}] both sparse kernels, both variants, at "
+          f"{len(_kernel_roles(cfg))} roles x M={list(FAMILY_MS)} x fp32 / "
+          f"bf16: within the tolerance (largest share of it {worst:.4f}), "
+          f"naive == pipelined")
+    for name, a in acc.items():
+        for (arch, m, dtype), s in sorted(
+                ((k, s) for k, s in a.sums.items() if k[0] == cfg.name),
+                key=lambda ks: ks[0][1]):
+            bound, by = _bound_ms(s["bytes"], s["flops"])
+            print(f"[family {cfg.name}] {name} M={m} x bf16, {s['roles']} "
+                  f"roles summed: kernel {s['ms']:.4f} ms, plain "
+                  f"{s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} "
+                  f"ms, bound {bound:.4f} ms ({by}; {bound / s['ms']:.1%} "
+                  f"of it reached), on {card}")
+
+
+def _family_serving(cfg, cm, pruned, kind: str, card: str, dev,
+                    launches: dict) -> "torch.Tensor":
+    """Phase 11's serving checks of one compressed model (see
+    :func:`phase_families`); returns the greedy tokens."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+    kname = "bitmap_spmm" if kind == "bitmap" else "nm_spmm"
+    per_layer = len(_kernel_roles(cfg))
+    expected = per_layer * cfg.n_layers * (1 + GEN)
+    label = f"{cfg.name} {kind}"
+    pg = torch.Generator(device=dev).manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                            device=dev)
+
+    def run(name, count=False):
+        """One counted ``generate`` (its launches added to ``launches``
+        with ``count``): tokens, prefill ms, decode ms/token."""
+        ops.reset_launch_counts()
+        toks, t_prefill, t_gen = cm.generate(pruned, prompts, GEN,
+                                             device=dev)
+        counts = ops.launch_counts()
+        if counts[name] != expected or sum(counts.values()) != expected:
+            _fail(f"{label} {name}: launch counts {counts}, expected "
+                  f"{expected} of {name} only ({per_layer} x "
+                  f"{cfg.n_layers} x (1 + {GEN}))")
+        if count:
+            launches[name] = launches.get(name, 0) + counts[name]
+        return toks, 1e3 * t_prefill, 1e3 * t_gen / GEN
+
+    # prefill, the first decode step, the capture, then replays
+    toks, _, capture_step = run(kname, count=True)
+    if toks.shape != (BATCH, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        _fail(f"{label}: tokens out of range: {toks.tolist()}")
+    times = {"graph": ([], []), "eager": ([], [])}
+    for _ in range(FAMILY_RUNS):
+        for mode in ("graph", "eager"):
+            with compiled.disable() if mode == "eager" \
+                    else contextlib.nullcontext():
+                out = run(kname)
+            if not torch.equal(out[0], toks):
+                _fail(f"{label} {mode}: tokens {out[0].tolist()} differ "
+                      f"from {toks.tolist()}")
+            times[mode][0].append(out[1])
+            times[mode][1].append(out[2])
+    for mode, (pre, dec) in times.items():
+        print(f"[family {label} {mode}] over {FAMILY_RUNS} runs: prefill ms "
+              f"{_spread(pre)}; decode ms/token {_spread(dec)} (the "
+              f"capturing run {capture_step:.3f}); {expected} launches of "
+              f"{kname} a run ({per_layer} x {cfg.n_layers} x (1 + {GEN})), "
+              f"none of any other kernel — bf16, on {card}")
+    with ops.pipeline_default(False):
+        toks_n, _, _ = run(f"{kname}_naive", count=True)
+    if not torch.equal(toks_n, toks):
+        _fail(f"{label} naive: tokens {toks_n.tolist()} differ from the "
+              f"pipelined run's {toks.tolist()}")
+    _graph_equals_eager(cm, pruned, prompts, f"{label} bf16")
+    print(f"[family {label}] naive kernels: tokens equal, {expected} "
+          f"launches of {kname}_naive")
+
+    # fp32: compressed against the dense model on the same pruned weights
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        dense = Model(cfg)
+        rc, rd = [], []
+        with _routes(rc):
+            lc, _ = cm.prefill(pruned, prompts, PROMPT)
+        with _routes(rd):
+            ld, _ = dense.prefill(pruned, prompts, PROMPT)
+        share, held, parted = _held_rows(f"{label} fp32", lc, ld, rc, rd)
+        agree = (lc.argmax(-1) == ld.argmax(-1)).float().mean().item()
+        del lc, ld, rc, rd
+        tc, _, _ = cm.generate(pruned, prompts, GEN, device=dev)
+        td, _, _ = serve.generate(dense, pruned, prompts, GEN, PROMPT + GEN,
+                                  device=dev)
+        tok_agree = (tc == td).float().mean().item()
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    print(f"[family {label}] fp32 compressed vs dense prefill logits: "
+          f"{share:.4f} of the bound 1e-3 max|logits| on rows {held}"
+          f"{f'; rows whose routing parts at a near tie (row: layer, token, gap): {parted}' if parted else ''}; "
+          f"greedy agreement: prefill argmax {agree:.4f}, generated tokens "
+          f"{tok_agree:.4f}")
+    return toks, prompts
+
+
+def _family_mixer(cfg, cm, pruned, card: str, launches: dict) -> None:
+    """granite: phase 6's stream (12 requests, 4 slots) graphed, eager and
+    graphed again, pipelined and naive: every request's tokens equal."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled
+    reqs = _mixer_requests(cfg)
+    first = None
+    for pipeline in (True, False):
+        name = "bitmap_spmm" if pipeline else "bitmap_spmm_naive"
+        label = f"{cfg.name} bitmap{'' if pipeline else ' naive'}"
+        with ops.pipeline_default(pipeline):
+            runs = [_serve_stream(cm, pruned, reqs, MIX_SLOTS, name,
+                                  f"{label} graph", card, capturing=True)]
+            with compiled.disable():
+                runs.append(_serve_stream(cm, pruned, reqs, MIX_SLOTS, name,
+                                          f"{label} eager", card))
+            runs.append(_serve_stream(cm, pruned, reqs, MIX_SLOTS, name,
+                                      f"{label} graph, second stream", card))
+        launches[name] = launches.get(name, 0) + runs[0]["launches"]
+        first = first or runs[0]["tokens"]
+        for run in runs:
+            for i, (a, b) in enumerate(zip(first, run["tokens"])):
+                if not (a == b).all():
+                    _fail(f"{label}: request m{i} tokens {b.tolist()} "
+                          f"differ from {a.tolist()}")
+        print(f"[family {label} mixer] tokens of all {MIX_REQUESTS} requests "
+              f"equal: graph == eager == second graph"
+              f"{'' if pipeline else ' == the pipelined variant'}")
+
+
+def _family_guarded(cfg, cm, pruned, toks, prompts, card: str, dev,
+                    launches: dict) -> None:
+    """granite: one bit flipped in the last layer's last expert's
+    ``moe.w_up`` entry: ``verify`` names the role, the guard demotes it
+    (its expert entries go), and the tokens are the healthy run's: the
+    experts run dense either way."""
+    import torch
+    from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime import inject
+    role, layer, expert = "moe.w_up", cfg.n_layers - 1, cfg.moe.n_experts - 1
+    bad = CompressedModel(cm.model, inject.bitflip_payload(
+        cm.store, role, layer=layer, expert=expert))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, _, _, rep = serve.generate(bad, pruned, prompts, GEN, PROMPT + GEN,
+                                    guarded=True, device=dev)
+    launches["bitmap_spmm"] += ops.launch_counts()["bitmap_spmm"]
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = len(_kernel_roles(cfg)) * cfg.n_layers * (1 + GEN)
+    others = {r: s for r, s in rep.verify.items() if r != role}
+    if rep.verify.get(role) != "checksum_mismatch" or \
+            set(others.values()) != {"ok"} or \
+            [(f["role"], f["code"]) for f in rep.fallbacks] != \
+            [(role, "integrity_violation")] or not torch.equal(got, toks) \
+            or counts["bitmap_spmm"] != want or sum(counts.values()) != want:
+        _fail(f"{cfg.name} guarded expert bit flip: verify {rep.verify}, "
+              f"fallbacks {rep.fallbacks}, tokens "
+              f"{'equal' if torch.equal(got, toks) else 'differ'}, "
+              f"launches {counts}")
+    print(f"[family {cfg.name} guarded] one bit flipped in layer {layer} "
+          f"expert {expert}'s {role} entry: verify says checksum_mismatch "
+          f"for {role} (every other role ok), the role is demoted "
+          f"(integrity_violation), tokens torch.equal to the healthy run's, "
+          f"{want} launches of bitmap_spmm; {wall:.3f} s, verify included, "
+          f"on {card}")
+
+
+def _family(arch: str, layers: int, kinds: tuple, card: str, dev,
+            acc: dict, launches: dict) -> None:
+    """Phase 11 on one model (see :func:`phase_families`)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.exec.compress import compress_params, prune_params
+    from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    fp32_gb = 4 * full.params_count() / 1e9
+    cut = (f"{layers} of {full.n_layers} layers (all {full.n_layers}: "
+           f"{fp32_gb:.1f} GB of fp32 params, more than the card's 80 GB "
+           f"beside a pruned copy and its store)" if layers
+           else f"all {full.n_layers} layers")
+    print(f"[family {arch}] family {cfg.family}, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads} x {cfg.head_dim} (kv {cfg.n_kv_heads}), "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f"{f', {cfg.moe.n_experts} experts, top {cfg.moe.top_k}' if cfg.moe else ''}"
+          f"; full width, {cut}; plans {list(kinds)}; seeded random weights")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg).init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    for kind in kinds:
+        t0 = time.perf_counter()
+        plan = serve._fast_plan(cfg, 64, serve.PLAN_SPARSITY[kind])
+        t_search = time.perf_counter() - t0
+        want = serve._fast_plan(full, 64, serve.PLAN_SPARSITY[kind])
+        if [op.choice for op in plan.ops] != \
+                [op.choice for op in want.ops] or \
+                {op.choice.kind for op in plan.ops} != {kind}:
+            _fail(f"{arch} {kind}: the cut config's plan chooses "
+                  f"{[op.choice for op in plan.ops]}, the full config's "
+                  f"{[op.choice for op in want.ops]}")
+        t0 = time.perf_counter()
+        pruned = prune_params(params, plan, cfg)
+        torch.cuda.synchronize()
+        t_prune = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = compress_params(pruned, plan, cfg)
+        torch.cuda.synchronize()
+        t_compress = time.perf_counter() - t0
+        cm = CompressedModel(Model(cfg), store)
+        experts = sum(1 for e in store if e.expert >= 0)
+        print(f"[family {arch} {kind}] init {t_init:.2f} s, search "
+              f"{t_search:.3f} s (the same choices as the full config's "
+              f"search), prune {t_prune:.2f} s, compress {t_compress:.2f} s "
+              f"(one checksum pass included); {len(store.entries)} entries "
+              f"({experts} expert entries), store ratio "
+              f"{store.achieved_ratio():.7f}; blocks "
+              f"{[(op.role, op.choice.block_n, op.choice.block_k) for op in plan.ops] if kind == 'bitmap' else '2:4'}")
+        if kind == kinds[0]:
+            _family_kernels(cfg, store, pruned, card, dev, acc)
+        toks, prompts = _family_serving(cfg, cm, pruned, kind, card, dev,
+                                        launches)
+        if cfg.moe and kind == "bitmap" and not layers:
+            _family_mixer(cfg, cm, pruned, card, launches)
+            _family_guarded(cfg, cm, pruned, toks, prompts, card, dev,
+                            launches)
+        print(f"[family {arch} {kind}] peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del cm, store, pruned
+
+
+def phase_families(card: str, dev, acc: dict) -> dict[str, int]:
+    """Phase 11: every model the compressed plane serves beside
+    chatglm3-6b (see the module docstring); its kernel cases go into
+    phase 3's ``acc``.  Returns kernel -> launches: each model and plan's
+    capturing ``generate`` and its naive one, granite's capturing mixer
+    streams and its guarded run."""
+    import gc
+    import torch
+    print(f"[family] batch {BATCH}, prompt {PROMPT}, {GEN} tokens, bf16 "
+          f"unless named, {FAMILY_RUNS} runs a mode in turns; kernels' "
+          f"sums over the roles a plan dispatches (7 a dense layer, 4 a "
+          f"MoE one: the experts run dense), on {card}")
+    launches: dict[str, int] = {}
+    print(f"[family] no new kernel instance: the shapes below run the "
+          f"instances phase 2 built and checked for spills")
+    t_all = time.perf_counter()
+    for arch, layers, kinds in FAMILIES:
+        t0 = time.perf_counter()
+        _family(arch, layers, kinds, card, dev, acc, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[family {arch}] {time.perf_counter() - t0:.1f} s; after the "
+              f"model is deleted: {torch.cuda.memory_allocated() / 2**30:.2f} "
+              f"GiB allocated")
+    print(f"[family] phase 11 took {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2442,15 +2889,23 @@ def main() -> None:
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
 
-    card = phase_environment()
-    phase_build()
+    seconds: dict[str, float] = {}        # wall seconds a phase
+
+    def timed(phase: str, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
+    card = timed("1", phase_environment)
+    timed("2", phase_build)
     cfg = get_config("chatglm3-6b")
     dev = torch.device("cuda", 0)
-    acc = phase_kernels(cfg, card, dev)
-    flash = phase_flash(cfg, card, dev)
-    launches = phase_serving(cfg, card, dev)
-    mixer_launches = phase_mixer(cfg, card, dev)
-    guarded_launches = phase_guarded(cfg, card, dev)
+    acc = timed("3", phase_kernels, cfg, card, dev)
+    flash = timed("4", phase_flash, cfg, card, dev)
+    launches = timed("5", phase_serving, cfg, card, dev)
+    mixer_launches = timed("6", phase_mixer, cfg, card, dev)
+    guarded_launches = timed("7", phase_guarded, cfg, card, dev)
     forwards: dict[str, dict] = {}
 
     def calibration_forwards(kind, cm, pruned, prompts):
@@ -2458,9 +2913,14 @@ def main() -> None:
         forwards[kind] = _calibration_forwards(cfg, kind, kname, cm, pruned,
                                                prompts, card, dev)
 
-    gqa_launches = phase_gqagroup(cfg, card, dev, then=calibration_forwards)
-    telemetry_launches = phase_telemetry(cfg, card, dev)
-    phase_search(cfg, card, forwards)
+    gqa_launches = timed("8 (+ 10's forwards)", phase_gqagroup, cfg, card,
+                         dev, then=calibration_forwards)
+    telemetry_launches = timed("9", phase_telemetry, cfg, card, dev)
+    timed("10", phase_search, cfg, card, forwards)
+    families_launches = timed("11", phase_families, card, dev, acc)
+    print("[time] wall seconds a phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; sum {sum(seconds.values()):.1f}")
     search_launches: dict[str, int] = {}
     for f in forwards.values():
         for name, n in f["launches"].items():
@@ -2488,9 +2948,10 @@ def main() -> None:
                  "gqagroup_launches": gqa_launches[name],
                  "telemetry_launches": telemetry_launches.get(name, 0),
                  "search_launches": search_launches.get(name, 0),
+                 "families_launches": families_launches.get(name, 0),
                  "max_abs_err": a.max_abs_err}
         for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
-            s = a.sums[(m, torch.bfloat16)]
+            s = a.sums[(cfg.name, m, torch.bfloat16)]
             bound, by = _bound_ms(s["bytes"], s["flops"])
             shape = {"ms": s["ms"], "plain_ms": s["plain_ms"],
                      "bound_ms": bound, "bound_by": by,
@@ -2503,6 +2964,15 @@ def main() -> None:
                 entry["prefill"] = dict(shape, at=f"same, M={m}")
         if a.masked:
             entry["masked_steps"] = a.masked
+        entry["families"] = {}
+        for (arch, m, dtype), s in a.sums.items():
+            if arch == cfg.name or dtype != torch.bfloat16:
+                continue
+            bound, by = _bound_ms(s["bytes"], s["flops"])
+            entry["families"].setdefault(arch, {})[f"M={m}"] = {
+                "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": s["library_ms"], "roles": s["roles"]}
         kernels.append(entry)
     # flash: headline shape BH=128 S=2048 causal bf16; every shape listed
     head = flash["head"]
@@ -2510,7 +2980,8 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": sources["flash_attention"][0],
         "replaces": sources["flash_attention"][1],
-        "launches": flash["launches"], "max_abs_err": flash["max_abs_err"],
+        "launches": flash["launches"], "families_launches": 0,
+        "max_abs_err": flash["max_abs_err"],
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "at")},
         "note": "no serving path of either package launches it; launches "

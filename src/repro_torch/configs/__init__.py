@@ -1,3 +1,6 @@
-from repro_torch.configs.base import MatmulRole, ModelConfig, get_config
+from repro_torch.configs.base import (SHAPES, HybridCfg, MatmulRole,
+                                      ModelConfig, MoECfg, ShapeCfg, SSMCfg,
+                                      get_config, list_archs)
 
-__all__ = ["MatmulRole", "ModelConfig", "get_config"]
+__all__ = ["HybridCfg", "MatmulRole", "ModelConfig", "MoECfg", "SHAPES",
+           "SSMCfg", "ShapeCfg", "get_config", "list_archs"]

@@ -16,4 +16,5 @@ def chatglm3_6b() -> ModelConfig:
         d_ff=13_696,
         vocab=65_024,
         rope_fraction=0.5,
+        sparse_ffn=True,
     )

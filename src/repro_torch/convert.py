@@ -2,8 +2,9 @@
 
 The port's params are plain dicts in the reference's layout (``embed``,
 ``final_norm``, ``blocks`` with a leading layer axis; weights
-``(d_in, d_out)``), so the reference's ``Model.init`` tree, passed as
-numpy arrays, converts leaf by leaf.
+``(d_in, d_out)``; a MoE layer's ``ffn`` holds the router ``(L, d, E)``
+and the experts ``(L, E, d, f)`` / ``(L, E, f, d)``), so the reference's
+``Model.init`` tree, passed as numpy arrays, converts leaf by leaf.
 """
 
 from __future__ import annotations

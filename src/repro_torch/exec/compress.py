@@ -2,12 +2,18 @@
 
 :func:`prune_params` prunes every planned projection to the plan's
 servable structure (block-sparse for bitmap roles, N:M for nm roles);
-:func:`compress_params` stores each (layer, role) weight in the plan's
-chosen representation — :class:`~repro_torch.kernels.ops.BitmapCompressed`,
+:func:`compress_params` stores each (layer, role[, expert]) weight in the
+plan's chosen representation —
+:class:`~repro_torch.kernels.ops.BitmapCompressed`,
 :class:`~repro_torch.kernels.ops.NMCompressed` or the dense tensor — on
 the weights' own device, with exact achieved-size accounting, and records
 each role's content digest in the plan (``ExecPlan.checksums``,
 :func:`repro_torch.runtime.integrity.checksum_store`).
+
+MoE roles (``moe.*``) fan out per expert: one entry per (layer, role,
+expert), compressed, checksummed and counted in the ratio like any other,
+but never dispatched to a kernel: the experts run dense inside the MoE
+block over the pruned weights, as in the reference.
 
 The reference also stacks the store along the layer axis for
 ``lax.scan``; the port serves per-layer entries from a Python layer loop,
@@ -24,8 +30,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparsity import NM
-from repro_torch.exec.plans import ExecPlan, check_plan
+from repro_torch.exec.plans import ExecPlan, OpPlan, check_plan
 from repro_torch.kernels import ops as kops
+from repro_torch.models.transformer import _unserved
 from repro_torch.sparse import masks
 
 
@@ -34,9 +41,32 @@ def _role_path(role: str) -> tuple[str, str]:
     group, leaf = role.split(".", 1)
     if group == "attn":
         return "attn", leaf
-    if group == "ffn":
+    if group in ("ffn", "moe"):
         return "ffn", leaf
     raise KeyError(f"unknown role {role!r}")
+
+
+def _layer_weight(params: dict, layer: int, role: str, expert: int
+                  ) -> torch.Tensor:
+    group, leaf = _role_path(role)
+    w = params["blocks"][group][leaf][layer]
+    return w[expert] if expert >= 0 else w
+
+
+def _check_uniform(cfg: ModelConfig) -> None:
+    """Refuse what the model refuses (``models.transformer._unserved``);
+    an unknown family raises ``NotImplementedError`` here, as in the
+    reference's compressed plane."""
+    reason = _unserved(cfg)
+    if reason:
+        raise NotImplementedError(reason)
+
+
+def _fanout(plan_op: OpPlan, cfg: ModelConfig) -> range:
+    if plan_op.role.startswith("moe."):
+        assert cfg.moe is not None
+        return range(cfg.moe.n_experts)
+    return range(-1, 0)          # single entry, expert = -1
 
 
 def _nm_shape(plan: ExecPlan) -> tuple[int, int]:
@@ -51,7 +81,7 @@ class CompressedTensor:
 
     layer: int
     role: str
-    expert: int                # -1: the port has no MoE roles
+    expert: int                # -1 for non-MoE roles
     kind: str                  # "bitmap" | "nm" | "dense"
     data: Any                  # BitmapCompressed | NMCompressed | Tensor
     dense_bits: float
@@ -75,6 +105,9 @@ class CompressedStore:
 
     def __iter__(self) -> Iterator[CompressedTensor]:
         return iter(self.entries.values())
+
+    def __len__(self) -> int:
+        return len(self.entries)
 
     def achieved_ratio(self, role: Optional[str] = None) -> float:
         """stored/dense bits over the whole store (or one role), exact."""
@@ -124,29 +157,32 @@ def _stored_bits(kind: str, data: Any, vb: int) -> float:
 
 def compress_params(params: dict, plan: ExecPlan, cfg: ModelConfig
                     ) -> CompressedStore:
-    """Compress every planned (layer, role) weight of ``params`` (whose
-    weights already carry the plan's structure, see :func:`prune_params`)
-    on the weights' device.  Dense-kind entries keep the tensor.  The
-    store's plan is a copy of ``plan`` with every role's checksum."""
+    """Compress every planned (layer, role[, expert]) weight of ``params``
+    (whose weights already carry the plan's structure, see
+    :func:`prune_params`) on the weights' device.  Dense-kind entries keep
+    the tensor.  The store's plan is a copy of ``plan`` with every role's
+    checksum."""
+    _check_uniform(cfg)
     check_plan(plan, cfg)
     n_sel, m_group = _nm_shape(plan)
     entries: dict[tuple[int, str, int], CompressedTensor] = {}
     for op in plan.ops:
         ch = op.choice
-        group, leaf = _role_path(op.role)
         for layer in range(cfg.n_layers):
-            w = params["blocks"][group][leaf][layer]
-            vb = w.element_size() * 8
-            if ch.kind == "bitmap":
-                data: Any = kops.compress_bitmap(w, ch.block_n, ch.block_k)
-            elif ch.kind == "nm":
-                data = kops.compress_nm(w, n_sel, m_group)
-            else:
-                data = w
-            entries[(layer, op.role, -1)] = CompressedTensor(
-                layer=layer, role=op.role, expert=-1, kind=ch.kind,
-                data=data, dense_bits=float(w.numel() * vb),
-                stored_bits=_stored_bits(ch.kind, data, vb))
+            for expert in _fanout(op, cfg):
+                w = _layer_weight(params, layer, op.role, expert)
+                vb = w.element_size() * 8
+                if ch.kind == "bitmap":
+                    data: Any = kops.compress_bitmap(w, ch.block_n,
+                                                     ch.block_k)
+                elif ch.kind == "nm":
+                    data = kops.compress_nm(w, n_sel, m_group)
+                else:
+                    data = w
+                entries[(layer, op.role, expert)] = CompressedTensor(
+                    layer=layer, role=op.role, expert=expert, kind=ch.kind,
+                    data=data, dense_bits=float(w.numel() * vb),
+                    stored_bits=_stored_bits(ch.kind, data, vb))
     store = CompressedStore(plan, entries)
     # record per-role content digests IN the plan: the plan is the durable
     # artifact (JSON round-tripped), so a store rebuilt or reloaded later
@@ -161,8 +197,11 @@ def prune_params(params: dict, plan: ExecPlan, cfg: ModelConfig) -> dict:
     """Prune ``params`` to the plan's servable sparsity structure.
 
     Bitmap roles get block pruning at the plan's block shape and density;
-    nm roles N:M pruning; dense roles pass through.  Returns a new tree
-    (the input is not mutated; untouched leaves are shared)."""
+    nm roles N:M pruning; dense roles pass through.  A MoE role's weight
+    ``(L, E, n, k)`` is pruned one expert's slice at a time into its new
+    tensor.  Returns a new tree (the input is not mutated; untouched
+    leaves are shared)."""
+    _check_uniform(cfg)
     check_plan(plan, cfg)
     sp = plan.sparsity
     n_sel, m_group = _nm_shape(plan)
@@ -175,13 +214,15 @@ def prune_params(params: dict, plan: ExecPlan, cfg: ModelConfig) -> dict:
             continue
         group, leaf = _role_path(op.role)
         w = blocks[group][leaf]
-        pruned = torch.empty_like(w)
-        for layer in range(w.shape[0]):
+        pruned = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+        flat, out2d = w.reshape(-1, *w.shape[-2:]), \
+            pruned.view(-1, *w.shape[-2:])    # (L[·E], n, k)
+        for i in range(flat.shape[0]):
             if ch.kind == "bitmap":
-                pruned[layer] = masks.block_prune(
-                    w[layer], ch.block_n, ch.block_k, sp.density)
+                out2d[i] = masks.block_prune(
+                    flat[i], ch.block_n, ch.block_k, sp.density)
             else:
-                pruned[layer] = masks.nm_prune(w[layer], n_sel, m_group)
+                out2d[i] = masks.nm_prune(flat[i], n_sel, m_group)
         blocks[group] = dict(blocks[group])
         blocks[group][leaf] = pruned
     return out

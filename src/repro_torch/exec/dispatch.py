@@ -170,14 +170,16 @@ class _Dispatcher:
 
     Bitmap roles run with one static bound per role, the max over layers
     of the blocks in any block-column (the reference's unrolled
-    dispatcher's ``t_max``): the naive kernel's loop bound."""
+    dispatcher's ``t_max``): the naive kernel's loop bound.  MoE expert
+    entries never reach a kernel (the MoE block multiplies the experts
+    densely, as in the reference) and take no part in it."""
 
     def __init__(self, store: CompressedStore, plain: bool = False):
         self.store = store
         self.plain = plain
         self._t_max: dict[str, int] = {}
         for e in store:
-            if e.kind == "bitmap":
+            if e.kind == "bitmap" and e.expert < 0:   # experts run dense
                 self._t_max[e.role] = max(self._t_max.get(e.role, 1),
                                           e.data.max_per_col)
 
@@ -248,7 +250,10 @@ def active(store: CompressedStore, plain: bool = False
 class CompressedModel:
     """A served model: the dense :class:`~repro_torch.models.transformer.Model`
     with every planned projection taken from a :class:`CompressedStore`.
-    Mirrors the dense model's serving surface."""
+    Mirrors the dense model's serving surface, for every family the model
+    serves (``dense``, ``moe``, ``vlm``); MoE expert matmuls run dense
+    over the pruned weights (their entries are accounting only), as in
+    the reference."""
 
     model: T.Model
     store: CompressedStore

@@ -164,19 +164,11 @@ def translate(op: MatMul, fmt_w: Optional[Format],
 # Workload builders
 # ---------------------------------------------------------------------------
 
-def _moe(cfg: ModelConfig):
-    """The config's MoE block, or None: the port's dense-family
-    :class:`ModelConfig` has no ``moe`` field, so the expert fan-out of
-    :func:`model_workload` applies only to a config that carries one."""
-    return getattr(cfg, "moe", None)
-
-
 def ffn_workload(cfg: ModelConfig, tokens: int, w_sparsity: Sparsity,
                  act_density: float = 1.0) -> Workload:
     """The FFN matmuls of one layer of ``cfg`` as a SnipSnap workload."""
     d = cfg.d_model
-    moe = _moe(cfg)
-    f = moe.d_expert if moe else cfg.d_ff
+    f = cfg.moe.d_expert if cfg.moe else cfg.d_ff
     act = Bernoulli(act_density)
     ops = (
         MatMul("ffn.up", tokens, d, f, act, w_sparsity,
@@ -199,12 +191,11 @@ def model_workload(cfg: ModelConfig, tokens: int, w_sparsity: Sparsity,
     width — pass the parameter store's real width (32 for fp32 params) so
     predicted fetch terms compare against measured counters 1:1."""
     act = Bernoulli(act_density)
-    moe = _moe(cfg)
     ops = []
     for r in cfg.matmul_roles():
         m = tokens
-        if r.fanout > 1 and moe:
-            m = max(1, int(tokens * moe.top_k / moe.n_experts))
+        if r.fanout > 1 and cfg.moe:
+            m = max(1, int(tokens * cfg.moe.top_k / cfg.moe.n_experts))
         ops.append(MatMul(r.role, m, r.n, r.k, act, w_sparsity, act,
                           count=float(cfg.n_layers * r.fanout),
                           value_bits=value_bits))

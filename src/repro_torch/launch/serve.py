@@ -23,6 +23,14 @@ Usage (on the card; ``--device cpu`` runs the plain PyTorch versions)::
       [--mixer --slots 2 --temperature 0.8 --top-k 20 --deadline S] \\
       [--trace PATH] [--metrics PATH] [--device cuda]
 
+``--arch`` takes every config the port serves: chatglm3-6b,
+deepseek-coder-33b, internlm2-20b, pixtral-12b (a dense backbone),
+granite-moe-3b-a800m and qwen3-moe-30b-a3b; the others of
+``repro_torch.configs.list_archs()`` raise ``NotImplementedError``.  A MoE
+prompt must fill whole routing groups, as in the reference: at
+``--reduced`` (groups of 16) ``--mixer`` needs ``--prompt-len 16`` or
+less.
+
 ``--compressed`` co-searches a plan (:func:`_fast_plan`, the reference
 CLI's small budget; ``--plan`` picks the sparsity model it searches under)
 and serves its compressed store.

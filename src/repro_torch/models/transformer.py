@@ -1,10 +1,15 @@
-"""Model assembly for the uniform dense attention stack.
+"""Model assembly for the uniform attention stacks: the families
+``dense``, ``moe`` and ``vlm`` (a dense backbone; the vision frontend is a
+stub in the reference too) without a ``hybrid`` layer pattern.
 
 The reference scans stacked layer params with ``lax.scan``; the port runs
 the same stacked layout with a Python loop over the layer axis, publishing
 each layer's index through :func:`repro_torch.models.layers.layer_ctx` so
 the execution plane's projection hook can resolve per-layer compressed
-weights.  Other families raise ``NotImplementedError``.
+weights.  The other known families (``ssm``, ``hybrid``, ``encdec``) and
+sliding-window attention raise ``NotImplementedError``; an unknown family
+raises the reference's ``ValueError``.  Nothing is served as another
+family.
 """
 
 from __future__ import annotations
@@ -18,20 +23,57 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import optflags
 
 PyTree = Any
 
+#: Families the reference's cache/decode machinery knows; anything else
+#: fails loudly instead of getting the uniform dense cache.
+KNOWN_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in KNOWN_FAMILIES:
+        raise ValueError(
+            f"unknown model family {cfg.family!r} for {cfg.name}: cannot "
+            f"build a decode cache (known: {', '.join(KNOWN_FAMILIES)})")
+
+
+def _uniform_stack(cfg: ModelConfig) -> bool:
+    """True when the model is one homogeneous attention stack (the
+    families the port serves)."""
+    return cfg.family in ("dense", "moe", "vlm") and cfg.hybrid is None
+
+
+def _unserved(cfg: ModelConfig) -> str | None:
+    """Why the port does not serve ``cfg``, or None when it does: the one
+    rule that the model and the compressed plane
+    (:mod:`repro_torch.exec.compress`) both apply."""
+    if not _uniform_stack(cfg):
+        return (f"{cfg.name}: family={cfg.family!r} hybrid={cfg.hybrid!r} "
+                f"is not ported yet (ROADMAP Queue 1 item 9); the port "
+                f"serves the uniform attention stacks (dense, moe, vlm)")
+    if cfg.window:
+        return (f"{cfg.name}: sliding-window (ring cache) attention is not "
+                f"ported yet (window={cfg.window}; ROADMAP Queue 1 item 9)")
+    if cfg.family == "moe" and cfg.moe is None:
+        return (f"{cfg.name}: family='moe' without a moe block would serve "
+                f"a dense FFN")
+    return None
+
 
 def _check_served(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port serves the dense family only; {cfg.name} is "
-            f"family={cfg.family!r}")
-    if cfg.window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window (ring cache) attention is not "
-            f"ported yet (window={cfg.window})")
+    _check_family(cfg)
+    reason = _unserved(cfg)
+    if reason:
+        raise NotImplementedError(reason)
+
+
+def _ffn_apply(x, p, cfg: ModelConfig):
+    if cfg.moe:
+        return moe_mod.moe_block(x, p, cfg)
+    return L.mlp(x, p)
 
 
 def _layer(params: PyTree, i: int) -> dict:
@@ -51,7 +93,7 @@ def _attn_layer(x, p, cfg: ModelConfig, freqs, positions,
         a, k, v = a
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    out = x + L.mlp(h, p["ffn"])
+    out = x + _ffn_apply(h, p["ffn"], cfg)
     if return_kv:
         return out, k, v
     return out
@@ -73,7 +115,9 @@ class Model:
     def init(self, seed: int = 0, device="cuda") -> PyTree:
         """Random params drawn on ``device`` from a seeded
         ``torch.Generator`` (normal / sqrt(fan_in), zero norms), stacked
-        along a leading layer axis like the reference's pytree."""
+        along a leading layer axis like the reference's pytree (a MoE
+        layer's ``ffn`` holds the router ``(L, d, E)`` and the experts
+        ``(L, E, d, f)`` / ``(L, E, f, d)``)."""
         self._check_flags()
         cfg = self.cfg
         dev = resolve(device)
@@ -88,7 +132,8 @@ class Model:
                 "ln1": torch.zeros((nl, d), **zeros),
                 "ln2": torch.zeros((nl, d), **zeros),
                 "attn": L.attn_params(gen, cfg, lead=(nl,)),
-                "ffn": L.mlp_params(gen, cfg, lead=(nl,)),
+                "ffn": (moe_mod.moe_params if cfg.moe else L.mlp_params)(
+                    gen, cfg, lead=(nl,)),
             },
         }
 
@@ -176,6 +221,7 @@ class Model:
                 x = x + attn.attention_decode_block(
                     hn, p["attn"], cfg, freqs, pos, kc[i], vc[i])
                 hn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-                x = x + L.mlp(hn, p["ffn"])
+                x = x + (moe_mod.moe_decode(hn, p["ffn"], cfg) if cfg.moe
+                         else L.mlp(hn, p["ffn"]))
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return L.logits_head(x, params["embed"]), cache

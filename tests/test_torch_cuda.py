@@ -1369,3 +1369,95 @@ def test_full_width_search_equals_the_shipped_plan(card, kind):
     shipped = (PLANS_DIR / f"chatglm3-6b.{kind}.json").read_text()
     assert plan.to_json() == shipped.rstrip("\n")
     assert check_plan(plan, cfg) is plan
+
+
+# ---------------------------------------------------------------------------
+# Every model the compressed plane serves: the new role shapes and MoE
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ("deepseek-coder-33b", "internlm2-20b", "pixtral-12b",
+             "granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
+
+
+def _kernel_roles():
+    """(arch, role) of every projection of the new configs that reaches a
+    kernel (the MoE experts run dense and do not)."""
+    from repro_torch.configs import get_config
+    return [(a, r.role) for a in NEW_ARCHS
+            for r in get_config(a).matmul_roles()
+            if not r.role.startswith("moe.")]
+
+
+@pytest.mark.parametrize("arch,role", _kernel_roles())
+def test_new_role_shapes_match_plain(card, arch, role):
+    """Each full-width role of the new configs, on its searched plan's
+    block shape and on 2:4, at M = 4, 16 and 512, x fp32 and bf16: both
+    variants within the kernel tolerance of the plain version, naive ==
+    pipelined bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.sparse import masks
+    cfg = get_config(arch)
+    op = serve._fast_plan(cfg, 64).for_role(role)
+    gen = torch.Generator(device=card).manual_seed(op.n + op.k)
+    w = torch.randn((op.n, op.k), generator=gen, device=card) \
+        / op.n ** 0.5
+    bn, bk = op.choice.block_n, op.choice.block_k
+    cases = (
+        (ops.compress_bitmap(masks.block_prune(w, bn, bk, 0.5), bn, bk),
+         ops.bitmap_spmm, lambda x, c: ref.bitmap_spmm_ref(
+             x, c.blocks, c.counts, c.row_ids, c.n, c.k)),
+        (ops.compress_nm(masks.nm_prune(w, 2, 4), 2, 4), ops.nm_spmm,
+         lambda x, c: ref.nm_spmm_ref(x, c.values, c.indices, 2, 4)))
+    del w
+    for c, kernel, plain in cases:
+        for m in (4, 16, 512):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, op.n), generator=gen,
+                                device=card).to(dtype)
+                y = kernel(x, c)
+                _close(y, plain(x, c))
+                assert torch.equal(kernel(x, c, pipeline=False), y)
+
+
+def _moe_served(arch, kind):
+    """(cfg, compressed model, pruned params) of a reduced MoE config on
+    the card, on its searched plan."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch).reduced()
+    plan = serve._fast_plan(cfg, 64, serve.PLAN_SPARSITY[kind])
+    cm, pruned = serve.compressed_model(cfg, Model(cfg).init(seed=0), plan)
+    return cfg, cm, pruned
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-30b-a3b"])
+def test_moe_graph_equals_eager(card, arch, kind, per_row):
+    """A reduced MoE model, bf16, both variants: the graph's tokens and
+    every step's logits equal the eager step's (the routing's stable sort
+    and one-hots capture like the rest); each step launches the plan's
+    kernel 4 x layers times (the experts launch none)."""
+    from repro_torch.launch import compiled
+    cfg, cm, pruned = _moe_served(arch, kind)
+    kname = "bitmap_spmm" if kind == "bitmap" else "nm_spmm"
+    for pipeline in (True, False):
+        with ops.pipeline_default(pipeline):
+            _graph_equals_eager(cm, pruned, _prompts(cfg, s=8), 6, per_row)
+    launched = sorted(sorted((k, v) for k, v in g.launches.items() if v)
+                      for g in compiled.graphs(cm).values())
+    assert launched == [[(kname, 4 * cfg.n_layers)],
+                        [(f"{kname}_naive", 4 * cfg.n_layers)]]
+
+
+def test_moe_generate_launches_the_attention_kernels_only(card):
+    from repro_torch.launch import serve
+    cfg, cm, pruned = _moe_served("granite-moe-3b-a800m", "bitmap")
+    ops.reset_launch_counts()
+    toks, _, _ = serve.generate(cm, pruned, _prompts(cfg, b=4, s=16), 8, 24)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == \
+        {"bitmap_spmm": 4 * cfg.n_layers * 9}
+    assert toks.shape == (4, 8)
