@@ -104,8 +104,9 @@ non-zero exit code when it fails:
    at 4 and at 16 slots give each one's device busy time, its idle share
    of the same call untraced, the sparse kernels' and the copies' share
    and the kernels that take the most time;
-7. guarded serving (``repro_torch.runtime``): full-width chatglm3-6b on
-   both shipped plans, batch 4, prompt 128, 16 tokens, bf16.  The seconds
+7. guarded serving (``repro_torch.runtime``): full-width chatglm3-6b cut
+   to ``GUARD_LAYERS`` (4) layers, on both shipped plans, batch 4, prompt
+   128, 16 tokens, bf16.  The seconds
    of ``compress_params`` (one checksum pass included), of
    ``checksum_store`` (its roles in a thread pool) against each role's
    digest taken alone, in turn, and of ``verify``, which must say ``ok``
@@ -216,7 +217,28 @@ non-zero exit code when it fails:
    again, pipelined and naive: tokens equal) and
    a guarded run with one bit flipped in an expert entry of
    ``moe.w_up``: ``verify`` names the role, the guard demotes it and the
-   tokens are the healthy run's.
+   tokens are the healthy run's;
+12. the four families the reference serves dense only (its compressed
+   plane refuses them): gemma3-27b cut to 8 layers (one 5 local + 1
+   global period and the 2-layer tail; window 1024), recurrentgemma-2b
+   (all 26 layers), mamba2-780m (all 48) and whisper-tiny (whole,
+   ``enc_seq`` 1500); full width, seeded random weights.  Each serves
+   ``serve.generate``'s batch (4 x 128, 16 tokens, bf16), the prompt
+   ingested token by token through the same CUDA graph as decode: one
+   capturing run, then 3 graphed and 3 eager in turns (ingest and decode
+   ms/token, median and min-max; every run's tokens equal); graph == eager
+   on the tokens and every ingest and decode step's logits; a healthy
+   guarded run with the unguarded tokens; the peak memory.  At fp32 (TF32
+   off) every step's logits against the teacher-forced ``hidden_states``
+   within 1e-3 max|logits| (not whisper, whose decode cross-attends to an
+   empty cache in the reference too).  gemma3 and recurrentgemma also run
+   batch 1 at fp32 ``WRAP_PAST`` positions past their full window (1024,
+   2048) through the graph: from ``WRAP_BEFORE`` positions before the wrap
+   the eager step, from a copy of the graph's cache, gives ``torch.equal``
+   logits, and each meets the teacher-forced forward's within 1e-3
+   max|logits|.  gemma3 and mamba2 serve a 6-request stream through the
+   mixer (4 slots), graphed == eager tokens.  None of the five kernels
+   may launch in the phase.
 
 The line before the last is one JSON object describing every kernel (its
 launches in phases 5-11, each counted from zero before the phase's run;
@@ -228,6 +250,7 @@ port's sources beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -290,6 +313,23 @@ FAMILY_MS = (M_DECODE, MIX_WIDE, M_PREFILL)
 # attention kernels' summation order may swap them in a MoE router (a few
 # fp32 roundings; phase 11)
 NEAR_TIE = 1e-5
+# phase 7: chatglm3-6b's layers in the guarded runs (every fault class at
+# full width; the depth cut to make room for phase 12)
+GUARD_LAYERS = 4
+# phase 12: the families the reference serves dense only: (arch, layers on
+# the card, 0 for all of them).  gemma3-27b keeps one 5 local + 1 global
+# period and the 2-layer tail: at 62 layers its fp32 params (about 108 GB)
+# do not fit the card
+DENSE_FAMILIES = (("gemma3-27b", 8), ("recurrentgemma-2b", 0),
+                  ("mamba2-780m", 0), ("whisper-tiny", 0))
+DENSE_RUNS = 3               # serving runs a mode
+DENSE_MIXED = ("gemma3-27b", "mamba2-780m")
+# the mixer's stream there: requests, shortest and longest prompt, tokens a
+# request, max_len
+DENSE_MIX = (6, 8, 24, 6, 32)
+# the batch-1 fp32 run past a ring's wrap: positions after the window, and
+# positions before the wrap from which graph and eager are compared
+WRAP_PAST, WRAP_BEFORE = 24, 8
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -1333,7 +1373,8 @@ def _mixer_graph(cm, slots: int, dtype, pipeline: bool):
     position, dtype, variant)."""
     from repro_torch.launch import compiled
     found = [g for k, g in compiled.graphs(cm).items()
-             if k[:5] == (slots, MIX_MAX_LEN, 1, dtype, pipeline)]
+             if k[0] == slots and k[2:5] == (1, dtype, pipeline)
+             and all(shape[2] == MIX_MAX_LEN for shape, _ in k[1])]
     if len(found) != 1:
         _fail(f"mixer: {len(found)} graphs for the key (slots={slots}, "
               f"max_len={MIX_MAX_LEN}, per-row pos, {dtype}, "
@@ -2880,6 +2921,283 @@ def phase_families(card: str, dev, acc: dict) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the families the reference serves dense only
+# ---------------------------------------------------------------------------
+
+def _dense_runs(model, params, prompts, label: str, card: str):
+    """``serve.generate`` once to capture, then graphed and eager in turns,
+    ``DENSE_RUNS`` each.  The capturing run and the first eager one keep
+    every step's logits (token ingest included), which must be
+    ``torch.equal`` (graph == eager); every run's tokens must equal the
+    first's.  Returns them."""
+    import torch
+    from repro_torch.launch import compiled, serve
+    log: list = []
+
+    class Recorded(compiled.CompiledStep):
+        def __call__(self, *args):
+            logits, cache = super().__call__(*args)
+            log.append(logits.clone())
+            return logits, cache
+
+    def run(graphed: bool, record: bool = False):
+        plain = serve.CompiledStep
+        log.clear()
+        if record:
+            serve.CompiledStep = Recorded
+        try:
+            with contextlib.nullcontext() if graphed \
+                    else compiled.disable():
+                toks, t_ingest, t_gen = serve.generate(
+                    model, params, prompts, GEN, PROMPT + GEN,
+                    device=prompts.device)
+        finally:
+            serve.CompiledStep = plain
+        return toks, 1e3 * t_ingest / PROMPT, 1e3 * t_gen / GEN, list(log)
+
+    toks, _, _, steps = run(True, record=True)
+    times = {True: ([], []), False: ([], [])}
+    for r in range(DENSE_RUNS):
+        for graphed in (True, False):
+            got, i_ms, d_ms, steps_e = run(graphed, record=not graphed
+                                           and r == 0)
+            if not torch.equal(got, toks):
+                _fail(f"{label} graphed={graphed}: tokens {got.tolist()} "
+                      f"against the first run's {toks.tolist()}")
+            if steps_e:
+                for i, (lg, lg_e) in enumerate(zip(steps, steps_e)):
+                    if not torch.equal(lg, lg_e):
+                        _fail(f"{label}: step {i}'s logits differ between "
+                              f"graph and eager by "
+                              f"{(lg - lg_e).abs().max().item()}")
+                if len(steps) != len(steps_e) or not steps:
+                    _fail(f"{label}: {len(steps)} graphed steps recorded, "
+                          f"{len(steps_e)} eager")
+            times[graphed][0].append(i_ms)
+            times[graphed][1].append(d_ms)
+    held = list(compiled.graphs(model).values())
+    print(f"[dense {label}] graph == eager: tokens and the logits of all "
+          f"{len(steps)} steps ({PROMPT} ingest, {GEN} decode) torch.equal; "
+          f"{len(held)} graph(s), ingest and decode at one key: "
+          + ", ".join(f"capture {g.capture_ms:.3f} ms, {g.replays} replays"
+                      for g in held))
+    for graphed in (True, False):
+        ing, dec = times[graphed]
+        print(f"[dense {label} {'graphed' if graphed else 'eager'}] over "
+              f"{DENSE_RUNS} runs: ingest ms/token {_spread(ing)}; decode "
+              f"ms/token {_spread(dec)} — bf16, batch {BATCH}, prompt "
+              f"{PROMPT} ingested token by token, {GEN} tokens, on {card}")
+    return toks
+
+
+def _teacher_forced(model, params, seq, at: slice):
+    """fp32 logits of the full-sequence forward at positions ``at``."""
+    import torch
+    from repro_torch.models import layers as L
+    x = model.hidden_states(params, seq)[:, at]
+    return torch.matmul(x, params["embed"].to(L.COMPUTE_DTYPE).t()).float()
+
+
+def _held_fp32(label: str, steps: list, want, first: int) -> float:
+    """Each step's logits (positions ``first``...) against the
+    teacher-forced ones, within 1e-3 max|want|; returns the worst share."""
+    worst = 0.0
+    scale = float(want.abs().max())
+    for i, got in enumerate(steps):
+        err = float((got - want[:, i]).abs().max())
+        worst = max(worst, err / scale)
+        if err > 1e-3 * scale:
+            _fail(f"{label}: position {first + i}: max|decode - teacher "
+                  f"forced| = {err} > 1e-3 * {scale}")
+    return worst
+
+
+def _dense_fp32(cfg, model, params, prompts, label: str) -> None:
+    """fp32, TF32 off: every ingest and decode step's logits (graphed)
+    against the teacher-forced forward over the same tokens."""
+    import torch
+    from repro_torch.launch import compiled
+    from repro_torch.models import layers as L
+    prev = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        toks, steps = compiled.greedy(compiled.CompiledStep(model), model,
+                                      params, prompts, GEN)
+        seq = torch.cat([prompts, toks[:, :GEN - 1]], dim=1)
+        want = _teacher_forced(model, params, seq, slice(None))
+        worst = _held_fp32(f"{label} fp32", steps, want, 0)
+    finally:
+        L.COMPUTE_DTYPE = prev
+    print(f"[dense {label} fp32] all {len(steps)} steps ({PROMPT} ingest, "
+          f"{GEN - 1} decode; graphed) within {worst:.3e} max|logits| of "
+          f"the teacher-forced forward (bound 1e-3)")
+
+
+def _dense_wrap(cfg, model, params, label: str, dev) -> None:
+    """Batch 1, fp32, TF32 off: ``WRAP_PAST`` positions past the full
+    window, graphed.  From ``WRAP_BEFORE`` positions before the wrap the
+    eager step replays the same tokens from a copy of the graph's cache
+    (graph == eager, ``torch.equal``), and every step's logits there meet
+    the teacher-forced forward's within 1e-3 max|logits|."""
+    import torch
+    from repro_torch.launch import compiled
+    from repro_torch.models import layers as L
+    prev = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        win, n = cfg.window, cfg.window + WRAP_PAST
+        first = win - WRAP_BEFORE
+        pg = torch.Generator(device=dev).manual_seed(5)
+        seq = torch.randint(0, cfg.vocab, (1, n), generator=pg, device=dev)
+        step = compiled.CompiledStep(model)
+        cache = model.init_cache(1, n, device=dev)
+        pos = torch.empty((), dtype=torch.long, device=dev)
+        kept, snapshot = [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n):
+            if t == first:
+                snapshot = model.init_cache(1, n, device=dev)
+                for dst, src in zip(compiled.leaves(snapshot),
+                                    compiled.leaves(cache)):
+                    dst.copy_(src)
+            logits, cache = step(params, cache, seq[:, t], pos.fill_(t))
+            if t >= first:
+                kept.append(logits.clone())
+        torch.cuda.synchronize()
+        t_graph = time.perf_counter() - t0
+        ring = [t.shape[2] for t in compiled.leaves(cache) if t.ndim == 5
+                and t.shape[2] == win]
+        if not ring:
+            _fail(f"{label} wrap: no cache leaf is a ring of {win}")
+        eager = snapshot
+        for i, t in enumerate(range(first, n)):
+            lg, eager = model.decode_step(params, eager, seq[:, t],
+                                          pos.fill_(t))
+            if not torch.equal(lg, kept[i]):
+                _fail(f"{label} wrap: position {t}: graph and eager differ "
+                      f"by {(lg - kept[i]).abs().max().item()}")
+        want = _teacher_forced(model, params, seq, slice(first, n))
+        worst = _held_fp32(f"{label} wrap", kept, want, first)
+    finally:
+        L.COMPUTE_DTYPE = prev
+    print(f"[dense {label} wrap] batch 1, fp32: {n} positions through the "
+          f"graph in {t_graph:.2f} s ({1e3 * t_graph / n:.3f} ms/step), "
+          f"the rings of {win} wrapped {WRAP_PAST} positions ago; "
+          f"positions {first}..{n - 1}: graph == eager (torch.equal, the "
+          f"eager step from a copy of the graph's cache) and within "
+          f"{worst:.3e} max|logits| of the teacher-forced forward")
+
+
+def _dense_mixer(cfg, model, params, label: str, card: str) -> None:
+    """A stream of ``DENSE_MIX[0]`` requests over 4 slots, admitted by
+    batch-1 token ingest through a graph, graphed and eager: equal
+    tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import compiled
+    from repro_torch.launch.mixer import Mixer, Request
+    n_req, lo, hi, max_new, max_len = DENSE_MIX
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=f"d{i}", prompt=rng.integers(0, cfg.vocab, int(p)),
+                    max_new=max_new)
+            for i, p in enumerate(rng.integers(lo, hi + 1, n_req))]
+    out = {}
+    for graphed in (True, False):
+        with contextlib.nullcontext() if graphed else compiled.disable():
+            mx = Mixer(model, params, slots=MIX_SLOTS, max_len=max_len)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mx.run(reqs)
+            torch.cuda.synchronize()
+            out[graphed] = ([r.tokens for r in res], mx.stats(),
+                            time.perf_counter() - t0)
+    for a, b in zip(out[True][0], out[False][0]):
+        if not np.array_equal(a, b):
+            _fail(f"{label} mixer: graphed tokens {a.tolist()} against "
+                  f"eager {b.tolist()}")
+    st = out[True][1]
+    print(f"[dense {label} mixer] {n_req} requests (prompts "
+          f"{sorted(len(r.prompt) for r in reqs)}, {max_new} tokens each) "
+          f"over {MIX_SLOTS} slots: {st['admits']} admissions, "
+          f"{st['steps']} decode steps; graphed == eager tokens; stream "
+          f"{out[True][2]:.2f} s graphed, {out[False][2]:.2f} s eager "
+          f"(admission {st['t_admit_s']:.2f} s graphed) — bf16, on {card}")
+
+
+def _dense_family(arch: str, layers: int, card: str, dev) -> None:
+    """Phase 12 on one model (see :func:`phase_dense_families`)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    cut = (f"{layers} of {full.n_layers} layers (all {full.n_layers}: "
+           f"{4 * full.params_count() / 1e9:.1f} GB of fp32 params, more "
+           f"than the card's 80 GB)" if layers
+           else f"all {full.n_layers} layers")
+    print(f"[dense {arch}] family {cfg.family}, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}, window {cfg.window or 'none'}"
+          f"{f', enc_seq {cfg.enc_seq}' if cfg.enc_seq else ''}; full "
+          f"width, {cut}; seeded random weights, dense (the compressed "
+          f"plane refuses the family, as the reference's does)")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    pg = torch.Generator(device=dev).manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                            device=dev)
+    toks = _dense_runs(model, params, prompts, arch, card)
+    from repro_torch.launch import serve
+    toks_g, _, _, rep = serve.generate(model, params, prompts, GEN,
+                                       PROMPT + GEN, guarded=True,
+                                       device=dev)
+    if not rep.healthy or not torch.equal(toks_g, toks):
+        _fail(f"{arch} guarded: {rep.stable_dict()}; tokens "
+              f"{'equal' if torch.equal(toks_g, toks) else 'differ'}")
+    print(f"[dense {arch}] healthy guarded run: report healthy, tokens "
+          f"torch.equal to unguarded serve.generate")
+    if cfg.family != "encdec":
+        _dense_fp32(cfg, model, params, prompts, arch)
+    else:
+        print(f"[dense {arch}] no fp32 teacher forcing: the reference's "
+              f"decode cross-attends to an empty cache with no positions, "
+              f"so it does not compute its forward (held to graph == "
+              f"eager only)")
+    if cfg.window:
+        _dense_wrap(cfg, model, params, arch, dev)
+    if arch in DENSE_MIXED:
+        _dense_mixer(cfg, model, params, arch, card)
+    print(f"[dense {arch}] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def phase_dense_families(card: str, dev) -> None:
+    """Phase 12: the four families the reference serves dense only (see
+    the module docstring).  Launches none of the five kernels."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t_all = time.perf_counter()
+    for arch, layers in DENSE_FAMILIES:
+        t0 = time.perf_counter()
+        _dense_family(arch, layers, card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[dense {arch}] {time.perf_counter() - t0:.1f} s; after the "
+              f"model is deleted: {torch.cuda.memory_allocated() / 2**30:.2f} "
+              f"GiB allocated")
+    counts = ops.launch_counts()
+    if sum(counts.values()):
+        _fail(f"phase 12 launched kernels: {counts}; these families are "
+              f"served dense")
+    print(f"[dense] no kernel of the five launched in the phase "
+          f"({counts}); phase 12 took {time.perf_counter() - t_all:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2905,7 +3223,8 @@ def main() -> None:
     flash = timed("4", phase_flash, cfg, card, dev)
     launches = timed("5", phase_serving, cfg, card, dev)
     mixer_launches = timed("6", phase_mixer, cfg, card, dev)
-    guarded_launches = timed("7", phase_guarded, cfg, card, dev)
+    guarded_launches = timed("7", phase_guarded, dataclasses.replace(
+        cfg, n_layers=GUARD_LAYERS), card, dev)
     forwards: dict[str, dict] = {}
 
     def calibration_forwards(kind, cm, pruned, prompts):
@@ -2918,6 +3237,7 @@ def main() -> None:
     telemetry_launches = timed("9", phase_telemetry, cfg, card, dev)
     timed("10", phase_search, cfg, card, forwards)
     families_launches = timed("11", phase_families, card, dev, acc)
+    timed("12", phase_dense_families, card, dev)
     print("[time] wall seconds a phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; sum {sum(seconds.values()):.1f}")

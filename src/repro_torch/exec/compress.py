@@ -54,9 +54,14 @@ def _layer_weight(params: dict, layer: int, role: str, expert: int
 
 
 def _check_uniform(cfg: ModelConfig) -> None:
-    """Refuse what the model refuses (``models.transformer._unserved``);
-    an unknown family raises ``NotImplementedError`` here, as in the
-    reference's compressed plane."""
+    """Refuse what the reference's compressed plane refuses, in its words:
+    every stack but a uniform attention stack (an unknown family too; a
+    uniform stack with a ``window`` compresses).  Then the model's own
+    refusal (``models.transformer._unserved``)."""
+    if cfg.hybrid is not None or cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"exec plane serves uniform attention stacks; {cfg.name} is "
+            f"family={cfg.family!r} hybrid={cfg.hybrid!r}")
     reason = _unserved(cfg)
     if reason:
         raise NotImplementedError(reason)

@@ -13,22 +13,25 @@ its first call for a key (:func:`key`) runs the step eagerly on a side
 stream, which builds the kernels, warms cuBLAS and the allocator, and is
 the call's result, then captures the same step into a graph that reads
 static buffers: tokens (B,) int64, ``pos`` (0-d, or (B,) per-row), the
-logits and the KV cache.  Every later call copies its tokens and ``pos``
-into those buffers and replays the graph.
+logits and the cache, whatever its tree (K / V, rings, recurrent states,
+0-d leaves such as ``cross_ready``).  Every later call copies its tokens
+and ``pos`` into those buffers and replays the graph.  The same step
+ingests a prompt token by token for a model without a one-pass prefill
+(:mod:`repro_torch.launch.serve`).
 
 * The cache is donated, as the reference's ``donate_argnums=(1,)``: a
   cache the graph did not hand out (a new prefill) is copied into the
   graph's static cache, and the step returns a cache over the static
-  K / V.  Unlike ``jax.jit``'s, whose every output is a buffer of its
+  leaves.  Unlike ``jax.jit``'s, whose every output is a buffer of its
   own, that cache is valid only until a call at the same key copies
   another cache in: one graph serves one sequence at a time.  Passing a
   cache the graph handed out before such a copy raises instead of
-  decoding another sequence's K / V (:meth:`Graph.adopt`).  A write into
+  decoding another sequence's cache (:meth:`Graph.adopt`).  A write into
   the returned cache in place between two calls (the mixer's slot writes,
-  :func:`repro_torch.launch.mixer.write_slot`) lands in the static K / V
-  and keeps the handle valid: the next call replays on it without a copy.
+  :func:`repro_torch.launch.mixer.write_slot`) lands in the static
+  leaves and keeps the handle valid: the next call replays on it without a copy.
   Such a write through a handle of an earlier copy-in raises as well
-  (:func:`check_current`): it would land in another sequence's K / V.
+  (:func:`check_current`): it would land in another sequence's cache.
   The logits are returned as a fresh tensor.
 * Graphs are kept in the model object, so they and their memory pools
   are released with it (:func:`graphs`).  One is captured per key and
@@ -67,7 +70,7 @@ _DISABLED = False
 # graphs held per model: each pins its static cache and its memory pool
 MAX_GRAPHS = 8
 _STALE = ("this cache was returned by a compiled decode step whose graph has "
-          "since taken another cache at the same key; its K / V now hold "
+          "since taken another cache at the same key; its leaves now hold "
           "that sequence (a returned cache is valid until the next call with "
           "another cache)")
 
@@ -92,7 +95,7 @@ def compiles(device: torch.device) -> bool:
 
 
 class _HandedOut(dict):
-    """A cache a graph returned: its static K / V, marked with the graph
+    """A cache a graph returned: its static leaves, marked with the graph
     (a weak reference: a handle does not keep a released graph's pool) and
     the copy-in it belongs to."""
 
@@ -101,7 +104,7 @@ class _HandedOut(dict):
 
 def check_current(cache: dict) -> None:
     """Raise when ``cache`` was handed out by a graph that has since taken
-    another cache: its K / V hold that sequence now, so neither a replay
+    another cache: its leaves hold that sequence now, so neither a replay
     nor a write through it may use them."""
     g = cache.graph() if isinstance(cache, _HandedOut) else None
     if g is not None and cache.serial != g.serial:
@@ -119,7 +122,7 @@ class Graph:
     store: Any
     tokens: torch.Tensor
     pos: torch.Tensor
-    cache: dict                    # the static K / V
+    cache: dict                    # the static cache leaves
     logits: torch.Tensor
     launches: dict[str, int]       # kernel launches one replay runs
     capture_ms: float              # host ms of the capture, synchronised
@@ -129,22 +132,38 @@ class Graph:
     def adopt(self, cache: dict) -> dict:
         """The cache a replay for ``cache`` writes and returns.  The cache
         this graph handed out last continues its sequence; any cache it
-        did not hand out is copied into the static one and a new handle
-        on the static K / V is returned for it.  A cache handed out before
-        that copy raises: its K / V are another sequence's now."""
+        did not hand out is copied into the static one, leaf by leaf, and
+        a new handle on the static leaves is returned for it.  A cache
+        handed out before that copy raises: its leaves are another
+        sequence's now."""
         if isinstance(cache, _HandedOut) and cache.graph() is self:
             check_current(cache)
             return cache
-        for name in ("k", "v"):
-            self.cache["self"][name].copy_(cache["self"][name])
+        for dst, src in zip(leaves(self.cache), leaves(cache)):
+            dst.copy_(src)
         self.serial += 1
         return self.handle()
 
     def handle(self) -> dict:
-        """A new cache over the static K / V, for the latest copy-in."""
-        out = _HandedOut({"self": dict(self.cache["self"])})
+        """A new cache over the static leaves, for the latest copy-in."""
+        out = _HandedOut(_tree_map(lambda t: t, self.cache))
         out.graph, out.serial = weakref.ref(self), self.serial
         return out
+
+
+def _tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to every tensor leaf (dicts copied)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def leaves(tree) -> list[torch.Tensor]:
+    """The tensor leaves of a cache tree, in a fixed order (the dicts'
+    keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
+    return [tree]
 
 
 def graphs(model) -> dict[tuple, Graph]:
@@ -156,12 +175,14 @@ def graphs(model) -> dict[tuple, Graph]:
 
 
 def key(model, params, cache: dict, tokens: torch.Tensor, pos) -> tuple:
-    """What a graph is captured for: batch, cache length, the rank of
+    """What a graph is captured for: batch, the shape and dtype of every
+    cache leaf (a ring's length, a recurrent state's), the rank of
     ``pos``, the compute dtype, the resolved kernel variant, the identity
     of ``params`` and of the compressed store (None for the dense model)
     and the active optimization flags (``gqagroup`` changes the step's
     ops)."""
-    return (tokens.shape[0], cache["self"]["k"].shape[2],
+    return (tokens.shape[0],
+            tuple((tuple(t.shape), t.dtype) for t in leaves(cache)),
             pos.ndim if isinstance(pos, torch.Tensor) else 0,
             L.COMPUTE_DTYPE, ops.resolve_pipeline(None), id(params),
             id(getattr(model, "store", None)), optflags.active())
@@ -220,9 +241,8 @@ class CompiledStep:
     def _capture(self, k: tuple, params, cache: dict, tokens: torch.Tensor,
                  pos) -> tuple[torch.Tensor, dict]:
         dev = tokens.device
-        # the graph's own K / V: no other graph or caller writes them
-        cache = {"self": {name: t.clone() for name, t in
-                          cache["self"].items()}}
+        # the graph's own cache: no other graph or caller writes it
+        cache = _tree_map(torch.clone, cache)
         static_tokens = tokens.to(torch.long, copy=True)
         static_pos = torch.empty(tuple(pos.shape) if isinstance(
             pos, torch.Tensor) else (), dtype=torch.long, device=dev)
@@ -239,7 +259,8 @@ class CompiledStep:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # a capture records the step on the same buffers and runs nothing,
-        # so the cache keeps the warm-up's K / V at pos
+        # so the cache keeps what the warm-up wrote at pos (a recurrent
+        # state advanced once)
         with ops.captured_launches() as launches, \
                 torch.cuda.graph(graph, stream=side):
             out, _ = self.model.decode_step(params, cache, static_tokens,
@@ -262,14 +283,26 @@ def greedy(step, model, params, prompts: torch.Tensor, gen: int,
     each decode step's logits, every decode step taken by ``step``: a
     :class:`CompiledStep`, or ``model.decode_step`` for the eager step, so
     that the two can be held to each other.  ``pos`` is a device tensor;
-    with ``per_row`` it is (B,) and row i decodes i places behind row 0."""
+    with ``per_row`` it is (B,) and row i decodes i places behind row 0.
+    A model without a one-pass prefill ingests the prompt through ``step``
+    too, at a scalar ``pos`` (its own key), and those steps' logits come
+    first in the list."""
     b, plen = prompts.shape
-    logits, cache = model.prefill(params, prompts, plen + gen)
-    tok = logits[:, -1].argmax(dim=-1)
-    behind = torch.arange(b, device=prompts.device)
-    pos = torch.empty((b,) if per_row else (), dtype=torch.long,
-                      device=prompts.device)
-    toks, steps = [tok], []
+    dev = prompts.device
+    steps = []
+    try:
+        logits, cache = model.prefill(params, prompts, plen + gen)
+        logits = logits[:, -1]
+    except NotImplementedError:
+        cache = model.init_cache(b, plen + gen, device=dev)
+        at = torch.empty((), dtype=torch.long, device=dev)
+        for t in range(plen):
+            logits, cache = step(params, cache, prompts[:, t], at.fill_(t))
+            steps.append(logits.clone())
+    tok = logits.argmax(dim=-1)
+    behind = torch.arange(b, device=dev)
+    pos = torch.empty((b,) if per_row else (), dtype=torch.long, device=dev)
+    toks = [tok]
     for t in range(plen, plen + gen - 1):
         pos.copy_(t - behind) if per_row else pos.fill_(t)
         logits, cache = step(params, cache, tok, pos)

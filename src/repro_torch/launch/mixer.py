@@ -10,12 +10,14 @@ token budget / deadline) and immediately refilled from the queue.
 
 Slot model — no new cache layout, the batch axis IS the slot axis:
 
-  * ``model.init_cache(slots, max_len, device=...)`` allocates one KV
-    region per slot on the params' device; per-slot position counters
-    live host-side.
+  * ``model.init_cache(slots, max_len, device=...)`` allocates one cache
+    region per slot on the params' device (KV, rings, recurrent states:
+    every leaf of two or more dimensions carries the slot on axis 1);
+    per-slot position counters live host-side.
   * **Admission** prefill runs at batch 1 (one-pass ``model.prefill``;
-    exact token-by-token decode ingest for a model without one) and the
-    resulting single-row cache is written into the slot, in place, with
+    exact token-by-token decode ingest, through a batch-1 compiled step,
+    for a model without one: ring windows, the recurrent families) and
+    the resulting single-row cache is written into the slot, in place, with
     :func:`write_slot` — the same primitive ``launch.serve.generate`` uses
     for ragged left-padded prompts.
   * **Decode** calls the compiled step
@@ -54,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import synchronize
-from repro_torch.launch.compiled import CompiledStep, check_current
+from repro_torch.launch.compiled import CompiledStep, check_current, leaves
 from repro_torch.obs import metrics as omet
 from repro_torch.obs import trace as otr
 from repro_torch.runtime.fault import StragglerMonitor
@@ -118,12 +120,21 @@ def prefill_request(model, params, prompt: torch.Tensor, max_len: int,
         logits, cache = fn(params, prompt)
         return logits[0, -1], cache
     except NotImplementedError:
-        step = step_fn or model.decode_step
-        cache = model.init_cache(1, max_len, device=prompt.device)
-        lg = None
-        for t in range(prompt.shape[1]):
-            lg, cache = step(params, cache, prompt[:, t], t)
+        lg, cache = ingest(model, params, prompt, max_len,
+                           step_fn or model.decode_step)
         return lg[0], cache
+
+
+def ingest(model, params, prompts: torch.Tensor, max_len: int, step):
+    """Token-by-token ingest of ``prompts`` (B, plen) into a fresh cache
+    through ``step`` (``model.decode_step`` or a compiled step), the
+    position a device tensor: (the last step's logits (B, V), cache)."""
+    b, plen = prompts.shape
+    cache = model.init_cache(b, max_len, device=prompts.device)
+    pos = torch.empty((), dtype=torch.long, device=prompts.device)
+    for t in range(plen):
+        logits, cache = step(params, cache, prompts[:, t], pos.fill_(t))
+    return logits, cache
 
 
 def write_slot(cache, row_cache, slot: int):
@@ -131,7 +142,8 @@ def write_slot(cache, row_cache, slot: int):
     in place, cast to the cache's dtype, and return ``cache`` itself.
 
     Every cache tensor of two or more dimensions carries batch on axis 1
-    (layer-stacked KV (L, B, S, nk, hd)); others are shared and kept.
+    (layer-stacked KV (L, B, S, nk, hd), recurrent states); the 0-d ones
+    are shared and kept.
     Writing in place keeps a compiled step's cache handle valid: the row
     lands in the graph's own K / V (:mod:`repro_torch.launch.compiled`).
     A handle whose graph has since taken another cache raises instead:
@@ -216,14 +228,17 @@ class Mixer:
         self.device = params["embed"].device
 
         self.cache = model.init_cache(slots, max_len, device=self.device)
-        for leaf in self.cache["self"].values():
+        for leaf in leaves(self.cache):
             if leaf.ndim >= 2 and leaf.shape[1] != slots:
                 raise NotImplementedError(
                     f"mixer: cache leaf {tuple(leaf.shape)} does not carry "
                     f"the slot axis at position 1; family unsupported")
         self._step_fn = CompiledStep(model)
         self._prefill_fn = functools.partial(model.prefill, max_len=max_len)
-        self._ingest_fn = model.decode_step
+        # batch-1 token ingest for a model without a one-pass prefill
+        # (ring windows, recurrent states): a compiled step of its own key,
+        # the counterpart of the reference's jitted decode_step
+        self._ingest_fn = CompiledStep(model)
 
         # host-side per-slot state
         self.pos = np.zeros(slots, np.int64)        # next decode position

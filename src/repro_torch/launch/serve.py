@@ -4,7 +4,11 @@ execution plane's :class:`~repro_torch.exec.dispatch.CompressedModel`
 (same surface), with per-phase tokens/s reporting.  On the card each
 decode step after a key's first replays a CUDA graph
 (:mod:`repro_torch.launch.compiled`, the counterpart of the reference's
-``jax.jit`` of the step); ``compiled.disable()`` serves it eagerly.
+``jax.jit`` of the step); ``compiled.disable()`` serves it eagerly.  A
+model without a one-pass prefill (its ``prefill`` raises
+``NotImplementedError``: ring windows, the recurrent and encoder-decoder
+families) ingests the prompt token by token through the same compiled
+step, as the reference does with its jitted step.
 
 LEFT-padded ragged prompts are served via ``prompt_pad_id``: each row is
 prefilled alone at its real length, written into its row of a shared cache
@@ -23,13 +27,14 @@ Usage (on the card; ``--device cpu`` runs the plain PyTorch versions)::
       [--mixer --slots 2 --temperature 0.8 --top-k 20 --deadline S] \\
       [--trace PATH] [--metrics PATH] [--device cuda]
 
-``--arch`` takes every config the port serves: chatglm3-6b,
-deepseek-coder-33b, internlm2-20b, pixtral-12b (a dense backbone),
-granite-moe-3b-a800m and qwen3-moe-30b-a3b; the others of
-``repro_torch.configs.list_archs()`` raise ``NotImplementedError``.  A MoE
-prompt must fill whole routing groups, as in the reference: at
-``--reduced`` (groups of 16) ``--mixer`` needs ``--prompt-len 16`` or
-less.
+``--arch`` takes every config of ``repro_torch.configs.list_archs()``.
+gemma3-27b, recurrentgemma-2b, mamba2-780m and whisper-tiny serve dense
+only, as in the reference: ``--compressed`` on them raises the compressed
+plane's ``NotImplementedError``, and ``--mixer`` refuses whisper-tiny (an
+encoder-decoder).  whisper-tiny decodes without encoder frames, as the
+reference's serving loop does.  A MoE prompt must fill whole routing
+groups, as in the reference: at ``--reduced`` (groups of 16) ``--mixer``
+needs ``--prompt-len 16`` or less.
 
 ``--compressed`` co-searches a plan (:func:`_fast_plan`, the reference
 CLI's small budget; ``--plan`` picks the sparsity model it searches under)
@@ -62,8 +67,8 @@ from repro_torch.exec.compress import compress_params, prune_params
 from repro_torch.exec.dispatch import CompressedModel, instrument
 from repro_torch.exec.plans import ExecPlan, build_exec_plan
 from repro_torch.launch.compiled import CompiledStep
-from repro_torch.launch.mixer import (Mixer, Request, prefill_request,
-                                      write_slot)
+from repro_torch.launch.mixer import (Mixer, Request, ingest,
+                                      prefill_request, write_slot)
 from repro_torch.models.transformer import Model
 from repro_torch.obs import metrics as omet
 from repro_torch.obs import trace as otr
@@ -113,6 +118,10 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
     dev = prompts.device
     tid = otr.trace_id()
 
+    # one compiled step (a CUDA graph on the card) decodes, and ingests a
+    # prompt token by token for a model without a one-pass prefill: the
+    # reference's shared jitted step
+    step = CompiledStep(model)
     t0 = time.perf_counter()
     with otr.span("prefill", trace_id=tid, batch=b, plen=plen,
                   ragged=bool(offsets.any())):
@@ -128,22 +137,26 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
                               prompt_len=plen - int(offsets[r])):
                     last, rcache = prefill_request(
                         model, params, prompts[r:r + 1, int(offsets[r]):],
-                        max_len)
+                        max_len, step_fn=step)
                     write_slot(cache, rcache, r)
                 lasts.append(last)
             logits = torch.stack(lasts)
             first = torch.as_tensor(plen - offsets, device=dev)  # per-row
         else:
             first = None                                      # lockstep
-            all_logits, cache = model.prefill(params, prompts, max_len)
-            logits = all_logits[:, -1]
+            try:
+                all_logits, cache = model.prefill(params, prompts, max_len)
+                logits = all_logits[:, -1]
+            except NotImplementedError:
+                # ring windows / hybrid / ssm / encdec: exact decode-path
+                # ingest through the decode's own step
+                logits, cache = ingest(model, params, prompts, max_len, step)
         synchronize(dev)
     t_prefill = time.perf_counter() - t0
 
     out = []                      # int32 tokens, as the reference returns
     tok = logits.argmax(dim=-1)   # int64: the next step's embedding index
     done = torch.zeros(b, dtype=torch.bool, device=dev)  # rows past EOS
-    step = CompiledStep(model)
     pos = torch.empty(() if first is None else (b,), dtype=torch.long,
                       device=dev)
     t1 = time.perf_counter()

@@ -1,5 +1,6 @@
-"""Attention: chunked causal online softmax, single-token decode against a
-KV cache, and the prefill / decode attention blocks.
+"""Attention: chunked online softmax (causal, sliding-window or
+bidirectional), single-token decode against a KV cache or a ring, and the
+prefill / decode attention blocks (self- and cross-attention).
 
 Plain PyTorch mirroring the reference's numerics: score products in the
 compute dtype, scaled by ``1/√D`` rounded to that dtype (:func:`_scale`),
@@ -9,7 +10,6 @@ probabilities cast to the compute dtype before the PV product.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
@@ -31,22 +31,22 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         .reshape(b, s, h * n_rep, d)
 
 
-@functools.lru_cache(maxsize=None)
 def _scale(d: int, dtype: torch.dtype) -> float:
-    """``1/√d`` rounded to ``dtype``.  The reference multiplies its scores
-    (in the compute dtype) by a weakly typed Python float, which JAX
-    rounds to that dtype first; PyTorch would multiply by the fp32
-    constant, so at bf16 some scores would land one ulp off."""
-    return torch.tensor(1.0 / math.sqrt(d), dtype=dtype).item()
+    """``1/√d`` rounded to ``dtype`` (:func:`layers.const`): the reference
+    multiplies its compute-dtype scores by a weakly typed Python float;
+    with the fp32 constant some bf16 scores would land one ulp off."""
+    return L.const(1.0 / math.sqrt(d), dtype)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: int = 0,
                       q_chunk: int = 512, kv_chunk: int = 512
                       ) -> torch.Tensor:
-    """Causal online-softmax attention over KV chunks (prefill: q[i] and
-    k[i] share position i).
+    """Online-softmax attention over KV chunks.
 
-    q: (B, Sq, H, D); k/v: (B, Skv, H, D) (same H after GQA repeat)."""
+    q: (B, Sq, H, D); k/v: (B, Skv, H, D) (same H after GQA repeat); q[i]
+    and k[i] share position i.  ``causal`` masks later keys; ``window`` > 0
+    keeps only the last ``window`` keys of each query (local attention)."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     scale = _scale(d, q.dtype)
@@ -57,17 +57,24 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, sq, q_chunk):
         qi = q[:, q0:q0 + q_chunk]
         qc = qi.shape[1]
-        qpos = torch.arange(q0, q0 + qc, device=dev)
+        qpos = torch.arange(q0, q0 + qc, device=dev)[None, None, :, None]
         m = torch.full((b, h, qc), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((b, h, qc), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, h, qc, d), dtype=torch.float32, device=dev)
         for k0 in range(0, skv, kv_chunk):
             ki = k[:, k0:k0 + kv_chunk]
             vi = v[:, k0:k0 + kv_chunk]
-            kpos = torch.arange(k0, k0 + ki.shape[1], device=dev)
+            kpos = torch.arange(k0, k0 + ki.shape[1],
+                                device=dev)[None, None, None, :]
             s = torch.einsum("bqhd,bkhd->bhqk", qi, ki) * scale
-            mask = kpos[None, None, None, :] <= qpos[None, None, :, None]
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            mask = None
+            if causal:
+                mask = kpos <= qpos
+            if window > 0:
+                near = kpos > qpos - window
+                mask = near if mask is None else mask & near
+            if mask is not None:
+                s = torch.where(mask, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1).float())
             p = torch.exp(s.float() - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -138,20 +145,32 @@ def decode_attention_gqa(q: torch.Tensor, k_cache: torch.Tensor,
 
 def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
                     freqs: Optional[torch.Tensor], positions: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    kv_override: Optional[tuple] = None,
                     return_kv: bool = False):
-    """Causal prefill self-attention over a full sequence.
+    """Prefill attention over a full sequence: self-attention (``causal``,
+    a local ``window``), or cross-attention to ``kv_override[0]`` (its
+    keys take no RoPE; the encoder-decoder's decoder).
 
     ``return_kv=True`` also returns the post-RoPE, pre-GQA-repeat (K, V):
     what :func:`attention_decode_block` writes into the decode cache."""
     b, s, _ = x.shape
     nh, nk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.proj(x, p["wq"], "attn.wq").reshape(b, s, nh, hd)
-    k = L.proj(x, p["wk"], "attn.wk").reshape(b, s, nk, hd)
-    v = L.proj(x, p["wv"], "attn.wv").reshape(b, s, nk, hd)
-    k = L.apply_rope(k, positions, freqs)
+    if kv_override is None:
+        k = L.proj(x, p["wk"], "attn.wk").reshape(b, s, nk, hd)
+        v = L.proj(x, p["wv"], "attn.wv").reshape(b, s, nk, hd)
+        k = L.apply_rope(k, positions, freqs)
+    else:
+        assert not return_kv, "return_kv only applies to self-attention"
+        xkv = kv_override[0]
+        skv = xkv.shape[1]
+        k = L.proj(xkv, p["wk"], "attn.wk").reshape(b, skv, nk, hd)
+        v = L.proj(xkv, p["wv"], "attn.wv").reshape(b, skv, nk, hd)
     q = L.apply_rope(q, positions, freqs)
     rep = nh // max(nk, 1)
-    o = chunked_attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep))
+    o = chunked_attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                          causal=causal, window=window)
     out = L.proj(o.reshape(b, s, nh * hd), p["wo"], "attn.wo")
     if return_kv:
         return out, k, v
@@ -160,20 +179,25 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
 def attention_decode_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
                            freqs: Optional[torch.Tensor], pos: torch.Tensor,
-                           k_cache: torch.Tensor, v_cache: torch.Tensor
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           cache_pos: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Single-token attention step.
 
-    x: (B, d); caches (B, S, Hkv, D) are written IN PLACE at ``pos`` (the
-    reference returns updated copies; writing into the caller's cache saves
-    a cache-sized copy per layer per token; with no sliding window the
-    cache position is the token position; the reference's ``maskedkv``
-    blend writes the same values).  ``pos`` is a scalar (lockstep batch)
-    or a (B,) per-row vector.  Under the ``gqagroup`` flag the attention
-    is :func:`decode_attention_gqa`, else :func:`decode_attention` over
-    the repeated caches.  Returns the block output (B, d)."""
+    x: (B, d); caches (B, S, Hkv, D) are written IN PLACE at ``cache_pos``
+    (the reference returns updated copies; writing into the caller's cache
+    saves a cache-sized copy per layer per token; the reference's
+    ``maskedkv`` blend writes the same values).  ``cache_pos`` is the ring
+    slot of a sliding-window cache, ``pos % S``; it defaults to ``pos``
+    (a full cache).  ``pos`` / ``cache_pos`` are scalars (lockstep batch)
+    or (B,) per-row vectors.  The valid length is ``min(pos + 1, S)``.
+    Under the ``gqagroup`` flag the attention is
+    :func:`decode_attention_gqa`, else :func:`decode_attention` over the
+    repeated caches.  Returns the block output (B, d)."""
     b, _ = x.shape
     nh, nk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cache_pos is None:
+        cache_pos = pos
     q = L.proj(x, p["wq"], "attn.wq")
     k = L.proj(x, p["wk"], "attn.wk")
     v = L.proj(x, p["wv"], "attn.wv")
@@ -184,8 +208,8 @@ def attention_decode_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     rows = torch.arange(b, device=x.device)
     # index_put_, not ``k_cache[rows, pos] = ...``: Python indexing reads a
     # 0-d index tensor back to the host
-    k_cache.index_put_((rows, pos), k.to(k_cache.dtype))
-    v_cache.index_put_((rows, pos), v.to(v_cache.dtype))
+    k_cache.index_put_((rows, cache_pos), k.to(k_cache.dtype))
+    v_cache.index_put_((rows, cache_pos), v.to(v_cache.dtype))
     length = torch.clamp(pos + 1, max=k_cache.shape[1])
     if optflags.enabled("gqagroup"):
         o = decode_attention_gqa(q, k_cache, v_cache, length)

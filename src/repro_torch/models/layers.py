@@ -12,6 +12,7 @@ torch.float32)`` switches the whole port to fp32.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any, Optional
 
@@ -43,6 +44,12 @@ def set_proj_hook(fn) -> None:
     _PROJ_HOOK = fn
 
 
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the compute dtype: the reference's plain einsums (the
+    recurrent blocks, cross-attention's decode), which no plan dispatches."""
+    return torch.matmul(x, w.to(COMPUTE_DTYPE))
+
+
 def proj(x: torch.Tensor, w: torch.Tensor, role: str) -> torch.Tensor:
     """``x @ w`` over the last axis of ``x`` (w is ``(d_in, d_out)``),
     dispatchable per ``role``."""
@@ -50,7 +57,7 @@ def proj(x: torch.Tensor, w: torch.Tensor, role: str) -> torch.Tensor:
         y = _PROJ_HOOK(x, w, role)
         if y is not None:
             return y
-    return torch.matmul(x, w.to(COMPUTE_DTYPE))
+    return dense(x, w)
 
 
 _PROJ = proj
@@ -93,6 +100,23 @@ def _init(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
     return w.div_(math.sqrt(max(fan_in, 1)))
 
 
+def init_scaled(gen: torch.Generator, lead, shape, scale_axis: int = 0
+                ) -> torch.Tensor:
+    """The reference's ``_init(key, shape, scale_axis)`` under leading
+    (layer) dims ``lead``: fan-in is ``shape[scale_axis]`` of the unstacked
+    weight (axis 0 by default: ``(d_in, d_out)`` weights and the depthwise
+    conv taps ``(K, C)`` alike)."""
+    return _init(gen, tuple(lead) + tuple(shape), shape[scale_axis])
+
+
+@functools.lru_cache(maxsize=None)
+def const(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: the reference multiplies its
+    compute-dtype arrays by weakly typed Python constants, which JAX rounds
+    to that dtype first; PyTorch would use the fp32 constant."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """RMS norm scaling by ``(1 + weight)`` (zero-initialised weight)."""
@@ -101,6 +125,30 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dt)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along S: x (B, S, C), w (K, C), each tap's
+    product and running sum rounded to ``x``'s dtype in the reference's
+    order (the RG-LRU and SSD blocks)."""
+    k, s = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + s, :] * w[i]
+    return out
+
+
+def conv_step(conv_state: torch.Tensor, x: torch.Tensor, w: torch.Tensor
+              ) -> torch.Tensor:
+    """One decode step of :func:`causal_conv`: the last K - 1 inputs in
+    ``conv_state`` (B, K - 1, C) and the new one x (B, C) against w (K,
+    C).  The K taps' exact products are summed in fp32 and rounded once,
+    as the reference's einsum; ``conv_state`` moves on by one, in place."""
+    window = torch.cat([conv_state, x[:, None, :]], dim=1)
+    out = (window.float() * w.float()).sum(dim=1).to(x.dtype)
+    conv_state.copy_(window[:, 1:, :])
+    return out
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -162,12 +210,35 @@ def mlp_params(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
     }
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``σ(x) = 1 / (1 + exp(-x))`` as three ops, each rounded to ``x``'s
+    dtype: how XLA expands the reference's ``jax.nn.sigmoid``
+    (``lax.logistic``).  ``torch.sigmoid`` rounds once, which at bf16
+    leaves many values one ulp away from the reference's."""
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x · σ(x)`` with ``σ(x) = 1 / (1 + exp(-x))`` as four ops, each
-    rounded to ``x``'s dtype: how XLA expands the reference's
-    ``jax.nn.silu``.  ``torch.nn.functional.silu`` rounds once, which at
-    bf16 leaves many values one ulp away from the reference's."""
-    return x * torch.reciprocal(1.0 + torch.exp(-x))
+    """``x · σ(x)`` with :func:`sigmoid`'s rounding: four rounded ops, as
+    XLA expands the reference's ``jax.nn.silu``."""
+    return x * sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, ``jax.nn.gelu``'s default (not
+    ``F.gelu``'s), op by op as the reference writes it:
+    ``x · 0.5 (1 + tanh(√(2/π) (x + 0.044715 x·x·x)))`` with both
+    constants rounded to ``x``'s dtype and every op rounded to it."""
+    dt = x.dtype
+    inner = x + const(0.044715, dt) * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(const(math.sqrt(2 / math.pi), dt)
+                                        * inner)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) +
+    log1p(exp(-|x|))``.  ``F.softplus`` returns ``x`` itself above 20."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:

@@ -1,21 +1,39 @@
-"""Model assembly for the uniform attention stacks: the families
-``dense``, ``moe`` and ``vlm`` (a dense backbone; the vision frontend is a
-stub in the reference too) without a ``hybrid`` layer pattern.
+"""Model assembly for every family of the reference's registry.
 
 The reference scans stacked layer params with ``lax.scan``; the port runs
-the same stacked layout with a Python loop over the layer axis, publishing
-each layer's index through :func:`repro_torch.models.layers.layer_ctx` so
-the execution plane's projection hook can resolve per-layer compressed
-weights.  The other known families (``ssm``, ``hybrid``, ``encdec``) and
-sliding-window attention raise ``NotImplementedError``; an unknown family
-raises the reference's ``ValueError``.  Nothing is served as another
-family.
+the same stacked layouts with Python loops over the layer axes:
+
+* the uniform attention stacks (``dense``, ``moe``, ``vlm`` without a
+  ``hybrid`` pattern; a ``window`` makes their attention local): ``blocks``
+  stacked ``(L, ...)``.  Each layer's index is published through
+  :func:`repro_torch.models.layers.layer_ctx`, so the execution plane's
+  projection hook resolves per-layer compressed weights;
+* gemma3 (5 local : 1 global, ring caches for the local layers):
+  ``super/{local (n_super, 5, ...), global (n_super, ...)}`` and ``tail``;
+* the hybrid recurrentgemma (RG-LRU : local attention, 2 : 1):
+  ``super/{rec1, rec2, attn}`` and ``tail`` of recurrent layers;
+* ``ssm`` (Mamba-2): ``blocks`` without ``ln2`` (no FFN);
+* ``encdec`` (whisper): a bidirectional ``enc_blocks`` stack, ``enc_norm``
+  and decoder ``blocks`` with cross-attention (``cross``, ``ln3``).
+
+Only the uniform stacks without a window have a one-pass ``prefill``, as
+in the reference; the others ingest a prompt token by token through
+``decode_step`` (:mod:`repro_torch.launch.serve`).  Every decode step
+writes its cache leaves in place and reads nothing back to the host, so a
+CUDA graph captures it for every family (:mod:`repro_torch.launch.compiled`).
+
+Two behaviours are the reference's and kept as they are: a uniform stack
+with a ``window`` gets a ``max_len``-long cache (its decode attends over
+the whole prefix, while ``hidden_states`` masks to the window), and the
+encoder-decoder's decode cross-attends to the zero ``cross`` cache that
+``init_cache`` makes and nothing fills, with no positions at all (its
+``rope_fraction`` is 0 and decode adds no sinusoid).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -25,6 +43,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import optflags
+from repro_torch.models import rglru as rg
+from repro_torch.models import ssm as ssm_mod
 
 PyTree = Any
 
@@ -42,21 +62,19 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _uniform_stack(cfg: ModelConfig) -> bool:
     """True when the model is one homogeneous attention stack (the
-    families the port serves)."""
+    families with a one-pass prefill and a compressed plane)."""
     return cfg.family in ("dense", "moe", "vlm") and cfg.hybrid is None
+
+
+def _gemma3(cfg: ModelConfig) -> bool:
+    """The reference picks gemma3's local/global layout by name."""
+    return cfg.name.startswith("gemma3")
 
 
 def _unserved(cfg: ModelConfig) -> str | None:
     """Why the port does not serve ``cfg``, or None when it does: the one
-    rule that the model and the compressed plane
+    refusal of the port's own, which the model and the compressed plane
     (:mod:`repro_torch.exec.compress`) both apply."""
-    if not _uniform_stack(cfg):
-        return (f"{cfg.name}: family={cfg.family!r} hybrid={cfg.hybrid!r} "
-                f"is not ported yet (ROADMAP Queue 1 item 9); the port "
-                f"serves the uniform attention stacks (dense, moe, vlm)")
-    if cfg.window:
-        return (f"{cfg.name}: sliding-window (ring cache) attention is not "
-                f"ported yet (window={cfg.window}; ROADMAP Queue 1 item 9)")
     if cfg.family == "moe" and cfg.moe is None:
         return (f"{cfg.name}: family='moe' without a moe block would serve "
                 f"a dense FFN")
@@ -76,26 +94,84 @@ def _ffn_apply(x, p, cfg: ModelConfig):
     return L.mlp(x, p)
 
 
-def _layer(params: PyTree, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked ``blocks`` tree (views)."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[i]
-    return take(params["blocks"])
+def _take(tree: PyTree, i: int) -> PyTree:
+    """Index ``i`` of the leading axis of every leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
-def _attn_layer(x, p, cfg: ModelConfig, freqs, positions,
-                return_kv: bool = False):
+def _attn_layer(x, p, cfg: ModelConfig, freqs, positions, causal=True,
+                window=0, kv_override=None, return_kv: bool = False):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     a = attn.attention_block(h, p["attn"], cfg, freqs, positions,
+                             causal=causal, window=window,
                              return_kv=return_kv)
     if return_kv:
         a, k, v = a
     x = x + a
+    if kv_override is not None:
+        h = L.rms_norm(x, p["ln3"], cfg.norm_eps)
+        x = x + attn.attention_block(h, p["cross"], cfg, None, positions,
+                                     causal=False, kv_override=kv_override)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     out = x + _ffn_apply(h, p["ffn"], cfg)
     if return_kv:
         return out, k, v
+    return out
+
+
+def _rec_layer(x, p, cfg: ModelConfig):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, _, _ = rg.rglru_block(h, p["rec"], cfg)
+    x = x + y
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp(h, p["ffn"])
+
+
+def _ssm_layer(x, p, cfg: ModelConfig):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, _ = ssm_mod.ssm_block(h, p["ssm"], cfg)
+    return x + y
+
+
+def _sinusoid(s: int, d: int, device) -> torch.Tensor:
+    """(1, s, d) sin / cos position table in the compute dtype."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, dim / d)
+    pe = torch.zeros((s, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe[None].to(L.COMPUTE_DTYPE)
+
+
+def _kv_leaves(tree: PyTree):
+    """Every ``{"k", "v"}`` dict of a cache tree, and every other tensor."""
+    if isinstance(tree, dict):
+        if set(tree) == {"k", "v"}:
+            yield True, tree["k"]
+            yield True, tree["v"]
+            return
+        for v in tree.values():
+            yield from _kv_leaves(v)
+    else:
+        yield False, tree
+
+
+def step_writes(cache: PyTree, pos: int) -> list[torch.Tensor]:
+    """Views of everything a lockstep decode step at ``pos`` writes in
+    ``cache``: each K / V leaf's slot ``pos % S`` (a ring's slot, or
+    ``pos`` itself in a full cache) and every other leaf of two or more
+    dimensions whole (the recurrent states and conv tails).  A copy of
+    them taken before the step is all it takes to undo it
+    (:mod:`repro_torch.runtime.guard`)."""
+    out = []
+    for kv, t in _kv_leaves(cache):
+        if kv:
+            out.append(t[:, :, pos % t.shape[2]])
+        elif t.ndim >= 2:
+            out.append(t)
     return out
 
 
@@ -112,47 +188,139 @@ class Model:
         optflags.check_served(self.cfg.n_heads)
 
     # ---------------- params ----------------
+    def _layer_params(self, gen, kind: str, lead) -> dict:
+        cfg = self.cfg
+        lead = tuple(lead)
+        zeros = dict(dtype=L.PARAM_DTYPE, device=gen.device)
+        p: dict = {"ln1": torch.zeros(lead + (cfg.d_model,), **zeros),
+                   "ln2": torch.zeros(lead + (cfg.d_model,), **zeros)}
+        if kind in ("attn", "cross"):
+            p["attn"] = L.attn_params(gen, cfg, lead=lead)
+            if kind == "cross":
+                p["cross"] = L.attn_params(gen, cfg, lead=lead)
+                p["ln3"] = torch.zeros(lead + (cfg.d_model,), **zeros)
+            p["ffn"] = (moe_mod.moe_params if cfg.moe else L.mlp_params)(
+                gen, cfg, lead=lead)
+        elif kind == "rec":
+            p["rec"] = rg.rglru_params(gen, cfg, lead=lead)
+            p["ffn"] = L.mlp_params(gen, cfg, lead=lead)
+        elif kind == "ssm":
+            p["ssm"] = ssm_mod.ssm_params(gen, cfg, lead=lead)
+            del p["ln2"]
+        else:
+            raise ValueError(kind)
+        return p
+
     def init(self, seed: int = 0, device="cuda") -> PyTree:
         """Random params drawn on ``device`` from a seeded
-        ``torch.Generator`` (normal / sqrt(fan_in), zero norms), stacked
-        along a leading layer axis like the reference's pytree (a MoE
-        layer's ``ffn`` holds the router ``(L, d, E)`` and the experts
-        ``(L, E, d, f)`` / ``(L, E, f, d)``)."""
+        ``torch.Generator`` (normal / sqrt(fan_in), zero norms), in the
+        reference's tree: layers stacked along leading axes (gemma3's
+        local layers ``(n_super, 5, ...)``), a MoE layer's ``ffn`` the
+        router ``(L, d, E)`` and the experts ``(L, E, d, f)`` /
+        ``(L, E, f, d)``."""
         self._check_flags()
         cfg = self.cfg
         dev = resolve(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        d, nl = cfg.d_model, cfg.n_layers
-        zeros = dict(dtype=L.PARAM_DTYPE, device=dev)
-        return {
+        d = cfg.d_model
+        params: dict = {
             "embed": L._init(gen, (cfg.vocab, d), d),
-            "final_norm": torch.zeros((d,), **zeros),
-            "blocks": {
-                "ln1": torch.zeros((nl, d), **zeros),
-                "ln2": torch.zeros((nl, d), **zeros),
-                "attn": L.attn_params(gen, cfg, lead=(nl,)),
-                "ffn": (moe_mod.moe_params if cfg.moe else L.mlp_params)(
-                    gen, cfg, lead=(nl,)),
-            },
+            "final_norm": torch.zeros((d,), dtype=L.PARAM_DTYPE, device=dev),
         }
+        if _uniform_stack(cfg):
+            params["blocks"] = self._layer_params(gen, "attn",
+                                                  (cfg.n_layers,))
+        elif _gemma3(cfg):
+            n_super = (cfg.n_layers - len(cfg.hybrid.tail)) // 6
+            params["super"] = {
+                "local": self._layer_params(gen, "attn", (n_super, 5)),
+                "global": self._layer_params(gen, "attn", (n_super,))}
+            params["tail"] = self._layer_params(
+                gen, "attn", (len(cfg.hybrid.tail),))
+        elif cfg.family == "hybrid":
+            n_super = (cfg.n_layers - len(cfg.hybrid.tail)) // 3
+            params["super"] = {
+                "rec1": self._layer_params(gen, "rec", (n_super,)),
+                "rec2": self._layer_params(gen, "rec", (n_super,)),
+                "attn": self._layer_params(gen, "attn", (n_super,))}
+            params["tail"] = self._layer_params(
+                gen, "rec", (len(cfg.hybrid.tail),))
+        elif cfg.family == "ssm":
+            params["blocks"] = self._layer_params(gen, "ssm",
+                                                  (cfg.n_layers,))
+        elif cfg.family == "encdec":
+            params["enc_blocks"] = self._layer_params(gen, "attn",
+                                                      (cfg.enc_layers,))
+            params["blocks"] = self._layer_params(gen, "cross",
+                                                  (cfg.n_layers,))
+            params["enc_norm"] = torch.zeros((d,), dtype=L.PARAM_DTYPE,
+                                             device=dev)
+        else:
+            raise ValueError(cfg.family)
+        return params
 
     # ---------------- forward ----------------
-    def hidden_states(self, params: PyTree, tokens: torch.Tensor
+    def hidden_states(self, params: PyTree, tokens: torch.Tensor,
+                      enc_frames: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
+        """The final-normed hidden states (B, S, d) of a full sequence;
+        the encoder-decoder also takes its encoder frames (B, enc_seq,
+        d)."""
         self._check_flags()
         cfg = self.cfg
+        dev = tokens.device
         s = tokens.shape[1]
         x = L.embed(tokens, params["embed"])
-        positions = torch.arange(s, device=tokens.device)
-        freqs = L.rope_freqs(cfg, tokens.device)
-        for i in range(cfg.n_layers):
-            with L.layer_ctx(i):
-                x = _attn_layer(x, _layer(params, i), cfg, freqs, positions)
+        positions = torch.arange(s, device=dev)
+        freqs = L.rope_freqs(cfg, dev)
+        if cfg.family == "encdec":
+            assert enc_frames is not None, "encdec needs encoder frames"
+            enc = enc_frames.to(L.COMPUTE_DTYPE) + _sinusoid(
+                cfg.enc_seq, cfg.d_model, dev)
+            enc_pos = torch.arange(cfg.enc_seq, device=dev)
+            for i in range(cfg.enc_layers):
+                enc = _attn_layer(enc, _take(params["enc_blocks"], i), cfg,
+                                  None, enc_pos, causal=False)
+            enc = L.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+            x = x + _sinusoid(s, cfg.d_model, dev)
+            for i in range(cfg.n_layers):
+                x = _attn_layer(x, _take(params["blocks"], i), cfg, None,
+                                positions, kv_override=(enc, enc))
+        elif _gemma3(cfg):
+            sup = params["super"]
+            for i in range(sup["global"]["ln1"].shape[0]):
+                local = _take(sup["local"], i)
+                for j in range(5):
+                    x = _attn_layer(x, _take(local, j), cfg, freqs,
+                                    positions, window=cfg.window)
+                x = _attn_layer(x, _take(sup["global"], i), cfg, freqs,
+                                positions)
+            for i in range(params["tail"]["ln1"].shape[0]):
+                x = _attn_layer(x, _take(params["tail"], i), cfg, freqs,
+                                positions, window=cfg.window)
+        elif cfg.family == "hybrid":
+            sup = params["super"]
+            for i in range(sup["attn"]["ln1"].shape[0]):
+                x = _rec_layer(x, _take(sup["rec1"], i), cfg)
+                x = _rec_layer(x, _take(sup["rec2"], i), cfg)
+                x = _attn_layer(x, _take(sup["attn"], i), cfg, freqs,
+                                positions, window=cfg.window)
+            for i in range(params["tail"]["ln1"].shape[0]):
+                x = _rec_layer(x, _take(params["tail"], i), cfg)
+        elif cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                x = _ssm_layer(x, _take(params["blocks"], i), cfg)
+        else:
+            for i in range(cfg.n_layers):
+                with L.layer_ctx(i):
+                    x = _attn_layer(x, _take(params["blocks"], i), cfg,
+                                    freqs, positions, window=cfg.window)
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
-    def logits(self, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.hidden_states(params, tokens)
+    def logits(self, params: PyTree, tokens: torch.Tensor,
+               enc_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.hidden_states(params, tokens, enc_frames)
         return torch.matmul(
             x, params["embed"].to(L.COMPUTE_DTYPE).t()).float()
 
@@ -162,9 +330,14 @@ class Model:
         """Full-sequence forward that also fills a fresh decode cache with
         each layer's post-RoPE, pre-GQA-repeat (K, V), so
         ``decode_step(pos=s)`` continues seamlessly.  Returns
-        (logits (B, S, V) float32, cache)."""
+        (logits (B, S, V) float32, cache).  Uniform full-attention stacks
+        only, as in the reference: ring windows and the recurrent and
+        encoder-decoder families ingest token by token."""
         self._check_flags()
         cfg = self.cfg
+        if not _uniform_stack(cfg) or cfg.window:
+            raise NotImplementedError(
+                "prefill: uniform full-attention stacks only")
         b, s = tokens.shape
         if s > max_len:
             raise ValueError(f"prompt ({s}) exceeds max_len ({max_len})")
@@ -174,8 +347,8 @@ class Model:
         freqs = L.rope_freqs(cfg, tokens.device)
         for i in range(cfg.n_layers):
             with L.layer_ctx(i):
-                x, k, v = _attn_layer(x, _layer(params, i), cfg, freqs,
-                                      positions, return_kv=True)
+                x, k, v = _attn_layer(x, _take(params["blocks"], i), cfg,
+                                      freqs, positions, return_kv=True)
             cache["self"]["k"][i, :, :s] = k
             cache["self"]["v"][i, :, :s] = v
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -184,15 +357,56 @@ class Model:
         return logits, cache
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> PyTree:
-        """Zeroed KV cache ``{"self": {"k", "v"}}`` of shape
-        (L, B, max_len, n_kv_heads, head_dim) in the compute dtype."""
+        """Zeroed decode caches in the compute dtype, in the reference's
+        layouts (K / V leaves (L, B, S, n_kv_heads, head_dim)):
+
+        * uniform stacks: ``{"self": {k, v}}``, ``max_len`` long (a
+          ``window`` too, as in the reference);
+        * gemma3: ``{"local": {k, v}}`` rings of ``min(window, max_len)``
+          for its 5·n_super + 2 local layers, ``{"global": {k, v}}`` full;
+        * hybrid: ``{"attn": {k, v}}`` rings, the RG-LRU states ``h``
+          (L_rec, B, d) and conv tails ``conv`` (L_rec, B, 3, d);
+        * ssm: ``state`` (L, B, heads, head_dim, d_state) and ``conv``
+          (L, B, d_conv - 1, channels);
+        * encdec: ``self`` and ``cross`` (``enc_seq`` long) K / V and the
+          0-d ``cross_ready`` (int32)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, max(cfg.n_kv_heads, 1),
-                 cfg.head_dim)
+        _check_family(cfg)
         dev = resolve(device)
-        return {"self": {
-            "k": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=dev),
-            "v": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=dev)}}
+        dt = L.COMPUTE_DTYPE
+        hd, nk = cfg.head_dim, max(cfg.n_kv_heads, 1)
+
+        def zeros(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def kv(n_layers, length):
+            return {"k": zeros(n_layers, batch, length, nk, hd),
+                    "v": zeros(n_layers, batch, length, nk, hd)}
+
+        if cfg.family == "ssm":
+            s = cfg.ssm
+            d_in = cfg.d_model * s.expand
+            nh = d_in // s.head_dim
+            return {"state": zeros(cfg.n_layers, batch, nh, s.head_dim,
+                                   s.d_state),
+                    "conv": zeros(cfg.n_layers, batch, s.d_conv - 1,
+                                  d_in + 2 * s.d_state)}
+        if _gemma3(cfg):
+            n_super = (cfg.n_layers - 2) // 6
+            return {"local": kv(n_super * 5 + 2, min(cfg.window, max_len)),
+                    "global": kv(n_super, max_len)}
+        if cfg.family == "hybrid":
+            n_super = (cfg.n_layers - 2) // 3
+            win = min(cfg.window, max_len) if cfg.window else max_len
+            n_rec = n_super * 2 + 2
+            return {"attn": kv(n_super, win),
+                    "h": zeros(n_rec, batch, cfg.d_model),
+                    "conv": zeros(n_rec, batch, rg.CONV_K - 1, cfg.d_model)}
+        if cfg.family == "encdec":
+            return {"self": kv(cfg.n_layers, max_len),
+                    "cross": kv(cfg.n_layers, cfg.enc_seq),
+                    "cross_ready": zeros(dtype=torch.int32)}
+        return {"self": kv(cfg.n_layers, max_len)}
 
     def decode_step(self, params: PyTree, cache: PyTree,
                     tokens: torch.Tensor, pos) -> tuple[torch.Tensor, PyTree]:
@@ -204,7 +418,9 @@ class Model:
         can capture it (:mod:`repro_torch.launch.compiled`)."""
         self._check_flags()
         cfg = self.cfg
-        pos = torch.as_tensor(pos, device=tokens.device)
+        _check_family(cfg)
+        dev = tokens.device
+        pos = torch.as_tensor(pos, device=dev)
         if pos.ndim not in (0, 1) or \
                 (pos.ndim == 1 and pos.shape[0] != tokens.shape[0]):
             raise ValueError(
@@ -212,16 +428,85 @@ class Model:
                 f"matching the batch ({tokens.shape[0]},); got "
                 f"{tuple(pos.shape)}")
         x = params["embed"][tokens].to(L.COMPUTE_DTYPE)
-        freqs = L.rope_freqs(cfg, tokens.device)
-        kc, vc = cache["self"]["k"], cache["self"]["v"]
-        for i in range(cfg.n_layers):
-            p = _layer(params, i)
-            with L.layer_ctx(i):
+        freqs = L.rope_freqs(cfg, dev)
+
+        def attn_step(h, p, kc, vc, cache_pos):
+            hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+            h = h + attn.attention_decode_block(hn, p["attn"], cfg, freqs,
+                                                pos, kc, vc, cache_pos)
+            hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+            return h + (moe_mod.moe_decode(hn, p["ffn"], cfg) if cfg.moe
+                        else L.mlp(hn, p["ffn"]))
+
+        def rec_step(h, p, i):
+            hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+            h = h + rg.rglru_decode(hn, p["rec"], cfg, cache["h"][i],
+                                    cache["conv"][i])
+            hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+            return h + L.mlp(hn, p["ffn"])
+
+        if cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                p = _take(params["blocks"], i)
                 hn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-                x = x + attn.attention_decode_block(
-                    hn, p["attn"], cfg, freqs, pos, kc[i], vc[i])
+                x = x + ssm_mod.ssm_decode(hn, p["ssm"], cfg,
+                                           cache["state"][i],
+                                           cache["conv"][i])
+        elif _gemma3(cfg):
+            lk, lv = cache["local"]["k"], cache["local"]["v"]
+            gk, gv = cache["global"]["k"], cache["global"]["v"]
+            win = lk.shape[2]
+            lpos = pos % win if win > 0 else torch.zeros_like(pos)
+            n_super = gk.shape[0]
+            sup = params["super"]
+            for i in range(n_super):
+                local = _take(sup["local"], i)
+                for j in range(5):
+                    li = i * 5 + j
+                    x = attn_step(x, _take(local, j), lk[li], lv[li], lpos)
+                x = attn_step(x, _take(sup["global"], i), gk[i], gv[i], pos)
+            for t in range(params["tail"]["ln1"].shape[0]):
+                li = n_super * 5 + t
+                x = attn_step(x, _take(params["tail"], t), lk[li], lv[li],
+                              lpos)
+        elif cfg.family == "hybrid":
+            ak, av = cache["attn"]["k"], cache["attn"]["v"]
+            apos = pos % ak.shape[2]
+            n_super = ak.shape[0]
+            sup = params["super"]
+            for i in range(n_super):
+                x = rec_step(x, _take(sup["rec1"], i), 2 * i)
+                x = rec_step(x, _take(sup["rec2"], i), 2 * i + 1)
+                x = attn_step(x, _take(sup["attn"], i), ak[i], av[i], apos)
+            for t in range(params["tail"]["ln1"].shape[0]):
+                x = rec_step(x, _take(params["tail"], t), 2 * n_super + t)
+        elif cfg.family == "encdec":
+            sk, sv = cache["self"]["k"], cache["self"]["v"]
+            ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+            rep = cfg.n_heads // max(cfg.n_kv_heads, 1)
+            # every encoder position is valid
+            enc_len = torch.full((), ck.shape[2], dtype=torch.long,
+                                 device=dev)
+            for i in range(cfg.n_layers):
+                p = _take(params["blocks"], i)
+                hn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+                x = x + attn.attention_decode_block(hn, p["attn"], cfg, freqs,
+                                                    pos, sk[i], sv[i])
+                hn = L.rms_norm(x, p["ln3"], cfg.norm_eps)
+                q = L.dense(hn, p["cross"]["wq"])
+                q = q.reshape(-1, cfg.n_heads, cfg.head_dim)
+                y = attn.decode_attention(q, attn._repeat_kv(ck[i], rep),
+                                          attn._repeat_kv(cv[i], rep),
+                                          enc_len)
+                x = x + L.dense(y.reshape(y.shape[0], -1), p["cross"]["wo"])
                 hn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-                x = x + (moe_mod.moe_decode(hn, p["ffn"], cfg) if cfg.moe
-                         else L.mlp(hn, p["ffn"]))
+                x = x + L.mlp(hn, p["ffn"])
+        else:
+            kc, vc = cache["self"]["k"], cache["self"]["v"]
+            cache_pos = pos % kc.shape[2] if cfg.window else pos
+            for i in range(cfg.n_layers):
+                with L.layer_ctx(i):
+                    x = attn_step(x, _take(params["blocks"], i), kc[i],
+                                  vc[i], cache_pos)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return L.logits_head(x, params["embed"]), cache

@@ -40,22 +40,28 @@ loop (:mod:`repro_torch.launch.serve`) with the robustness layer:
 On the card the decode steps replay CUDA graphs
 (:class:`repro_torch.launch.compiled.CompiledStep`), as in the unguarded
 loop: a healthy guarded run launches what an unguarded one does.  The
-step writes K / V at its position in place (the reference jits the guarded
-step without donation, so its pre-step cache survives a retry): a retry
-of position ``pos`` rewrites that slot in every layer before any layer
-reads it, so it repeats exactly, and the dense model's step, on a dense
-switch, takes the compressed graph's cache (one copy into its own graph)
-and rewrites ``pos`` the same way.  Every earlier position stays as the
-compressed steps wrote it.  The one host read a step takes the finite
-check of its logits and, with ``eos_id``, whether every row is done once
-its token is in.  The host takes it only after it has enqueued the next
-decode step on this step's greedy token, so the card does not idle while
-the host reads the check and launches the next graph.  A step that fails
-discards that next step and zeroes the K / V it wrote at ``pos + 1``, as
-they were before it (the attention multiplies a masked position's V by a
-zero weight, which a NaN there would survive); a stop on EOS or the
-deadline.  A discarded step's kernel launches are counted, as they ran.
-The prefill runs eagerly (the reference jits it).
+step writes its cache in place, where the reference jits the guarded step
+without donation, so that its pre-step cache survives a retry.  Before
+each step the guard therefore copies, on the device, what the step will
+write (:func:`repro_torch.models.transformer.step_writes`: every K / V
+leaf's slot at the step's position or ring slot, and the recurrent states
+whole), and a failed step puts it back: the retry, and the dense model's
+step on a dense switch (which takes the compressed graph's cache, one
+copy into its own graph), restart from the cache as it was before the
+step.  That matters beyond K / V at ``pos``, which a repeat rewrites
+anyway: a recurrent state advanced by the failed step would advance
+twice, and a ring's slot overwritten past its wrap still held a key in
+the window.  The one host read a step takes the finite check of its
+logits and, with ``eos_id``, whether every row is done once its token is
+in.  The host takes it only after it has enqueued the next decode step on
+this step's greedy token, so the card does not idle while the host reads
+the check and launches the next graph.  A step that fails discards that
+next step and puts back what it wrote too (a NaN it wrote at a masked
+position would survive the attention's zero weight); a stop on EOS or the
+deadline discards it as well.  A discarded step's kernel launches are
+counted, as they ran.  The prefill runs eagerly (the reference jits it); a model
+without one ingests the prompt token by token through the same guarded
+step.
 
 Everything observable lands in the :class:`HealthReport` returned
 alongside the tokens; its :meth:`HealthReport.stable_dict` projection
@@ -76,6 +82,7 @@ import torch
 
 from repro_torch.device import resolve, synchronize
 from repro_torch.kernels import ops as kops
+from repro_torch.models.transformer import step_writes
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import fault, integrity
@@ -304,9 +311,24 @@ def _drive(cm, dense, params, prompts: torch.Tensor, gen: int, max_len: int,
     all_done = False                  # the last checked step's EOS flag
 
     def launch(fn, cache, tok, pos: int):
-        """Enqueue one step: (logits, cache, event after its checks)."""
+        """Enqueue one step: (logits, cache, event after its checks,
+        undo).  ``undo()`` puts back what the step wrote: it writes its
+        cache in place, and neither a recurrent state's advance nor a
+        ring's overwrite of a key still in the window repeats cleanly."""
+        saved = [t.clone() for t in step_writes(cache, pos)]
+
+        def undo(nc=None):
+            for tree in (cache,) if nc is None or nc is cache \
+                    else (nc, cache):
+                for dst, src in zip(step_writes(tree, pos), saved):
+                    dst.copy_(src)
+
         pos_t.fill_(pos)
-        lg, nc = fn(params, cache, tok, pos_t)
+        try:
+            lg, nc = fn(params, cache, tok, pos_t)
+        except BaseException:
+            undo()
+            raise
         flags[pos % 2, 0].copy_(torch.isfinite(lg).all(), non_blocking=True)
         if eos_id is not None:
             # ``done`` holds at least the EOS of every token before ``tok``
@@ -320,30 +342,35 @@ def _drive(cm, dense, params, prompts: torch.Tensor, gen: int, max_len: int,
         if dev.type == "cuda":
             ev = torch.cuda.Event()
             ev.record()
-        return lg, nc, ev
+        return lg, nc, ev, lambda: undo(nc)
 
     def attempt(fn, cache, tok, pos: int, speculate: bool):
         nonlocal ahead, all_done
         if ahead is not None and ahead[0] == pos and ahead[1] is fn:
-            lg, nc, ev = ahead[2]
+            lg, nc, ev, undo = ahead[2]
         else:
-            lg, nc, ev = launch(fn, cache, tok, pos)
+            lg, nc, ev, undo = launch(fn, cache, tok, pos)
         ahead = None
         if speculate and pos + 1 < end:
             # the next decode step, enqueued on this one's greedy token
             # before the host waits for this one's checks: the card does
             # not idle while the host reads them and launches the next graph
-            ahead = (pos + 1, fn, launch(fn, nc, lg.argmax(dim=-1), pos + 1))
+            try:
+                ahead = (pos + 1, fn,
+                         launch(fn, nc, lg.argmax(dim=-1), pos + 1))
+            except BaseException:
+                undo()
+                raise
         if ev is not None:
             ev.synchronize()
         if not bool(flags[pos % 2, 0]):
+            # back to the cache as it was before this step: first the step
+            # ahead (it read this step's writes and token), then this one,
+            # so that the retry or the dense model restarts from it
             if ahead is not None:
-                # the step ahead wrote K / V at pos + 1 from a bad token; a
-                # masked position still meets the attention's zero weights
-                # (0 * NaN), so it goes back to the zeros it held
-                for kv in ahead[2][1]["self"].values():
-                    kv[:, :, pos + 1].zero_()
+                ahead[2][3]()
             ahead = None
+            undo()
             raise NonFiniteError(f"non-finite logits at position {pos}")
         all_done = bool(flags[pos % 2, 1])
         return lg, nc

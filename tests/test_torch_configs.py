@@ -9,10 +9,13 @@ does with each config.
   reference's ``build_exec_plan`` JSON byte for byte for the five servable
   configs beside chatglm3-6b, full width and reduced, bitmap and 2:4.
 * The four configs the reference's compressed plane refuses (gemma3-27b,
-  mamba2-780m, recurrentgemma-2b, whisper-tiny) and an unknown family
-  raise from ``Model``, ``prune_params`` and ``compress_params``, as the
-  reference's ``compress_params`` / decode cache do; nothing serves them
-  as another family.
+  mamba2-780m, recurrentgemma-2b, whisper-tiny) construct a ``Model``
+  with the reference's init layout, and raise from ``prune_params`` and
+  ``compress_params`` with the reference's words; an unknown family
+  raises from ``Model`` and the compressed plane, as the reference's
+  decode cache and ``compress_params`` do; nothing serves a config as
+  another family.  A uniform stack with a window compresses, as in the
+  reference.
 * Kernel 4's naive decode kernel (Queue 3.3): no 2:4 or 1:4 role of a
   servable config leaves its last slice's groups short of a whole row
   batch at any decode M.
@@ -23,6 +26,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro import exec as rexec
 from repro.configs import get_config as rget_config
@@ -118,20 +122,23 @@ def _any_plan(cfg):
 
 @pytest.mark.parametrize("arch", REFUSED)
 def test_refused_configs_raise_from_every_entry_point(arch):
+    """The compressed plane refuses the four families with the reference's
+    words, at ``prune_params`` and ``compress_params``; the dense model
+    constructs (they serve dense, as in the reference)."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Model(cfg)
+    rcfg = rget_config(arch).reduced()
+    Model(cfg)
     params = {"blocks": {}}
     plan = _any_plan(cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        texec.prune_params(params, plan, cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        texec.compress_params(params, plan, cfg)
-    # the reference's compressed plane refuses them too
-    rcfg = rget_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        rexec.compress_params({"blocks": {}},
-                              rexec.ExecPlan.from_json(plan.to_json()), rcfg)
+    rplan = rexec.ExecPlan.from_json(plan.to_json())
+    for fn, rfn in ((texec.prune_params, rexec.prune_params),
+                    (texec.compress_params, rexec.compress_params)):
+        with pytest.raises(NotImplementedError) as ei:
+            fn(params, plan, cfg)
+        with pytest.raises(NotImplementedError) as rei:
+            rfn(params, rplan, rcfg)
+        assert str(ei.value) == str(rei.value)
+        assert "exec plane serves uniform attention stacks" in str(ei.value)
 
 
 def test_an_unknown_family_raises_the_references_error():
@@ -161,17 +168,31 @@ def test_a_moe_family_without_a_moe_block_is_not_served_dense():
     ("chatglm3-6b", dict(window=8)),
     ("granite-moe-3b-a800m", dict(moe=None))], ids=["window", "moe_no_block"])
 def test_the_compressed_plane_refuses_what_the_model_refuses(arch, change):
+    """A MoE family without a MoE block is refused by the model and the
+    compressed plane alike.  A uniform stack with a window is refused by
+    neither: it constructs and compresses, as in the reference."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **change)
+    plan = _any_plan(cfg)
+    if cfg.window:
+        model = Model(cfg)
+        params = model.init(seed=0, device="cpu")
+        pruned = texec.prune_params(params, plan, cfg)
+        store = texec.compress_params(pruned, plan, cfg)
+        assert len(store) == len(plan.ops) * cfg.n_layers
+        with pytest.raises(NotImplementedError,
+                           match="uniform full-attention stacks only"):
+            texec.CompressedModel(model, store).prefill(
+                pruned, torch.zeros((1, 4), dtype=torch.long), 8)
+        return
     with pytest.raises(NotImplementedError) as ei:
         Model(cfg)
-    plan = _any_plan(cfg)
     for fn in (texec.prune_params, texec.compress_params):
         with pytest.raises(NotImplementedError) as ci:
             fn({"blocks": {}}, plan, cfg)
         assert str(ci.value) == str(ei.value)
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + REFUSED)
 def test_init_has_the_references_layout(arch):
     """The port's own init draws the reference's tree: the same leaves,
     shapes and dtypes (the expert axis and the router included)."""

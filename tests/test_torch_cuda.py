@@ -725,7 +725,8 @@ def test_a_model_holds_at_most_max_graphs(card, monkeypatch):
     prompts = _prompts(cfg)
 
     def lengths():
-        return [k[1] for k in compiled.graphs(cm)]
+        # the cache length: dim 2 of the key's first cache leaf (K)
+        return [k[1][0][0][2] for k in compiled.graphs(cm)]
 
     for gen in (3, 4, 5):
         cm.generate(pruned, prompts, gen)
@@ -1461,3 +1462,85 @@ def test_moe_generate_launches_the_attention_kernels_only(card):
     assert {k: v for k, v in ops.launch_counts().items() if v} == \
         {"bitmap_spmm": 4 * cfg.n_layers * 9}
     assert toks.shape == (4, 8)
+
+
+# ---------------------------------------------------------------------------
+# The families served dense: gemma3 rings, RG-LRU, SSD, encoder-decoder
+# ---------------------------------------------------------------------------
+
+DENSE_FAMILIES = ["gemma3-27b", "recurrentgemma-2b", "mamba2-780m",
+                  "whisper-tiny"]
+
+
+def _dense_family(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    return cfg, model, model.init(seed=0)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("arch", DENSE_FAMILIES)
+def test_dense_family_graph_equals_eager(card, arch, per_row):
+    """Reduced, bf16: a 66-token prompt ingested through the graph (the
+    rings of 64 wrap), then 6 decode steps; every step's logits, ingest
+    included, and the tokens equal the eager step's.  No kernel
+    launches: these families are served dense."""
+    from repro_torch.launch import compiled
+    cfg, model, params = _dense_family(arch)
+    _graph_equals_eager(model, params, _prompts(cfg, s=66), 6, per_row)
+    # ingest at a scalar position; decode at the same key or a per-row one
+    assert len(compiled.graphs(model)) == (2 if per_row else 1)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+class _NanAt:
+    """A model whose step at position ``at`` gives NaN logits and writes
+    NaN into everything it wrote, the first ``times`` times: on the
+    device (a counter tensor and ``torch.where``), so a graph replays the
+    fault as the eager step makes it."""
+
+    def __init__(self, model, at: int, times: int, device):
+        self.model, self.cfg = model, model.cfg
+        self.at = at
+        self.left = torch.tensor(times, device=device)
+
+    def prefill(self, *args, **kwargs):
+        return self.model.prefill(*args, **kwargs)
+
+    def init_cache(self, *args, **kwargs):
+        return self.model.init_cache(*args, **kwargs)
+
+    def decode_step(self, params, cache, tokens, pos):
+        from repro_torch.models.transformer import step_writes
+        logits, cache = self.model.decode_step(params, cache, tokens, pos)
+        hit = (pos == self.at) & (self.left > 0)
+        self.left.sub_(hit.long())
+        nan = torch.full((), float("nan"), device=logits.device)
+        for t in step_writes(cache, self.at):
+            t.copy_(torch.where(hit, nan.to(t.dtype), t))
+        return torch.where(hit, nan, logits), cache
+
+
+@pytest.mark.parametrize("fault", ["transient", "dense_switch"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "gemma3-27b"])
+def test_the_guard_restarts_from_the_pre_step_cache(card, arch, fault):
+    """Graphed, bf16: a step past the rings' wrap (prompt 60, position 66)
+    fails once (retried) or twice (the dense model takes over); the step
+    enqueued ahead of it has read its NaN.  The guard puts back what both
+    wrote (the recurrent states whole, the ring slots), and the tokens are
+    the healthy unguarded run's."""
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import guard
+    cfg, model, params = _dense_family(arch)
+    prompts = _prompts(cfg, s=60)
+    want, _, _ = serve.generate(model, params, prompts, 10, 70)
+    faulty = _NanAt(model, 66, 1 if fault == "transient" else 2, card)
+    got, rep = guard.guarded_generate(faulty, params, prompts, 10,
+                                      dense_model=Model(cfg))
+    assert torch.equal(got, want)
+    assert rep.retries == 1 and int(faulty.left) == 0
+    assert rep.switched_to_dense_at == \
+        (66 if fault == "dense_switch" else None)

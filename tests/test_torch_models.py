@@ -152,11 +152,21 @@ def test_decode_step_matches_reference(fp32, reduced, pos):
 
 
 def test_unserved_families_raise():
+    """The one refusal left is the port's own (a MoE family without a MoE
+    block).  A uniform stack with a window constructs and serves by token
+    ingest: its one-pass prefill raises the reference's error."""
     cfg = get_config("chatglm3-6b").reduced()
     with pytest.raises(NotImplementedError, match="moe"):
         Model(dataclasses.replace(cfg, family="moe"))
-    with pytest.raises(NotImplementedError, match="window"):
-        Model(dataclasses.replace(cfg, window=16))
+    windowed = Model(dataclasses.replace(cfg, window=16))
+    params = windowed.init(seed=0, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="uniform full-attention stacks only"):
+        windowed.prefill(params, torch.zeros((1, 4), dtype=torch.long), 8)
+    logits, _ = windowed.decode_step(
+        params, windowed.init_cache(1, 8, device="cpu"),
+        torch.zeros(1, dtype=torch.long), 0)
+    assert logits.shape == (1, cfg.vocab) and bool(logits.isfinite().all())
 
 
 def test_init_default_device_is_cuda_and_raises_here():
