@@ -238,7 +238,24 @@ non-zero exit code when it fails:
    logits, and each meets the teacher-forced forward's within 1e-3
    max|logits|.  gemma3 and mamba2 serve a 6-request stream through the
    mixer (4 slots), graphed == eager tokens.  None of the five kernels
-   may launch in the phase.
+   may launch in the phase;
+13. training (``repro_torch.launch.train``): chatglm3-6b at full width cut
+   to ``TRAIN_LAYERS`` (8) of 28 layers, seeded random weights, batch 4 x
+   512 tokens of ``TokenPipeline``, bf16 compute, eager.  10 steps of
+   ``build_train_step`` (``Model.loss`` with remat, AdamW): the mean loss
+   of the last 5 below that of the first 5; ms a step (median and min-max
+   of the steps after the first), tokens/s and the peak memory.  One fp32
+   step's loss and gradients (TF32 off) with remat off, on and under
+   ``saveremat``: the loss and every leaf within 1e-5 max|leaf| of remat
+   off, and the peak memory of each, no remat above the other two.  Three
+   steps under ``grad_compress``: finite losses and error-feedback
+   residuals.  Under ``torch.use_deterministic_algorithms(True)``, on the
+   same width cut to ``TRAIN_CKPT_LAYERS`` (1) layer: 8 steps with a
+   checkpoint after step 5, restore, replay steps 5-7: their losses equal
+   the first run's to rtol 1e-5 (save and restore seconds printed).  The
+   CLI at ``--reduced`` with ``--ckpt-dir`` into a temporary directory,
+   then again with ``--resume``, which must print ``[resume] step 4``.
+   None of the five kernels may launch in the phase.
 
 The line before the last is one JSON object describing every kernel (its
 launches in phases 5-11, each counted from zero before the phase's run;
@@ -330,6 +347,20 @@ DENSE_MIX = (6, 8, 24, 6, 32)
 # the batch-1 fp32 run past a ring's wrap: positions after the window, and
 # positions before the wrap from which graph and eager are compared
 WRAP_PAST, WRAP_BEFORE = 24, 8
+# phase 13: training.  chatglm3-6b keeps 8 of its 28 layers: at 28 its fp32
+# params, gradients and two AdamW moments take 16 B for each of about 6.2 G
+# params (about 99 GB), more than the card's 80 GB; at 8, about 1.9 G
+# params, 30 GB, plus the int8 compression's residual and the step's new
+# params and moments.  The checkpoint's round trip writes and reads params
+# and both moments: 23 GB at 8 layers, 5.6 GB at 1 (8.1 GB at 2 layers
+# took 29 s through npz beside an H100, most of the phase's minute)
+TRAIN_LAYERS, TRAIN_CKPT_LAYERS = 8, 1
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 10
+# AdamW's rate there (2 warmup steps of 40), the train CLI's default: the
+# reference's test takes 1e-3 at d_model 128, which at 4096 moved the loss
+# up over 10 steps (11.57 -> 11.81); 1e-4 lowered the mean of the last 5
+# by 0.018, 3e-4 by 0.047
+TRAIN_LR = 3e-4
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -3198,6 +3229,257 @@ def phase_dense_families(card: str, dev) -> None:
           f"({counts}); phase 12 took {time.perf_counter() - t_all:.1f} s")
 
 
+def _train_steps(step_fn, state: list, pipe, steps: range, dev
+                 ) -> tuple[list, list]:
+    """``steps`` of ``step_fn`` on ``pipe``'s batches from ``state`` =
+    [params, optimizer state], which it advances in place: the list is
+    the only holder of the state, so a step's old and new state are the
+    only copies alive.  Returns each step's loss and host ms
+    (synchronised)."""
+    import torch
+    losses, ms = [], []
+    for i in steps:
+        batch = pipe.batch_at(i)
+        t0 = time.perf_counter()
+        loss, params, opt_state = step_fn(*state, batch)
+        state[:] = params, opt_state
+        del params, opt_state
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms
+
+
+def _train_fp32(model, params, batch, card: str) -> None:
+    """One fp32 step's loss and gradients with remat off, on and under
+    ``saveremat`` (TF32 off since phase 1): every leaf within 1e-5
+    max|leaf| of remat off; the peak memory each adds to what is live
+    before it, no remat's the largest."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import layers as L
+    from repro_torch.models import optflags
+    prev = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    peaks, worst = {}, {}
+    try:
+        want = None
+        for mode, remat, flags in (("no remat", False, ()),
+                                   ("remat", True, ()),
+                                   ("saveremat", True, ("saveremat",))):
+            torch.cuda.empty_cache()
+            # the step's own peak, above what is live before it (the
+            # params, and the gradients kept from the first run)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with optflags.optimizations(flags):
+                loss, grads = value_and_grad(
+                    lambda p, b: model.loss(p, b, remat=remat), params,
+                    batch)
+            torch.cuda.synchronize()
+            peaks[mode] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            if want is None:
+                want = (float(loss), tree.leaves(grads))
+                continue
+            if abs(float(loss) - want[0]) > 1e-5 * abs(want[0]):
+                _fail(f"train fp32 {mode}: loss {float(loss)} against "
+                      f"{want[0]} without remat")
+            share = 0.0
+            for got, w in zip(tree.leaves(grads), want[1]):
+                scale = float(w.abs().max())
+                err = float((got - w).abs().max())
+                if not err <= 1e-5 * scale:
+                    _fail(f"train fp32 {mode}: a gradient leaf {err} off, "
+                          f"bound 1e-5 * {scale}")
+                share = max(share, err / scale if scale else 0.0)
+            worst[mode] = share
+            del grads
+    finally:
+        L.COMPUTE_DTYPE = prev
+    if not peaks["no remat"] > max(peaks["remat"], peaks["saveremat"]):
+        _fail(f"train fp32 peak memory {peaks}: no remat is not the largest")
+    print(f"[train fp32] loss {want[0]:.6f}; gradients with remat / "
+          f"saveremat within {worst['remat']:.3e} / {worst['saveremat']:.3e}"
+          f" max|leaf| of no remat (bound 1e-5); peak GiB above the live "
+          f"params (and kept gradients): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in peaks.items())
+          + f" (saveremat {'>=' if peaks['saveremat'] >= peaks['remat'] else '<'}"
+          f" remat); {card}")
+
+
+def _train_resume(full, card: str, dev) -> None:
+    """Deterministic algorithms: 8 steps with a checkpoint after step 5,
+    then a restore and a replay of steps 5-7 (losses to rtol 1e-5)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import PipelineState, TokenPipeline
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(full, n_layers=TRAIN_CKPT_LAYERS)
+    model = Model(cfg)
+    params = model.init(seed=1, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=40)
+    opt_state = adamw.init(params, opt_cfg)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, device=dev)
+    step_fn = build_train_step(model, opt_cfg)
+    state = [params, opt_state]
+    del params, opt_state
+    # cuBLAS is deterministic only with this workspace setting, which
+    # use_deterministic_algorithms checks for
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            first, _ = _train_steps(step_fn, state, pipe, range(5), dev)
+            t0 = time.perf_counter()
+            ckpt.save(d, 5, {"params": state[0], "opt": state[1]},
+                      extra={"pipeline": PipelineState(5).to_dict()})
+            save_s = time.perf_counter() - t0
+            gb = sum(os.path.getsize(os.path.join(d, "step_00000005", f))
+                     for f in os.listdir(os.path.join(d, "step_00000005")))
+            more, _ = _train_steps(step_fn, state, pipe, range(5, 8), dev)
+            t0 = time.perf_counter()
+            restored, extra = ckpt.restore(
+                d, {"params": state[0], "opt": state[1]})
+            torch.cuda.synchronize(dev)
+            restore_s = time.perf_counter() - t0
+            state[:] = restored["params"], restored["opt"]
+            del restored
+            ps = PipelineState.from_dict(extra["pipeline"])
+            replay, _ = _train_steps(step_fn, state, pipe,
+                                     range(ps.step, 8), dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    first += more
+    for i, (a, b) in enumerate(zip(replay, first[5:8])):
+        if abs(a - b) > 1e-5 * abs(b):
+            _fail(f"train resume: replayed step {5 + i} loss {a} against "
+                  f"{b} (rtol 1e-5)")
+    print(f"[train resume] {TRAIN_CKPT_LAYERS} of {full.n_layers} layers, "
+          f"deterministic algorithms: save {save_s:.1f} s, restore "
+          f"{restore_s:.1f} s ({gb / 1e9:.2f} GB); replayed steps 5-7 "
+          f"{', '.join(f'{x:.6f}' for x in replay)} == first run "
+          f"{', '.join(f'{x:.6f}' for x in first[5:8])} (rtol 1e-5); "
+          f"{card}")
+
+
+def _train_cli(card: str) -> None:
+    """The CLI at ``--reduced``: a run that checkpoints, then a resumed
+    one."""
+    import io
+    import tempfile
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as d:
+        base = ["--arch", "chatglm3-6b", "--reduced", "--batch", "4",
+                "--seq", "64", "--ckpt-dir", d, "--ckpt-every", "2",
+                "--log-every", "2"]
+        for argv in (base + ["--steps", "4"],
+                     base + ["--steps", "6", "--resume"]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                run = train.main(argv)
+            text = out.getvalue()
+            print(f"[train cli] {' '.join(argv[argv.index('--steps'):])}: "
+                  + " | ".join(text.strip().splitlines()))
+            if not all(math.isfinite(x) for x in run.losses):
+                _fail(f"train cli: non-finite losses {run.losses}")
+        if "[resume] step 4" not in text:
+            _fail(f"train cli: the resumed run did not print '[resume] "
+                  f"step 4': {text!r}")
+    print(f"[train cli] resumed at step 4 from its checkpoint; {card}")
+
+
+def phase_train(card: str, dev) -> None:
+    """Phase 13: training (see the module docstring).  Launches none of
+    the five kernels."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    ops.reset_launch_counts()
+    t_all = time.perf_counter()
+    full = get_config("chatglm3-6b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    n_params = cfg.params_count()
+    print(f"[train] chatglm3-6b at full width (d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_kv_heads} KV heads), "
+          f"{TRAIN_LAYERS} of {full.n_layers} layers ({n_params / 1e9:.2f} "
+          f"G params; all {full.n_layers}: "
+          f"{16 * full.params_count() / 1e9:.0f} GB of fp32 params, "
+          f"gradients and moments, more than the card's 80 GB); seeded "
+          f"random weights, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, eager")
+    model = Model(cfg)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=40)
+    torch.cuda.reset_peak_memory_stats()
+    state = [model.init(seed=0, device=dev), None]
+    state[1] = adamw.init(state[0], opt_cfg)
+    losses, ms = _train_steps(build_train_step(model, opt_cfg), state,
+                              pipe, range(TRAIN_STEPS), dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        _fail(f"train: losses {losses}: the last 5 do not fall below the "
+              f"first 5")
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    print(f"[train] losses {', '.join(f'{x:.4f}' for x in losses)}: mean "
+          f"of the first 5 {first:.4f} > last 5 {last:.4f}")
+    print(f"[train] ms a step (remat, AdamW; {len(ms) - 1} steps after the "
+          f"first, {ms[0]:.1f}): {_spread(ms[1:])}; "
+          f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s; peak "
+          f"{peak:.2f} GiB; {card}")
+    state[1] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    compress = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                 total_steps=40, grad_compress=True)
+    torch.cuda.reset_peak_memory_stats()
+    state[1] = adamw.init(state[0], compress)
+    c_losses, c_ms = _train_steps(build_train_step(model, compress), state,
+                                  pipe, range(3), dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    err_ok = all(bool(torch.isfinite(e).all())
+                 for e in tree.leaves(state[1].err))
+    if not err_ok or not all(math.isfinite(x) for x in c_losses):
+        _fail(f"train grad_compress: losses {c_losses}, residuals finite "
+              f"{err_ok}")
+    print(f"[train grad_compress] 3 steps: losses "
+          f"{', '.join(f'{x:.4f}' for x in c_losses)}, every residual leaf "
+          f"finite; ms a step {', '.join(f'{x:.1f}' for x in c_ms)}; peak "
+          f"{peak:.2f} GiB; {card}")
+    params = state[0]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _train_fp32(model, params, pipe.batch_at(0), card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_resume(full, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_cli(card)
+    counts = ops.launch_counts()
+    if sum(counts.values()):
+        _fail(f"phase 13 launched kernels: {counts}; training runs dense")
+    print(f"[train] no kernel of the five launched in the phase "
+          f"({counts}); phase 13 took {time.perf_counter() - t_all:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3238,6 +3520,7 @@ def main() -> None:
     timed("10", phase_search, cfg, card, forwards)
     families_launches = timed("11", phase_families, card, dev, acc)
     timed("12", phase_dense_families, card, dev)
+    timed("13", phase_train, card, dev)
     print("[time] wall seconds a phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; sum {sum(seconds.values()):.1f}")

@@ -24,6 +24,12 @@ The knobs and hooks are those of ``repro.kernels.ops``:
 * :func:`kernel_dispatch_hook` is called as ``fn(kind, seconds)`` after
   every dispatch.
 
+The kernels have no backward.  A wrapper given an input that requires
+grad while grad is enabled raises ``NotImplementedError`` on either device,
+as the reference's ``jax.grad`` through a ``pallas_call`` raises: its
+output would carry no ``grad_fn``, and the weights below it would get no
+gradient without a word.
+
 The reference's TPU tile knobs (``bm``, ``bn``, ``bk`` of the sparse
 wrappers) have no counterpart: the CUDA tiles are the kernels' own.
 """
@@ -192,6 +198,13 @@ def hooks_installed() -> bool:
     return fault_hook_installed() or _DISPATCH_HOOK is not None
 
 
+def _refuse_grad(kind: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kind}: the kernel has no backward; an input requires grad "
+            f"(a loss through a compressed store)")
+
+
 def _dispatch(kind: str, fn, *args):
     if _DISPATCH_HOOK is None:
         return fn(*args)
@@ -270,6 +283,7 @@ def bitmap_spmm(x: torch.Tensor, w: BitmapCompressed,
     ``w.max_per_col`` would drop blocks, so the naive variant refuses it
     (the reference's naive kernel silently truncates).  The pipelined
     variant walks ``counts[kj]`` and ignores ``t_max``."""
+    _refuse_grad("bitmap_spmm", x, w.blocks)
     _fault_check("bitmap")
     t_max = max(int(w.max_per_col if t_max is None else t_max), 1)
     pipe = resolve_pipeline(pipeline)
@@ -318,6 +332,7 @@ def _nm(x: torch.Tensor, w: NMCompressed, pipeline: bool) -> torch.Tensor:
 def nm_spmm(x: torch.Tensor, w: NMCompressed,
             pipeline: bool | None = None) -> torch.Tensor:
     """Y = X @ expand(values, indices), (M, K) float32."""
+    _refuse_grad("nm_spmm", x, w.values)
     _fault_check("nm")
     return _dispatch("nm", _nm, x, w, resolve_pipeline(pipeline))
 
@@ -347,6 +362,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (Sq not a multiple of ``min(bq, Sq)``, Skv not a multiple of
     ``min(bk, Skv)``) raise ``ValueError`` here too, so both accept the
     same calls; the CUDA kernel's tiles are its own."""
+    _refuse_grad("flash_attention", q, k, v)
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} must be (BH, S, D)")

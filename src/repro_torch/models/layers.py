@@ -155,6 +155,29 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens].to(COMPUTE_DTYPE)
 
 
+def unembed_loss(x: torch.Tensor, table: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy with sequence-chunked logits, as the
+    reference's: never more than (B, chunk, V) logits at a time, each a
+    compute-dtype product cast to fp32.  ``n_chunks = max(s // chunk, 1)``
+    chunks of ``s // n_chunks`` positions: the last ``s mod n_chunks``
+    positions are dropped and the mean divides by the positions kept (the
+    reference's behaviour, kept).  Returns the fp32 mean loss."""
+    b, s, _ = x.shape
+    n_chunks = max(s // chunk, 1)
+    chunk = s // n_chunks
+    tbl = table.to(COMPUTE_DTYPE)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = torch.matmul(x[:, sl], tbl.t()).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        total = total + (lse - gold).sum()
+    # a tensor divisor: CUDA multiplies by a Python scalar's reciprocal
+    return total / total.new_full((), b * n_chunks * chunk)
+
+
 def logits_head(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Decode-time logits for the last position only: (B, V) float32."""
     return torch.matmul(x, table.to(COMPUTE_DTYPE).t()).float()
@@ -210,12 +233,42 @@ def mlp_params(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
     }
 
 
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+class _Logistic(torch.autograd.Function):
+    """:func:`_logistic` with ``lax.logistic``'s derivative, ``g · (σ · (1
+    - σ))``.  Differentiating the three ops instead gives ``0 · inf = NaN``
+    where ``exp(-x)`` overflows (x below about -88)."""
+
+    @staticmethod
+    def forward(x):
+        return _logistic(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def _differentiated(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``σ(x) = 1 / (1 + exp(-x))`` as three ops, each rounded to ``x``'s
     dtype: how XLA expands the reference's ``jax.nn.sigmoid``
     (``lax.logistic``).  ``torch.sigmoid`` rounds once, which at bf16
-    leaves many values one ulp away from the reference's."""
-    return torch.reciprocal(1.0 + torch.exp(-x))
+    leaves many values one ulp away from the reference's.  Under autograd
+    its derivative is ``lax.logistic``'s (:class:`_Logistic`)."""
+    if _differentiated(x):
+        return _Logistic.apply(x)
+    return _logistic(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -235,10 +288,37 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
                                         * inner)))
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+class _Softplus(torch.autograd.Function):
+    """:func:`_softplus` with ``jnp.logaddexp``'s derivative, ``g ·
+    exp(x - out)``.  The ops' own derivative is 1 at x = 0 (``clamp``
+    passes it whole, ``abs`` gives 0) where the reference's is 1/2."""
+
+    @staticmethod
+    def forward(x):
+        return _softplus(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) +
-    log1p(exp(-|x|))``.  ``F.softplus`` returns ``x`` itself above 20."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    log1p(exp(-|x|))``.  ``F.softplus`` returns ``x`` itself above 20.
+    Under autograd its derivative is the reference's
+    (:class:`_Softplus`)."""
+    if _differentiated(x):
+        return _Softplus.apply(x)
+    return _softplus(x)
 
 
 def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:

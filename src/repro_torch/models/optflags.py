@@ -17,9 +17,13 @@ computes what the reference computes on one device or raises:
                ``TP_DEGREE``, as chatglm3-6b's 32 heads); raises
                ``NotImplementedError`` where it would pad one
                (:func:`check_served`), as on the reduced config's 4.
-  replkv,    — inert: they act on a TP mesh (``replkv``, ``seqpar``) or in
-  seqpar,      training (``saveremat``), which the port's serving path
-  saveremat    does not have; on one device the reference's are inert too.
+  saveremat  — implemented in training: the remat of ``Model.loss``
+               keeps the residual stream at each block's attention and FFN
+               outputs (the reference's ``ar_out``) and recomputes the rest
+               (:func:`repro_torch.models.transformer._run_body`); it
+               changes no value, and serving (no grad) never reads it.
+  replkv,    — inert: they act on a TP mesh, which the port does not have;
+  seqpar       on one device the reference's are inert too.
   sparseffn, — raise ``NotImplementedError`` from the model entry points
   bf16params   while active (:func:`check_served`): they change what the
                reference serves on one device (the bitmap-stored FFN

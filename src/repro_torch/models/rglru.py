@@ -47,7 +47,11 @@ def _gates(x: torch.Tensor, p: dict):
     i = L.sigmoid(L.dense(x, p["w_i"]))
     log_a = -_C * L.softplus(p["lam"].float()) * r.float()
     a = torch.exp(log_a)
-    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    # maximum, not clamp: at a tie with the floor it splits the gradient
+    # as jnp.maximum does (clamp passes it whole); a 0-d fill, which a CUDA
+    # graph captures (a host scalar tensor would be a host copy)
+    one_minus = 1.0 - torch.exp(2.0 * log_a)
+    beta = torch.sqrt(torch.maximum(one_minus, one_minus.new_full((), 1e-6)))
     return a, beta, i
 
 

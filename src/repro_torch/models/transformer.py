@@ -22,6 +22,14 @@ in the reference; the others ingest a prompt token by token through
 writes its cache leaves in place and reads nothing back to the host, so a
 CUDA graph captures it for every family (:mod:`repro_torch.launch.compiled`).
 
+Training (``Model.loss``) runs ``hidden_states`` with remat, the
+counterpart of the reference's ``_ckpt``: while grad is enabled every body
+the reference wraps in ``jax.checkpoint`` runs under
+``torch.utils.checkpoint`` (:func:`_run_body`), and under the
+``saveremat`` flag each such body is cut at the reference's ``ar_out``
+points instead, so that only the residual stream at the attention and FFN
+outputs is kept for the backward pass.  Remat changes no value.
+
 Two behaviours are the reference's and kept as they are: a uniform stack
 with a ``window`` gets a ``max_len``-long cache (its decode attends over
 the whole prefix, while ``hidden_states`` masks to the window), and the
@@ -33,9 +41,10 @@ encoder-decoder's decode cross-attends to the zero ``cross`` cache that
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
@@ -101,24 +110,42 @@ def _take(tree: PyTree, i: int) -> PyTree:
     return tree[i]
 
 
-def _attn_layer(x, p, cfg: ModelConfig, freqs, positions, causal=True,
-                window=0, kv_override=None, return_kv: bool = False):
+def _attn_half(x, p, cfg: ModelConfig, freqs, positions, causal=True,
+               window=0):
+    """A layer up to its attention output (the reference's first
+    ``ar_out``): ``x + attention(ln1(x))``."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a = attn.attention_block(h, p["attn"], cfg, freqs, positions,
-                             causal=causal, window=window,
-                             return_kv=return_kv)
-    if return_kv:
-        a, k, v = a
-    x = x + a
+    return x + attn.attention_block(h, p["attn"], cfg, freqs, positions,
+                                    causal=causal, window=window)
+
+
+def _ffn_half(x, p, cfg: ModelConfig, positions, kv_override=None):
+    """The rest of a layer from there: the cross-attention of a decoder
+    layer, then ``x + ffn(ln2(x))`` (the second ``ar_out``)."""
     if kv_override is not None:
         h = L.rms_norm(x, p["ln3"], cfg.norm_eps)
         x = x + attn.attention_block(h, p["cross"], cfg, None, positions,
                                      causal=False, kv_override=kv_override)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    out = x + _ffn_apply(h, p["ffn"], cfg)
-    if return_kv:
-        return out, k, v
-    return out
+    return x + _ffn_apply(h, p["ffn"], cfg)
+
+
+def _attn_layer_kv(x, p, cfg: ModelConfig, freqs, positions):
+    """A causal self-attention layer that also returns its post-RoPE,
+    pre-GQA-repeat (K, V): the prefill's."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, k, v = attn.attention_block(h, p["attn"], cfg, freqs, positions,
+                                   return_kv=True)
+    return _ffn_half(x + a, p, cfg, positions), k, v
+
+
+def _attn_pieces(p, cfg: ModelConfig, freqs, positions, causal=True,
+                 window=0, kv_override=None) -> list[Callable]:
+    """An attention layer as :func:`_run_body`'s pieces, cut at its
+    attention output."""
+    return [lambda h: _attn_half(h, p, cfg, freqs, positions, causal,
+                                 window),
+            lambda h: _ffn_half(h, p, cfg, positions, kv_override)]
 
 
 def _rec_layer(x, p, cfg: ModelConfig):
@@ -133,6 +160,81 @@ def _ssm_layer(x, p, cfg: ModelConfig):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     y, _ = ssm_mod.ssm_block(h, p["ssm"], cfg)
     return x + y
+
+
+# ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Reads:
+    """What a layer body reads besides its arguments: the compute dtype,
+    the projection (rebindable) and its hook, the published layer, the
+    active flags.  ``torch.utils.checkpoint`` reruns the body during
+    ``backward()``, by when the ``with`` blocks that set these may have
+    exited (and on the card the backward runs on autograd's own thread,
+    which sees none of the thread-local flags); JAX fixes them at trace
+    time.  The recompute runs under the values the forward read."""
+
+    compute_dtype: torch.dtype
+    proj: Callable
+    hook: Any
+    layer: Any
+    flags: frozenset
+
+    @staticmethod
+    def now() -> "_Reads":
+        return _Reads(L.COMPUTE_DTYPE, L.proj, L._PROJ_HOOK, L._LAYER_CTX,
+                      optflags.active())
+
+    def put(self) -> None:
+        L.COMPUTE_DTYPE, L.proj = self.compute_dtype, self.proj
+        L._PROJ_HOOK, L._LAYER_CTX = self.hook, self.layer
+        optflags._state.flags = self.flags
+
+    def run(self, fn: Callable, x):
+        prev = _Reads.now()
+        self.put()
+        try:
+            return fn(x)
+        finally:
+            prev.put()
+
+
+def _checkpointed(fn: Callable, x):
+    """``fn(x)`` whose internals the backward pass recomputes from ``x``
+    (and the tensors ``fn`` closes over) under the forward's reads."""
+    reads = _Reads.now()
+    return checkpoint(lambda h: reads.run(fn, h), x, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _remat_mode(remat: bool) -> Optional[str]:
+    """How the bodies run: None (plainly: no grad, or ``remat=False``),
+    ``"full"`` (one checkpoint a body, ``jax.checkpoint``) or ``"save"``
+    (``saveremat``: one checkpoint a piece)."""
+    if not remat or not torch.is_grad_enabled():
+        return None
+    return "save" if optflags.enabled("saveremat") else "full"
+
+
+def _run_body(x, pieces: Sequence[Callable], mode: Optional[str]):
+    """One body the reference wraps in ``_ckpt``, given as pieces that end
+    at its ``ar_out`` points (a body without one is a single piece).
+    ``"full"`` checkpoints the whole body: the backward keeps its input
+    and recomputes the rest.  ``"save"`` checkpoints each piece: the
+    backward also keeps the residual stream after each ``ar_out`` (the
+    reference keeps the ``ar_out`` tensors themselves; either gives the
+    rest back with one add) and recomputes the same internals."""
+    if mode == "full":
+        def body(h):
+            for piece in pieces:
+                h = piece(h)
+            return h
+        return _checkpointed(body, x)
+    for piece in pieces:
+        x = _checkpointed(piece, x) if mode == "save" else piece(x)
+    return x
 
 
 def _sinusoid(s: int, d: int, device) -> torch.Tensor:
@@ -262,13 +364,16 @@ class Model:
 
     # ---------------- forward ----------------
     def hidden_states(self, params: PyTree, tokens: torch.Tensor,
-                      enc_frames: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      enc_frames: Optional[torch.Tensor] = None,
+                      remat: bool = True) -> torch.Tensor:
         """The final-normed hidden states (B, S, d) of a full sequence;
         the encoder-decoder also takes its encoder frames (B, enc_seq,
-        d)."""
+        d).  ``remat`` (the reference's default too) checkpoints every
+        layer body while grad is enabled (:func:`_run_body`); it changes
+        no value, and without grad it does nothing."""
         self._check_flags()
         cfg = self.cfg
+        mode = _remat_mode(remat)
         dev = tokens.device
         s = tokens.shape[1]
         x = L.embed(tokens, params["embed"])
@@ -280,43 +385,66 @@ class Model:
                 cfg.enc_seq, cfg.d_model, dev)
             enc_pos = torch.arange(cfg.enc_seq, device=dev)
             for i in range(cfg.enc_layers):
-                enc = _attn_layer(enc, _take(params["enc_blocks"], i), cfg,
-                                  None, enc_pos, causal=False)
+                enc = _run_body(enc, _attn_pieces(
+                    _take(params["enc_blocks"], i), cfg, None, enc_pos,
+                    causal=False), mode)
             enc = L.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
             x = x + _sinusoid(s, cfg.d_model, dev)
             for i in range(cfg.n_layers):
-                x = _attn_layer(x, _take(params["blocks"], i), cfg, None,
-                                positions, kv_override=(enc, enc))
+                x = _run_body(x, _attn_pieces(
+                    _take(params["blocks"], i), cfg, None, positions,
+                    kv_override=(enc, enc)), mode)
         elif _gemma3(cfg):
             sup = params["super"]
             for i in range(sup["global"]["ln1"].shape[0]):
                 local = _take(sup["local"], i)
                 for j in range(5):
-                    x = _attn_layer(x, _take(local, j), cfg, freqs,
-                                    positions, window=cfg.window)
-                x = _attn_layer(x, _take(sup["global"], i), cfg, freqs,
-                                positions)
+                    x = _run_body(x, _attn_pieces(
+                        _take(local, j), cfg, freqs, positions,
+                        window=cfg.window), mode)
+                x = _run_body(x, _attn_pieces(
+                    _take(sup["global"], i), cfg, freqs, positions), mode)
             for i in range(params["tail"]["ln1"].shape[0]):
-                x = _attn_layer(x, _take(params["tail"], i), cfg, freqs,
-                                positions, window=cfg.window)
+                x = _run_body(x, _attn_pieces(
+                    _take(params["tail"], i), cfg, freqs, positions,
+                    window=cfg.window), mode)
         elif cfg.family == "hybrid":
             sup = params["super"]
             for i in range(sup["attn"]["ln1"].shape[0]):
-                x = _rec_layer(x, _take(sup["rec1"], i), cfg)
-                x = _rec_layer(x, _take(sup["rec2"], i), cfg)
-                x = _attn_layer(x, _take(sup["attn"], i), cfg, freqs,
-                                positions, window=cfg.window)
+                p = _take(sup, i)
+                attn_first, ffn_rest = _attn_pieces(
+                    p["attn"], cfg, freqs, positions, window=cfg.window)
+
+                def recs_and_attn(h, p=p, attn_first=attn_first):
+                    h = _rec_layer(h, p["rec1"], cfg)
+                    return attn_first(_rec_layer(h, p["rec2"], cfg))
+                # the reference checkpoints the whole super block
+                x = _run_body(x, [recs_and_attn, ffn_rest], mode)
             for i in range(params["tail"]["ln1"].shape[0]):
-                x = _rec_layer(x, _take(params["tail"], i), cfg)
+                p = _take(params["tail"], i)
+                x = _run_body(x, [lambda h, p=p: _rec_layer(h, p, cfg)],
+                              mode)
         elif cfg.family == "ssm":
             for i in range(cfg.n_layers):
-                x = _ssm_layer(x, _take(params["blocks"], i), cfg)
+                p = _take(params["blocks"], i)
+                x = _run_body(x, [lambda h, p=p: _ssm_layer(h, p, cfg)],
+                              mode)
         else:
             for i in range(cfg.n_layers):
                 with L.layer_ctx(i):
-                    x = _attn_layer(x, _take(params["blocks"], i), cfg,
-                                    freqs, positions, window=cfg.window)
+                    x = _run_body(x, _attn_pieces(
+                        _take(params["blocks"], i), cfg, freqs, positions,
+                        window=cfg.window), mode)
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def loss(self, params: PyTree, batch: dict, remat: bool = True
+             ) -> torch.Tensor:
+        """The mean next-token cross-entropy of ``batch`` (``tokens``,
+        ``labels``, and ``enc_frames`` for the encoder-decoder) over
+        ``hidden_states`` with remat (:func:`layers.unembed_loss`)."""
+        x = self.hidden_states(params, batch["tokens"],
+                               batch.get("enc_frames"), remat=remat)
+        return L.unembed_loss(x, params["embed"], batch["labels"])
 
     def logits(self, params: PyTree, tokens: torch.Tensor,
                enc_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -347,8 +475,8 @@ class Model:
         freqs = L.rope_freqs(cfg, tokens.device)
         for i in range(cfg.n_layers):
             with L.layer_ctx(i):
-                x, k, v = _attn_layer(x, _take(params["blocks"], i), cfg,
-                                      freqs, positions, return_kv=True)
+                x, k, v = _attn_layer_kv(x, _take(params["blocks"], i),
+                                         cfg, freqs, positions)
             cache["self"]["k"][i, :, :s] = k
             cache["self"]["v"][i, :, :s] = v
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1544,3 +1544,116 @@ def test_the_guard_restarts_from_the_pre_step_cache(card, arch, fault):
     assert rep.retries == 1 and int(faulty.left) == 0
     assert rep.switched_to_dense_at == \
         (66 if fault == "dense_switch" else None)
+
+
+# ---------------------------------------------------------------------------
+# Training (launch/train.py, models/transformer.py's remat)
+# ---------------------------------------------------------------------------
+
+def _train_case(arch: str, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch).reduced()
+    params = Model(cfg).init(seed=0, device="cpu")
+    enc = cfg.enc_seq if cfg.family == "encdec" else 0
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=80, global_batch=2,
+                          enc_seq=enc, d_model=cfg.d_model,
+                          device="cpu").batch_at(3)
+    return cfg, params, batch
+
+
+def _to(tree_, dev):
+    from repro_torch import tree
+    return tree.map_leaves(lambda t: t.to(dev), tree_)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "recurrentgemma-2b",
+                                  "mamba2-780m", "whisper-tiny"])
+def test_a_train_step_on_the_card_equals_the_cpus(card, arch, monkeypatch):
+    """One reduced fp32 step (TF32 off) on the card against the same step
+    on the CPU: the loss within 1e-5 relative and each gradient leaf
+    within 1e-4 max|leaf|; then AdamW, with and without int8 compression,
+    on the CPU's gradients: params, moments and residuals within 1e-6
+    max|leaf|.  (On each device's own gradients a first step moves an
+    element whose gradient is near ``eps`` by up to ``lr``, and a
+    compressed one rounds an element near a half a quantum apart.)"""
+    from repro_torch import tree
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    cfg, params, batch = _train_case(arch, card)
+    model = Model(cfg)
+    want_loss, want = value_and_grad(model.loss, params, batch)
+    loss, grads = value_and_grad(model.loss, _to(params, card),
+                                 _to(batch, card))
+    torch.cuda.synchronize()
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(
+        float(want_loss))
+
+    def close(got, want, tol):
+        for g, w in zip(tree.leaves(got), tree.leaves(want)):
+            assert g.device.type == "cuda"
+            g, w = g.cpu().double(), w.double()
+            assert (g - w).abs().max() <= tol * w.abs().max() + 1e-30
+
+    close(grads, want, 1e-4)
+    for compress in (False, True):
+        opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0,
+                                    total_steps=10, grad_compress=compress)
+        cpu_out = adamw.apply(params, want, adamw.init(params, opt_cfg),
+                              opt_cfg)
+        card_out = adamw.apply(_to(params, card), _to(want, card),
+                               adamw.init(_to(params, card), opt_cfg),
+                               opt_cfg)
+        close(card_out, cpu_out, 1e-6)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "granite-moe-3b-a800m",
+                                  "gemma3-27b"])
+def test_remat_gives_the_same_gradients_on_the_card(card, arch):
+    """Gradients with remat off, on and under ``saveremat`` (bf16, the
+    backward run after the flag's context): within 1e-5 max|leaf| (the
+    embedding's backward adds with atomics)."""
+    from repro_torch import tree
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import optflags
+    from repro_torch.models.transformer import Model
+    cfg, params, batch = _train_case(arch, card)
+    params, batch = _to(params, card), _to(batch, card)
+    model = Model(cfg)
+    out = []
+    for remat, flags in ((False, ()), (True, ()), (True, ("saveremat",))):
+        live = [p.detach().requires_grad_() for p in tree.leaves(params)]
+        with optflags.optimizations(flags):
+            loss = model.loss(tree.unflatten(params, live), batch,
+                              remat=remat)
+        loss.backward()
+        out.append((float(loss.detach()), [p.grad for p in live]))
+    for loss, grads in out[1:]:
+        assert loss == out[0][0]
+        for g, w in zip(grads, out[0][1]):
+            if w is None:
+                assert g is None
+                continue
+            assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def test_a_kernel_wrapper_refuses_an_input_that_requires_grad(card):
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32))
+    comp = ops.compress_bitmap(w.to(card), 128, 128)
+    nm = ops.compress_nm(w.to(card))
+    x = torch.randn(4, 256, device=card, requires_grad=True)
+    for call in (lambda: ops.bitmap_spmm(x, comp),
+                 lambda: ops.nm_spmm(x, nm),
+                 lambda: ops.flash_attention(x[None, :, :64], x[None, :, :64],
+                                             x[None, :, :64])):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call()
+    assert sum(ops.launch_counts().values()) == 0
+    with torch.no_grad():
+        ops.bitmap_spmm(x, comp)
+    assert ops.launch_counts()["bitmap_spmm"] == 1
