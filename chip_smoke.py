@@ -221,8 +221,9 @@ non-zero exit code when it fails:
 12. the four families the reference serves dense only (its compressed
    plane refuses them): gemma3-27b cut to 8 layers (one 5 local + 1
    global period and the 2-layer tail; window 1024), recurrentgemma-2b
-   (all 26 layers), mamba2-780m (all 48) and whisper-tiny (whole,
-   ``enc_seq`` 1500); full width, seeded random weights.  Each serves
+   cut to 14 of 26 layers (4 rec, rec, attn periods and the 2-layer
+   tail), mamba2-780m cut to 24 of 48 and whisper-tiny (whole, ``enc_seq``
+   1500); full width, seeded random weights.  Each serves
    ``serve.generate``'s batch (4 x 128, 16 tokens, bf16), the prompt
    ingested token by token through the same CUDA graph as decode: one
    capturing run, then 3 graphed and 3 eager in turns (ingest and decode
@@ -255,11 +256,33 @@ non-zero exit code when it fails:
    the first run's to rtol 1e-5 (save and restore seconds printed).  The
    CLI at ``--reduced`` with ``--ckpt-dir`` into a temporary directory,
    then again with ``--resume``, which must print ``[resume] step 4``.
-   None of the five kernels may launch in the phase.
+   None of the five kernels may launch in the phase;
+14. the last optimization flags and the mesh: (a) ``sparseffn`` on
+   chatglm3-6b at full width, all 28 layers (block-stored gate / up:
+   107 block-columns of T = 8 of 32 block-rows), batch 4, 16 positions
+   ingested through ``decode_step`` then 16 tokens, graphed and eager
+   (``torch.equal`` tokens and logits at every step; ms a step, 3 runs a
+   mode in turns), and at fp32 every step's logits within 1e-3
+   max|logits| of a dense model whose gate / up weights are the payloads
+   scattered and summed at their block-rows; (b) ``padheads`` on
+   deepseek-coder-33b cut to 4 layers (56 heads padded to 64): prefill
+   and decode through ``serve.generate``, graphed and eager (3 runs a
+   mode; graph == eager), fp32 decode against teacher forcing within
+   1e-3 max|logits|; the bitmap plan, whose wq blocks do not tile the
+   padded wq, must be refused as the reference refuses it, and the 2:4
+   plan serves the padded weights: ``nm_spmm``, pipelined and naive, at
+   the padded wq and wo against its plain version (phase 3's tolerance),
+   7 x 4 x (1 + 16) launches of ``nm_spmm`` and no other, graph ==
+   eager; (c) ``bf16params`` on chatglm3-6b, all 28 layers: decode over
+   params cast once to bf16 (``convert.bf16_params``) and over fp32
+   params, in turns (ms/token, greedy agreement, peak memory), graph ==
+   eager on the cast params; (d) ``make_serve_mesh(4)`` is ``None`` on
+   one card and ``serve.main`` gives the same tokens with ``--mesh`` as
+   without.
 
 The line before the last is one JSON object describing every kernel (its
-launches in phases 5-11, each counted from zero before the phase's run;
-``families`` holds phase 11's per-model sums);
+launches in phases 5-11 and 14, each counted from zero before the
+phase's run; ``families`` holds phase 11's per-model sums);
 the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 port's sources beside this script, it exits non-zero and prints no result.
 """
@@ -336,9 +359,12 @@ GUARD_LAYERS = 4
 # phase 12: the families the reference serves dense only: (arch, layers on
 # the card, 0 for all of them).  gemma3-27b keeps one 5 local + 1 global
 # period and the 2-layer tail: at 62 layers its fp32 params (about 108 GB)
-# do not fit the card
-DENSE_FAMILIES = (("gemma3-27b", 8), ("recurrentgemma-2b", 0),
-                  ("mamba2-780m", 0), ("whisper-tiny", 0))
+# do not fit the card.  recurrentgemma-2b keeps 4 of its 8 periods and the
+# tail, mamba2-780m 24 of 48 layers: at full depth they took 49 and 44 s
+# on an H100 80GB HBM3 at 700 W, and with phase 14 the script took 802 s
+# there, past its 800 s budget
+DENSE_FAMILIES = (("gemma3-27b", 8), ("recurrentgemma-2b", 14),
+                  ("mamba2-780m", 24), ("whisper-tiny", 0))
 DENSE_RUNS = 3               # serving runs a mode
 DENSE_MIXED = ("gemma3-27b", "mamba2-780m")
 # the mixer's stream there: requests, shortest and longest prompt, tokens a
@@ -356,6 +382,10 @@ WRAP_PAST, WRAP_BEFORE = 24, 8
 # took 29 s through npz beside an H100, most of the phase's minute)
 TRAIN_LAYERS, TRAIN_CKPT_LAYERS = 8, 1
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 10
+# phase 14: positions ingested (then as many tokens generated) under
+# sparseffn, timed runs a mode, and deepseek-coder-33b's layers under
+# padheads (phase 11's cut)
+FLAG_INGEST, FLAG_RUNS, FLAG_PAD_LAYERS = 16, 3, 4
 # AdamW's rate there (2 warmup steps of 40), the train CLI's default: the
 # reference's test takes 1e-3 at d_model 128, which at 4096 moved the loss
 # up over 10 steps (11.57 -> 11.81); 1e-4 lowered the mean of the last 5
@@ -3165,9 +3195,11 @@ def _dense_family(arch: str, layers: int, card: str, dev) -> None:
     from repro_torch.models.transformer import Model
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers) if layers else full
-    cut = (f"{layers} of {full.n_layers} layers (all {full.n_layers}: "
-           f"{4 * full.params_count() / 1e9:.1f} GB of fp32 params, more "
-           f"than the card's 80 GB)" if layers
+    fp32_gb = 4 * full.params_count() / 1e9
+    why = (f"all {full.n_layers}: {fp32_gb:.1f} GB of fp32 params, more "
+           f"than the card's 80 GB" if fp32_gb > 80
+           else "the script's time")
+    cut = (f"{layers} of {full.n_layers} layers ({why})" if layers
            else f"all {full.n_layers} layers")
     print(f"[dense {arch}] family {cfg.family}, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab}, window {cfg.window or 'none'}"
@@ -3480,6 +3512,352 @@ def phase_train(card: str, dev) -> None:
           f"({counts}); phase 13 took {time.perf_counter() - t_all:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the last optimization flags and the mesh
+# ---------------------------------------------------------------------------
+
+def _ingest_greedy(step, model, params, prompts, gen: int):
+    """Greedy tokens (B, gen) with the prompt ingested token by token
+    through ``step`` (a ``CompiledStep`` or ``model.decode_step``), and a
+    copy of every step's logits: the path of a model without a one-pass
+    prefill, which block-stored FFN params do not have."""
+    import torch
+    b, plen = prompts.shape
+    cache = model.init_cache(b, plen + gen, device=prompts.device)
+    pos = torch.empty((), dtype=torch.long, device=prompts.device)
+    steps, toks = [], []
+    for t in range(plen + gen - 1):
+        tok = prompts[:, t] if t < plen else toks[-1]
+        logits, cache = step(params, cache, tok, pos.fill_(t))
+        steps.append(logits.clone())
+        if t >= plen - 1:
+            toks.append(logits.argmax(dim=-1))
+    return torch.stack(toks, dim=1), steps
+
+
+def _scattered_ffn(ffn: dict, d_model: int) -> dict:
+    """Dense FFN weights from block-stored ones: each payload block added
+    into a zero (d, f) weight at its block-row and block-column (the rows
+    are all zero, so a column's T blocks sum into block-row 0)."""
+    import torch
+    out = {"w_down": ffn["w_down"]}
+    for name in ("gate", "up"):
+        payload, rows = ffn[f"payload_{name}"], ffn[f"rows_{name}"].long()
+        n_layers, gk, t, bn, bk = payload.shape
+        w = torch.zeros((n_layers, d_model // bn, gk, bn, bk),
+                        dtype=payload.dtype, device=payload.device)
+        li = torch.arange(n_layers, device=w.device)[:, None]
+        gi = torch.arange(gk, device=w.device)[None, :]
+        for j in range(t):
+            w.index_put_((li, rows[:, :, j], gi), payload[:, :, j],
+                         accumulate=True)
+        out[f"w_{name}"] = w.permute(0, 1, 3, 2, 4).reshape(
+            n_layers, d_model, gk * bk)
+        del w
+    return out
+
+
+def _flags_sparseffn(card: str, dev) -> None:
+    """Phase 14 (a): ``sparseffn`` on chatglm3-6b, all 28 layers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import compiled
+    from repro_torch.models import layers as L
+    from repro_torch.models import optflags
+    from repro_torch.models.transformer import Model
+    cfg = get_config("chatglm3-6b")
+    flags = ("sparseffn",)
+    torch.cuda.reset_peak_memory_stats()
+    with optflags.optimizations(flags):
+        model = Model(cfg)
+        params = model.init(seed=0, device=dev)
+        ffn = params["blocks"]["ffn"]
+        print(f"[flags sparseffn] chatglm3-6b at full width, all "
+              f"{cfg.n_layers} layers: block-stored gate / up payloads "
+              f"{tuple(ffn['payload_gate'].shape)} (T = "
+              f"{ffn['payload_gate'].shape[2]} of {cfg.d_model // 128} "
+              f"block-rows), dense w_down; batch {BATCH}, "
+              f"{FLAG_INGEST} positions ingested then {FLAG_INGEST} tokens "
+              f"through decode_step; seeded random weights, bf16")
+        pg = torch.Generator(device=dev).manual_seed(2)
+        prompts = torch.randint(0, cfg.vocab, (BATCH, FLAG_INGEST),
+                                generator=pg, device=dev)
+        graph = compiled.CompiledStep(model)
+        toks, _ = _ingest_greedy(graph, model, params, prompts,
+                                 FLAG_INGEST)             # the capture
+        times, first = {"graph": [], "eager": []}, {}
+        for _ in range(FLAG_RUNS):
+            for mode, step in (("graph", graph),
+                               ("eager", model.decode_step)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, steps = _ingest_greedy(step, model, params, prompts,
+                                            FLAG_INGEST)
+                torch.cuda.synchronize()
+                times[mode].append(1e3 * (time.perf_counter() - t0)
+                                   / len(steps))
+                if not torch.equal(out, toks):
+                    _fail(f"sparseffn {mode}: tokens differ between runs")
+                first.setdefault(mode, steps)
+        n_steps = len(first["graph"])
+        if not all(torch.equal(a, b)
+                   for a, b in zip(first["graph"], first["eager"])):
+            _fail("sparseffn: graph and eager logits differ")
+    print(f"[flags sparseffn] graph == eager: tokens and the logits of all "
+          f"{n_steps} steps torch.equal; ms a step (one token a row), "
+          f"{FLAG_RUNS} runs in turns: graph {_spread(times['graph'])}, "
+          f"eager {_spread(times['eager'])}; {card}")
+    seq = torch.cat([prompts, toks[:, :-1]], dim=1)
+    dense_params = dict(params, blocks=dict(
+        params["blocks"], ffn=_scattered_ffn(ffn, cfg.d_model)))
+    dense = Model(cfg)
+    prev = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        with optflags.optimizations(flags):
+            forced = _forced_steps(compiled.CompiledStep(model), model,
+                                   params, seq)
+        want = _forced_steps(compiled.CompiledStep(dense), dense,
+                             dense_params, seq)
+    finally:
+        L.COMPUTE_DTYPE = prev
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(forced, want))
+    if not err <= 1e-3 * scale:
+        _fail(f"sparseffn fp32: max|sparse - dense| = {err} > 1e-3 * "
+              f"{scale}")
+    print(f"[flags sparseffn fp32] all {len(forced)} steps' logits within "
+          f"{err / scale:.3e} max|logits| of the dense model whose gate / "
+          f"up weights are the payloads scattered and summed at their "
+          f"block-rows (bound 1e-3); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _forced_steps(step, model, params, seq) -> list:
+    """Every step's logits with ``seq`` fed token by token."""
+    import torch
+    cache = model.init_cache(seq.shape[0], seq.shape[1], device=seq.device)
+    pos = torch.empty((), dtype=torch.long, device=seq.device)
+    out = []
+    for t in range(seq.shape[1]):
+        logits, cache = step(params, cache, seq[:, t], pos.fill_(t))
+        out.append(logits.clone())
+    return out
+
+
+def _flags_padheads(card: str, dev, acc: dict, launches: dict) -> None:
+    """Phase 14 (b): ``padheads`` on deepseek-coder-33b, 4 layers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.exec.compress import compress_params, prune_params
+    from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import optflags
+    from repro_torch.models.transformer import Model
+    full = get_config("deepseek-coder-33b")
+    cfg = dataclasses.replace(full, n_layers=FLAG_PAD_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    marks = [time.perf_counter()]
+    with optflags.optimizations(("padheads",)):
+        model = Model(cfg)
+        params = model.init(seed=0, device=dev)
+        heads = params["blocks"]["attn"]["wq"].shape[-1] // cfg.head_dim
+        if heads != L.eff_heads(cfg.n_heads) or heads <= cfg.n_heads:
+            _fail(f"padheads: wq holds {heads} heads of {cfg.n_heads}")
+        pg = torch.Generator(device=dev).manual_seed(2)
+        prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                                device=dev)
+        print(f"[flags padheads] deepseek-coder-33b at full width, "
+              f"{FLAG_PAD_LAYERS} of {full.n_layers} layers (phase 11's "
+              f"cut): {cfg.n_heads} query heads padded to {heads} (wq "
+              f"{tuple(params['blocks']['attn']['wq'].shape[1:])}, wo "
+              f"{tuple(params['blocks']['attn']['wo'].shape[1:])}); batch "
+              f"{BATCH}, prompt {PROMPT}, {GEN} tokens, bf16")
+        serve.generate(model, params, prompts, GEN, PROMPT + GEN,
+                       device=dev)                         # the capture
+        times = {"graph": ([], []), "eager": ([], [])}
+        for _ in range(FLAG_RUNS):
+            for mode in ("graph", "eager"):
+                with compiled.disable() if mode == "eager" \
+                        else contextlib.nullcontext():
+                    _, t_pre, t_gen = serve.generate(
+                        model, params, prompts, GEN, PROMPT + GEN,
+                        device=dev)
+                times[mode][0].append(1e3 * t_pre)
+                times[mode][1].append(1e3 * t_gen / GEN)
+        for mode, (pre, dec) in times.items():
+            print(f"[flags padheads {mode}] prefill ms {_spread(pre)}; "
+                  f"decode ms/token {_spread(dec)}; {card}")
+        _graph_equals_eager(model, params, prompts,
+                            "deepseek-coder-33b padheads bf16")
+        prev = L.COMPUTE_DTYPE
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            toks, steps = compiled.greedy(compiled.CompiledStep(model),
+                                          model, params, prompts, GEN)
+            seq = torch.cat([prompts, toks[:, :GEN - 1]], dim=1)
+            want = _teacher_forced(model, params, seq,
+                                   slice(PROMPT, PROMPT + GEN - 1))
+            worst = _held_fp32("padheads fp32", steps, want, PROMPT)
+        finally:
+            L.COMPUTE_DTYPE = prev
+        print(f"[flags padheads fp32] all {len(steps)} decode steps "
+              f"(graphed, after the prefill) within {worst:.3e} "
+              f"max|logits| of the teacher-forced forward (bound 1e-3)")
+        marks.append(time.perf_counter())
+        # the compressed plane: the bitmap plan's wq blocks (1024 x 7168)
+        # do not tile the padded wq, which the reference refuses too; the
+        # 2:4 plan serves the padded weights through the N:M kernels
+        bitmap = serve._fast_plan(cfg, 64, serve.PLAN_SPARSITY["bitmap"])
+        try:
+            prune_params(params, bitmap, cfg)
+        except ValueError as e:
+            print(f"[flags padheads bitmap] refused before any launch, as "
+                  f"the reference refuses it: {e}")
+        else:
+            _fail("padheads: the bitmap plan's blocks tiled the padded wq")
+        plan = serve._fast_plan(cfg, 64, serve.PLAN_SPARSITY["nm"])
+        pruned = prune_params(params, plan, cfg)
+        store = compress_params(pruned, plan, cfg)
+        del params
+        cm = CompressedModel(Model(cfg), store)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        gen = torch.Generator(device=dev).manual_seed(11)
+        worst = 0.0
+        for role in ("attn.wq", "attn.wo"):
+            c = store.get(0, role).data
+            w = pruned["blocks"]["attn"][role.split(".")[1]][0]
+            for m in (M_DECODE, M_PREFILL):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, c.n), generator=gen,
+                                    device=dev).to(dtype)
+                    worst = max(worst, _run_case(
+                        acc, None, "nm_spmm", f"padheads {role}", x,
+                        _nm_case(c), w, log=False))
+        print(f"[flags padheads nm] nm_spmm, pipelined and naive, at the "
+              f"padded attn.wq {store.get(0, 'attn.wq').data.n} x "
+              f"{store.get(0, 'attn.wq').data.k} and attn.wo "
+              f"{store.get(0, 'attn.wo').data.n} x "
+              f"{store.get(0, 'attn.wo').data.k}, M = {M_DECODE} / "
+              f"{M_PREFILL}, x fp32 / bf16: within phase 3's tolerance "
+              f"(largest share {worst:.4f}), naive == pipelined")
+        marks.append(time.perf_counter())
+        expected = 7 * cfg.n_layers * (1 + GEN)
+        ops.reset_launch_counts()
+        toks_c, t_pre, t_gen = cm.generate(pruned, prompts, GEN, device=dev)
+        counts = ops.launch_counts()
+        if counts["nm_spmm"] != expected or \
+                sum(counts.values()) != expected:
+            _fail(f"padheads nm: launch counts {counts}, expected "
+                  f"{expected} of nm_spmm only")
+        launches["nm_spmm"] = launches.get("nm_spmm", 0) + expected
+    marks.append(time.perf_counter())
+    parts = [b - a for a, b in zip(marks, marks[1:])]
+    print(f"[flags padheads nm] served: {expected} launches of nm_spmm "
+          f"(7 x {cfg.n_layers} x (1 + {GEN})), none of any other; the "
+          f"capturing run's prefill {1e3 * t_pre:.1f} ms, decode "
+          f"{1e3 * t_gen / GEN:.3f} ms/token; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; seconds: "
+          f"dense serving and checks {parts[0]:.1f}, plans / prune / "
+          f"compress {parts[1]:.1f}, kernel checks {parts[2]:.1f}, "
+          f"compressed run {parts[3]:.1f}")
+
+
+def _flags_bf16params(card: str, dev) -> None:
+    """Phase 14 (c): ``bf16params`` on chatglm3-6b, all 28 layers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import bf16_params
+    from repro_torch.launch import serve
+    from repro_torch.models import optflags
+    from repro_torch.models.transformer import Model
+    cfg = get_config("chatglm3-6b")
+    torch.cuda.reset_peak_memory_stats()
+    with optflags.optimizations(("bf16params",)):
+        model = Model(cfg)
+        params = model.init(seed=0, device=dev)
+        cast = bf16_params(params)
+        pg = torch.Generator(device=dev).manual_seed(2)
+        prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                                device=dev)
+        first = {}
+        for name, p in (("bf16 params", cast), ("fp32 params", params)):
+            first[name] = serve.generate(model, p, prompts, GEN,
+                                         PROMPT + GEN, device=dev)[0]
+        times = {name: ([], []) for name in first}
+        for _ in range(FLAG_RUNS):
+            for name, p in (("bf16 params", cast), ("fp32 params", params)):
+                toks, t_pre, t_gen = serve.generate(
+                    model, p, prompts, GEN, PROMPT + GEN, device=dev)
+                if not torch.equal(toks, first[name]):
+                    _fail(f"bf16params {name}: tokens differ between runs")
+                times[name][0].append(1e3 * t_pre)
+                times[name][1].append(1e3 * t_gen / GEN)
+        _graph_equals_eager(model, cast, prompts,
+                            "chatglm3-6b bf16params")
+    agree = (first["bf16 params"] == first["fp32 params"]).float().mean()
+    print(f"[flags bf16params] chatglm3-6b at full width, all "
+          f"{cfg.n_layers} layers, params cast once to bf16 "
+          f"(convert.bf16_params) against fp32 params, bf16 compute; batch "
+          f"{BATCH}, prompt {PROMPT}, {GEN} tokens, graphed, "
+          f"{FLAG_RUNS} runs each in turns; greedy agreement "
+          f"{agree.item():.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    for name, (pre, dec) in times.items():
+        print(f"[flags bf16params {name}] prefill ms {_spread(pre)}; "
+              f"decode ms/token {_spread(dec)}")
+
+
+def _flags_mesh(card: str) -> None:
+    """Phase 14 (d): no serving mesh on one card; ``serve --mesh`` serves
+    the tokens of the run without it."""
+    import io
+    import torch
+    from repro_torch.launch import mesh, serve
+    if mesh.make_serve_mesh(BATCH) is not None:
+        _fail(f"make_serve_mesh({BATCH}) on {torch.cuda.device_count()} "
+              f"card(s) is not None")
+    argv = ["--arch", "chatglm3-6b", "--batch", str(BATCH), "--prompt-len",
+            "16", "--gen", "8"]
+    samples = []
+    for extra in ([], ["--mesh"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serve.main(argv + extra)
+        samples.append([line for line in out.getvalue().splitlines()
+                        if "sample out" in line])
+    if not samples[0] or samples[0] != samples[1]:
+        _fail(f"serve --mesh: {samples[1]} against {samples[0]}")
+    print(f"[flags mesh] make_serve_mesh({BATCH}) is None on "
+          f"{torch.cuda.device_count()} card; serve.main at full width with "
+          f"and without --mesh: {samples[0][0].strip()} both; {card}")
+
+
+def phase_flags(card: str, dev, acc: dict) -> dict[str, int]:
+    """Phase 14: the last optimization flags and the mesh (see the module
+    docstring).  Returns kernel -> launches of its served run."""
+    import gc
+    import torch
+    launches: dict[str, int] = {}
+    t_all = time.perf_counter()
+    for part, fn, args in (("sparseffn", _flags_sparseffn, (card, dev)),
+                           ("padheads", _flags_padheads,
+                            (card, dev, acc, launches)),
+                           ("bf16params", _flags_bf16params, (card, dev)),
+                           ("mesh", _flags_mesh, (card,))):
+        t0 = time.perf_counter()
+        fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[flags {part}] {time.perf_counter() - t0:.1f} s; after: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    print(f"[flags] phase 14 took {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3521,6 +3899,7 @@ def main() -> None:
     families_launches = timed("11", phase_families, card, dev, acc)
     timed("12", phase_dense_families, card, dev)
     timed("13", phase_train, card, dev)
+    flags_launches = timed("14", phase_flags, card, dev, acc)
     print("[time] wall seconds a phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; sum {sum(seconds.values()):.1f}")
@@ -3552,6 +3931,7 @@ def main() -> None:
                  "telemetry_launches": telemetry_launches.get(name, 0),
                  "search_launches": search_launches.get(name, 0),
                  "families_launches": families_launches.get(name, 0),
+                 "flags_launches": flags_launches.get(name, 0),
                  "max_abs_err": a.max_abs_err}
         for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
             s = a.sums[(cfg.name, m, torch.bfloat16)]
@@ -3584,6 +3964,7 @@ def main() -> None:
         "source": sources["flash_attention"][0],
         "replaces": sources["flash_attention"][1],
         "launches": flash["launches"], "families_launches": 0,
+        "flags_launches": 0,
         "max_abs_err": flash["max_abs_err"],
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "at")},

@@ -23,7 +23,7 @@ Usage (on the card; ``--device cpu`` runs the plain PyTorch versions)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
       [--reduced] --batch 4 --prompt-len 128 --gen 16 [--compressed \\
-      [--plan bitmap|nm]] [--eos ID] [--guarded [--deadline S]] \\
+      [--plan bitmap|nm]] [--mesh] [--eos ID] [--guarded [--deadline S]] \\
       [--mixer --slots 2 --temperature 0.8 --top-k 20 --deadline S] \\
       [--trace PATH] [--metrics PATH] [--device cuda]
 
@@ -67,6 +67,7 @@ from repro_torch.exec.compress import compress_params, prune_params
 from repro_torch.exec.dispatch import CompressedModel, instrument
 from repro_torch.exec.plans import ExecPlan, build_exec_plan
 from repro_torch.launch.compiled import CompiledStep
+from repro_torch.launch.mesh import Mesh, check_one_device, make_serve_mesh
 from repro_torch.launch.mixer import (Mixer, Request, ingest,
                                       prefill_request, write_slot)
 from repro_torch.models.transformer import Model
@@ -189,6 +190,7 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
 
 
 def generate(model, params, prompts, gen: int, max_len: int, *,
+             mesh: Optional[Mesh] = None,
              guarded: bool = False, eos_id: Optional[int] = None,
              pad_id: int = -1, prompt_pad_id: Optional[int] = None,
              device="cuda", **guard_kwargs):
@@ -201,7 +203,10 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
     to serve LEFT-padded ragged rows (each row prefills alone at its real
     length and decodes at its own position).  ``eos_id`` ends rows early:
     the EOS token is emitted, later positions hold ``pad_id``, and decode
-    stops once every row is done.
+    stops once every row is done.  A ``mesh``
+    (:mod:`repro_torch.launch.mesh`) of one device serves as ``None``
+    does; one of more devices raises ``NotImplementedError`` (the
+    reference shards the batch over it).
 
     ``guarded=True`` routes through the robustness layer
     (:func:`repro_torch.runtime.guard.guarded_generate`: store
@@ -216,13 +221,14 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
                 "guarded serving takes equal-length prompts; serve ragged "
                 "streams through repro_torch.launch.mixer")
         toks, report = guarded_generate(model, params, prompts, gen,
-                                        max_len, eos_id=eos_id,
+                                        max_len, mesh=mesh, eos_id=eos_id,
                                         pad_id=pad_id, device=device,
                                         **guard_kwargs)
         return toks, report.t_prefill_s, report.t_decode_s, report
     if guard_kwargs:
         raise TypeError(f"generate: {sorted(guard_kwargs)} need "
                         f"guarded=True")
+    check_one_device(mesh, "generate")
     dev = resolve(device)
     prompts = torch.as_tensor(prompts, device=dev).long()
     return _generate(model, params, prompts, gen, max_len, eos_id=eos_id,
@@ -283,6 +289,9 @@ def main(argv=None) -> None:
     ap.add_argument("--plan", choices=tuple(PLAN_SPARSITY), default="bitmap",
                     help="the sparsity model --compressed searches under: "
                          "block-pruned (bitmap kernels) or 2:4 (N:M)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="shard the request batch over available devices "
+                         "(one device: serves unsharded; more raise)")
     ap.add_argument("--guarded", action="store_true",
                     help="serve through the robustness layer (verify + "
                          "retry + dense degradation) and print the health "
@@ -331,6 +340,9 @@ def main(argv=None) -> None:
         fb = model.store.plan.fallback_counts()
         label += f" [compressed: ratio={ratio:.3f} fallbacks={fb or 'none'}]"
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    mesh = make_serve_mesh(args.batch, device=args.device) if args.mesh \
+        else None
+    check_one_device(mesh, "serve --mesh")
     rng = np.random.default_rng(0)
 
     # telemetry (--trace / --metrics): the contexts wrap the serving run
@@ -407,12 +419,12 @@ def main(argv=None) -> None:
     if args.guarded:
         toks, t_prefill, t_gen, report = generate(
             model, params, prompts, args.gen, args.prompt_len + args.gen,
-            guarded=True, deadline_s=args.deadline, eos_id=args.eos,
-            device=dev)
+            mesh=mesh, guarded=True, deadline_s=args.deadline,
+            eos_id=args.eos, device=dev)
     else:
         toks, t_prefill, t_gen = generate(
             model, params, prompts, args.gen, args.prompt_len + args.gen,
-            eos_id=args.eos, device=dev)
+            mesh=mesh, eos_id=args.eos, device=dev)
     n_pref = args.batch * args.prompt_len
     n_gen = args.batch * args.gen
     print(f"[serve] {label}: batch={args.batch} on {where}")

@@ -9,7 +9,11 @@ carrying the pipeline's state (:mod:`repro_torch.checkpoint.ckpt`),
 bounded retry through ``StepGuard`` and straggler monitoring.  The step
 runs eagerly; ``torch.cuda.synchronize()`` stands where the reference
 blocks on the loss, so a step's time is the device's.  The reference's
-mesh branch (more than one device) is not ported.
+mesh branch is the port's too: with more than one device to train on
+(``--device cuda`` on a host of several cards) :func:`main` makes the
+reference's (data 2, model 1) mesh and raises ``NotImplementedError`` for
+it, as :func:`train` does, since the port runs one process on one device;
+``--device cuda:N`` trains on card N alone.
 
 What the guard retries is the port's ``StepGuard``'s:
 ``NonFiniteError`` and ``KernelFault``, neither of which the dense eager
@@ -31,7 +35,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -41,6 +45,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import PipelineState, TokenPipeline
 from repro_torch.device import resolve, synchronize
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault import StepGuard, StragglerMonitor
@@ -82,9 +87,12 @@ class TrainRun:
 
 
 def train(cfg: ModelConfig, params: PyTree, args: argparse.Namespace,
-          device="cuda") -> TrainRun:
+          device="cuda", mesh: Optional[mesh_mod.Mesh] = None) -> TrainRun:
     """The reference's training loop from ``params`` (``args`` as
-    :func:`main` parses them), printing its lines."""
+    :func:`main` parses them), printing its lines.  A ``mesh`` of more
+    than one device raises ``NotImplementedError``; one of one device
+    trains as ``None`` does."""
+    mesh_mod.check_one_device(mesh, "train")
     dev = resolve(device)
     model = Model(cfg)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
@@ -175,8 +183,13 @@ def main(argv=None) -> TrainRun:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    n_dev = len(mesh_mod.devices(args.device))
+    mesh = mesh_mod.make_small_mesh(data=min(2, n_dev), model=1,
+                                    device=args.device) if n_dev > 1 \
+        else None
+    mesh_mod.check_one_device(mesh, "train")
     params = Model(cfg).init(seed=0, device=args.device)
-    return train(cfg, params, args, device=args.device)
+    return train(cfg, params, args, device=args.device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,18 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         .reshape(b, s, h * n_rep, d)
 
 
+def _kv_rep(nh: int, nk: int) -> int:
+    """Query heads per KV head.  A count that is no multiple of the KV
+    heads (``padheads`` on whisper-tiny: 6 heads padded to 16 over 6 KV
+    heads) raises ``ValueError``: the reference's shapes do not meet
+    there either."""
+    nk = max(nk, 1)
+    if nh % nk:
+        raise ValueError(f"{nh} query heads do not group over {nk} KV "
+                         f"heads")
+    return nh // nk
+
+
 def _scale(d: int, dtype: torch.dtype) -> float:
     """``1/√d`` rounded to ``dtype`` (:func:`layers.const`): the reference
     multiplies its compute-dtype scores by a weakly typed Python float;
@@ -155,7 +167,8 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     ``return_kv=True`` also returns the post-RoPE, pre-GQA-repeat (K, V):
     what :func:`attention_decode_block` writes into the decode cache."""
     b, s, _ = x.shape
-    nh, nk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nh, nk, hd = L.eff_heads(cfg.n_heads), cfg.n_kv_heads, cfg.head_dim
+    rep = _kv_rep(nh, nk)
     q = L.proj(x, p["wq"], "attn.wq").reshape(b, s, nh, hd)
     if kv_override is None:
         k = L.proj(x, p["wk"], "attn.wk").reshape(b, s, nk, hd)
@@ -168,7 +181,6 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
         k = L.proj(xkv, p["wk"], "attn.wk").reshape(b, skv, nk, hd)
         v = L.proj(xkv, p["wv"], "attn.wv").reshape(b, skv, nk, hd)
     q = L.apply_rope(q, positions, freqs)
-    rep = nh // max(nk, 1)
     o = chunked_attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
                           causal=causal, window=window)
     out = L.proj(o.reshape(b, s, nh * hd), p["wo"], "attn.wo")
@@ -195,7 +207,8 @@ def attention_decode_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     :func:`decode_attention_gqa`, else :func:`decode_attention` over the
     repeated caches.  Returns the block output (B, d)."""
     b, _ = x.shape
-    nh, nk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nh, nk, hd = L.eff_heads(cfg.n_heads), cfg.n_kv_heads, cfg.head_dim
+    rep = _kv_rep(nh, nk)
     if cache_pos is None:
         cache_pos = pos
     q = L.proj(x, p["wq"], "attn.wq")
@@ -214,7 +227,6 @@ def attention_decode_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     if optflags.enabled("gqagroup"):
         o = decode_attention_gqa(q, k_cache, v_cache, length)
     else:
-        rep = nh // max(nk, 1)
         o = decode_attention(q, _repeat_kv(k_cache, rep),
                              _repeat_kv(v_cache, rep), length)
     return L.proj(o.reshape(b, nh * hd), p["wo"], "attn.wo")

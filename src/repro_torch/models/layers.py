@@ -19,9 +19,20 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import optflags
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
+
+TP_DEGREE = 16   # production model-axis size (padheads rounds up to this)
+
+
+def eff_heads(n: int) -> int:
+    """Head count after the optional pad to a multiple of ``TP_DEGREE``
+    (optflag ``padheads``)."""
+    if optflags.enabled("padheads") and n % TP_DEGREE:
+        return ((n // TP_DEGREE) + 1) * TP_DEGREE
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -93,10 +104,26 @@ def current_layer_ctx() -> Any:
     return _LAYER_CTX
 
 
+class _MetaGenerator:
+    """Stands for a generator on the meta device, which has none: a draw
+    there is a shape and a dtype only."""
+    device = torch.device("meta")
+
+
+def generator(device: torch.device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (on the
+    meta device, a stand-in whose draws allocate nothing)."""
+    if device.type == "meta":
+        return _MetaGenerator()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def _init(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
     """Normal(0, 1/fan_in) weights drawn on ``gen``'s device."""
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=PARAM_DTYPE)
+    w = torch.randn(shape, device=gen.device, dtype=PARAM_DTYPE,
+                    generator=None if gen.device.type == "meta" else gen)
     return w.div_(math.sqrt(max(fan_in, 1)))
 
 
@@ -328,8 +355,10 @@ def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def attn_params(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
-    """Attention weights with optional leading (layer) dims."""
-    d, h, nk, nh = cfg.d_model, cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    """Attention weights with optional leading (layer) dims; ``wq`` /
+    ``wo`` at the :func:`eff_heads` width."""
+    d, h, nk = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
+    nh = eff_heads(cfg.n_heads)
     lead = tuple(lead)
     return {
         "wq": _init(gen, lead + (d, nh * h), d),
@@ -337,3 +366,57 @@ def attn_params(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
         "wv": _init(gen, lead + (d, nk * h), d),
         "wo": _init(gen, lead + (nh * h, d), nh * h),
     }
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse FFN (decode only, optflag 'sparseffn')
+# ---------------------------------------------------------------------------
+
+def sparse_mlp_params(gen: torch.Generator, cfg: ModelConfig, lead=(),
+                      density: float = 0.25, bn: int = 128, bk: int = 128
+                      ) -> dict:
+    """FFN gate / up weights stored as the reference's block payloads:
+    per block-column ``gk = d_ff // bk`` a padded payload of ``T = max(1,
+    int(gn · density))`` blocks ``(bn, bk)`` (``gn = d_model // bn``) and
+    their block-row ids, which are zeros, as the reference's are; ``w_down``
+    stays dense; ``_meta`` holds ``[bn, bk]`` (int32)."""
+    d, f = cfg.d_model, cfg.d_ff
+    gn, gk = d // bn, f // bk
+    t = max(1, int(gn * density))
+    lead = tuple(lead)
+    dev = gen.device
+    rows = torch.zeros(lead + (gk, t), dtype=torch.int32, device=dev)
+    return {
+        "payload_gate": init_scaled(gen, lead, (gk, t, bn, bk),
+                                    scale_axis=2),
+        "rows_gate": rows,
+        "payload_up": init_scaled(gen, lead, (gk, t, bn, bk),
+                                  scale_axis=2),
+        "rows_up": rows.clone(),
+        "w_down": _init(gen, lead + (f, d), f),
+        "_meta": torch.tensor([bn, bk], dtype=torch.int32, device=dev)
+        .expand(lead + (2,)).clone(),
+    }
+
+
+def _bsp_matmul(x: torch.Tensor, payload: torch.Tensor, rows: torch.Tensor
+                ) -> torch.Tensor:
+    """x: (B, N); payload: (gk, T, bn, bk); rows: (gk, T) block-row ids.
+    Gathers the ``bn``-wide slices of x at each block's row id and sums
+    each block-column's T products: ``bgtn,gtnk->bgk`` with the payload in
+    the compute dtype.  Returns (B, gk·bk)."""
+    b, n = x.shape
+    gk, t, bn, bk = payload.shape
+    xsel = x.reshape(b, n // bn, bn).index_select(1, rows.reshape(-1))
+    y = torch.einsum("bgtn,gtnk->bgk", xsel.reshape(b, gk, t, bn),
+                     payload.to(COMPUTE_DTYPE))
+    return y.reshape(b, gk * bk)
+
+
+def sparse_mlp_decode(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Single-token SwiGLU FFN over block-stored gate / up weights
+    (:func:`sparse_mlp_params`); ``w_down`` is a plain dense product,
+    which no plan dispatches."""
+    g = _bsp_matmul(x, p["payload_gate"], p["rows_gate"])
+    u = _bsp_matmul(x, p["payload_up"], p["rows_up"])
+    return dense(silu(g) * u, p["w_down"])

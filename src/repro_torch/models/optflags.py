@@ -2,32 +2,51 @@
 ``repro.models.optflags`` (the same eight names, thread-local, off by
 default; an unknown flag raises ``ValueError``).
 
-Each flag is one of three things in the port, so that a flag either
-computes what the reference computes on one device or raises:
+Under each flag the port computes what the reference computes on one
+device, and raises where the reference raises:
 
-  gqagroup   — implemented: decode attention per KV-head group over the
-               cache in its stored layout
+  gqagroup   — decode attention per KV-head group over the cache in its
+               stored layout
                (:func:`repro_torch.models.attention.decode_attention_gqa`),
                with no ``_repeat_kv`` copy of either cache.
-  maskedkv   — implemented by the port's default: the reference's one-hot
-               masked blend writes the new K / V at the cache position and
-               keeps every other slot, which is what the port's in-place
+  maskedkv   — the port's default: the reference's one-hot masked blend
+               writes the new K / V at the cache position and keeps every
+               other slot, which is what the port's in-place
                ``index_put_`` writes with or without the flag.
-  padheads   — inert where it changes no head count (a multiple of
-               ``TP_DEGREE``, as chatglm3-6b's 32 heads); raises
-               ``NotImplementedError`` where it would pad one
-               (:func:`check_served`), as on the reduced config's 4.
-  saveremat  — implemented in training: the remat of ``Model.loss``
-               keeps the residual stream at each block's attention and FFN
-               outputs (the reference's ``ar_out``) and recomputes the rest
+  padheads   — the query head count is padded up to a multiple of
+               ``TP_DEGREE`` (:func:`repro_torch.models.layers.eff_heads`;
+               56 to 64, the reduced configs' 4 to 16): ``wq`` / ``wo`` are
+               drawn at the padded width, with real random weights in the
+               padded heads, and every attention path reads that width.
+               The compressed plane prunes, compresses and serves the
+               padded weights through the kernels, as the reference does.
+               Where the reference's shapes do not meet (the
+               encoder-decoder's cross-attention decode reshapes with the
+               unpadded count; a padded count that is no multiple of the KV
+               heads) the port raises ``ValueError`` too.
+  saveremat  — training: the remat of ``Model.loss`` keeps the residual
+               stream at each block's attention and FFN outputs (the
+               reference's ``ar_out``) and recomputes the rest
                (:func:`repro_torch.models.transformer._run_body`); it
                changes no value, and serving (no grad) never reads it.
-  replkv,    — inert: they act on a TP mesh, which the port does not have;
-  seqpar       on one device the reference's are inert too.
-  sparseffn, — raise ``NotImplementedError`` from the model entry points
-  bf16params   while active (:func:`check_served`): they change what the
-               reference serves on one device (the bitmap-stored FFN
-               params, bf16 params), which the port does not have yet.
+  sparseffn  — ``Model.init`` gives every ``sparse_ffn`` config without
+               ``moe`` block-stored FFN params
+               (:func:`repro_torch.models.layers.sparse_mlp_params`), which
+               ``decode_step`` multiplies by gather and einsum
+               (:func:`repro_torch.models.layers.sparse_mlp_decode`).  The
+               full-sequence paths (``prefill``, ``hidden_states``,
+               ``loss``, and so ``generate``'s prefill) meet no ``w_gate``
+               there and raise ``KeyError``, as the reference's do.
+  replkv     — read by :func:`repro_torch.models.partition.param_specs`
+               only: K / V projections whose head count does not divide
+               the model axis get replicated specs.
+  seqpar     — acts on a sharded residual stream, which one device does
+               not have; inert, as the reference's is on one device.
+  bf16params — read by the reference's dry run only, which casts every
+               floating param to bf16 before tracing its decode cell
+               (:func:`repro_torch.convert.bf16_params` is that cast);
+               inert at the model entry points and in the compressed
+               plane.
 """
 
 from __future__ import annotations
@@ -39,12 +58,6 @@ _state = threading.local()
 
 ALL_FLAGS = ("padheads", "replkv", "saveremat", "maskedkv", "sparseffn",
              "seqpar", "gqagroup", "bf16params")
-
-#: production model-axis size: ``padheads`` rounds head counts up to it
-TP_DEGREE = 16
-
-#: flags whose serving the port lacks
-UNSERVED = ("sparseffn", "bf16params")
 
 
 def active() -> frozenset:
@@ -68,16 +81,3 @@ def optimizations(flags):
     finally:
         _state.flags = prev
 
-
-def check_served(n_heads: int) -> None:
-    """Raise ``NotImplementedError`` if an active flag would change what a
-    model of ``n_heads`` attention heads serves in a way the port does not
-    compute: ``sparseffn``, ``bf16params``, or ``padheads`` where it pads
-    the head count."""
-    on = sorted(set(UNSERVED) & active())
-    if on:
-        raise NotImplementedError(f"optimization flags {on} are not ported")
-    if enabled("padheads") and n_heads % TP_DEGREE:
-        raise NotImplementedError(
-            f"padheads would pad {n_heads} heads to a multiple of "
-            f"{TP_DEGREE}; the port serves unpadded heads only")

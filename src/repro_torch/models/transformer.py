@@ -30,6 +30,13 @@ the reference wraps in ``jax.checkpoint`` runs under
 points instead, so that only the residual stream at the attention and FFN
 outputs is kept for the backward pass.  Remat changes no value.
 
+Under optflag ``sparseffn`` the ``sparse_ffn`` configs without ``moe``
+get block-stored FFN params (:func:`repro_torch.models.layers.sparse_mlp_params`),
+which ``decode_step`` alone serves: the full-sequence paths meet no
+``w_gate`` and raise ``KeyError``, as the reference's do.  Under
+``padheads`` the attention weights and paths take the padded head count
+(:func:`repro_torch.models.layers.eff_heads`).
+
 Two behaviours are the reference's and kept as they are: a uniform stack
 with a ``window`` gets a ``max_len``-long cache (its decode attends over
 the whole prefix, while ``hidden_states`` masks to the window), and the
@@ -284,11 +291,6 @@ class Model:
     def __post_init__(self):
         _check_served(self.cfg)
 
-    def _check_flags(self) -> None:
-        """Raise for an active optimization flag the port does not serve
-        (:func:`repro_torch.models.optflags.check_served`)."""
-        optflags.check_served(self.cfg.n_heads)
-
     # ---------------- params ----------------
     def _layer_params(self, gen, kind: str, lead) -> dict:
         cfg = self.cfg
@@ -301,8 +303,12 @@ class Model:
             if kind == "cross":
                 p["cross"] = L.attn_params(gen, cfg, lead=lead)
                 p["ln3"] = torch.zeros(lead + (cfg.d_model,), **zeros)
-            p["ffn"] = (moe_mod.moe_params if cfg.moe else L.mlp_params)(
-                gen, cfg, lead=lead)
+            if cfg.moe:
+                p["ffn"] = moe_mod.moe_params(gen, cfg, lead=lead)
+            elif optflags.enabled("sparseffn") and cfg.sparse_ffn:
+                p["ffn"] = L.sparse_mlp_params(gen, cfg, lead=lead)
+            else:
+                p["ffn"] = L.mlp_params(gen, cfg, lead=lead)
         elif kind == "rec":
             p["rec"] = rg.rglru_params(gen, cfg, lead=lead)
             p["ffn"] = L.mlp_params(gen, cfg, lead=lead)
@@ -319,12 +325,11 @@ class Model:
         reference's tree: layers stacked along leading axes (gemma3's
         local layers ``(n_super, 5, ...)``), a MoE layer's ``ffn`` the
         router ``(L, d, E)`` and the experts ``(L, E, d, f)`` /
-        ``(L, E, f, d)``."""
-        self._check_flags()
+        ``(L, E, f, d)``.  On the meta device the tree has the shapes
+        and dtypes only."""
         cfg = self.cfg
         dev = resolve(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = L.generator(dev, seed)
         d = cfg.d_model
         params: dict = {
             "embed": L._init(gen, (cfg.vocab, d), d),
@@ -371,7 +376,6 @@ class Model:
         d).  ``remat`` (the reference's default too) checkpoints every
         layer body while grad is enabled (:func:`_run_body`); it changes
         no value, and without grad it does nothing."""
-        self._check_flags()
         cfg = self.cfg
         mode = _remat_mode(remat)
         dev = tokens.device
@@ -461,7 +465,6 @@ class Model:
         (logits (B, S, V) float32, cache).  Uniform full-attention stacks
         only, as in the reference: ring windows and the recurrent and
         encoder-decoder families ingest token by token."""
-        self._check_flags()
         cfg = self.cfg
         if not _uniform_stack(cfg) or cfg.window:
             raise NotImplementedError(
@@ -544,7 +547,6 @@ class Model:
         With ``pos`` a tensor on the tokens' device the step reads nothing
         back to the host and copies nothing to the device, so a CUDA graph
         can capture it (:mod:`repro_torch.launch.compiled`)."""
-        self._check_flags()
         cfg = self.cfg
         _check_family(cfg)
         dev = tokens.device
@@ -563,8 +565,11 @@ class Model:
             h = h + attn.attention_decode_block(hn, p["attn"], cfg, freqs,
                                                 pos, kc, vc, cache_pos)
             hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-            return h + (moe_mod.moe_decode(hn, p["ffn"], cfg) if cfg.moe
-                        else L.mlp(hn, p["ffn"]))
+            if cfg.moe:
+                return h + moe_mod.moe_decode(hn, p["ffn"], cfg)
+            if "payload_gate" in p["ffn"]:
+                return h + L.sparse_mlp_decode(hn, p["ffn"])
+            return h + L.mlp(hn, p["ffn"])
 
         def rec_step(h, p, i):
             hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
@@ -612,6 +617,13 @@ class Model:
             sk, sv = cache["self"]["k"], cache["self"]["v"]
             ck, cv = cache["cross"]["k"], cache["cross"]["v"]
             rep = cfg.n_heads // max(cfg.n_kv_heads, 1)
+            wq_width = params["blocks"]["cross"]["wq"].shape[-1]
+            if wq_width != cfg.n_heads * cfg.head_dim:
+                # padheads: the reference reshapes the padded query with
+                # the unpadded head count, and its shapes do not meet
+                raise ValueError(
+                    f"cross-attention decode takes {cfg.n_heads} heads of "
+                    f"{cfg.head_dim}; wq is {wq_width} wide")
             # every encoder position is valid
             enc_len = torch.full((), ck.shape[2], dtype=torch.long,
                                  device=dev)

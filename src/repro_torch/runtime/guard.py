@@ -212,8 +212,8 @@ def guarded_generate(model, params, prompts, gen: int,
                      dense_model=None, verify: bool = True,
                      deadline_s: Optional[float] = None,
                      max_retries: int = 1, pad_id: int = -1,
-                     eos_id: Optional[int] = None, device="cuda"
-                     ) -> tuple[torch.Tensor, HealthReport]:
+                     eos_id: Optional[int] = None, mesh=None,
+                     device="cuda") -> tuple[torch.Tensor, HealthReport]:
     """Greedy batched generation with the full robustness layer, on
     ``device``.
 
@@ -225,8 +225,13 @@ def guarded_generate(model, params, prompts, gen: int,
     before ``deadline_s`` hold ``pad_id``.  With ``eos_id``, a row's
     tokens after its EOS hold ``pad_id`` and decode stops early once EVERY
     row has emitted EOS (``report.eos_hit``) instead of burning the
-    remaining steps.  The reference's ``mesh`` has no counterpart yet."""
+    remaining steps.  A ``mesh`` of one device serves as ``None`` does;
+    one of more devices raises ``NotImplementedError`` before anything is
+    verified or served."""
     from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.launch.mesh import check_one_device
+
+    check_one_device(mesh, "guarded_generate")
 
     t_start = time.perf_counter()
     dev = resolve(device)

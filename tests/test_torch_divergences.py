@@ -1,6 +1,9 @@
 """Deliberate divergences from the reference, pinned (ROADMAP.md, Queue
 3): inputs the port's CUDA entries refuse and the reference computes; the
-telemetry's counts and seconds; the optimization flags the port refuses.
+telemetry's counts and seconds; a mesh of more than one device, which the
+port refuses; the errors ``padheads`` raises where the padded heads do
+not group over the KV heads and where a plan's blocks do not tile the
+padded weights.
 
 N:M groups wider than 32 (``kernels/nm_spmm.py::MAX_M_GROUP``: the CUDA
 kernels stage 32-column runs) are refused by both N:M entries with a
@@ -298,13 +301,57 @@ def test_kernel_timer_reads_device_events_at_exit(monkeypatch):
     assert hist["count"] == 3 and hist["sum"] == pytest.approx(0.0075)
 
 
-@pytest.mark.parametrize("flag", ["sparseffn", "bf16params", "padheads"])
-def test_flags_the_port_does_not_compute_raise(flag):
-    """Where the reference computes under these flags on reduced
-    chatglm3-6b (the bitmap-stored FFN params; bf16 params, which only its
-    dry run reads; heads padded from 4 to 16), the port's model entry
-    points raise ``NotImplementedError``: it never serves something else
-    under a flag's name."""
+@pytest.mark.parametrize("entry", ["generate", "guarded_generate",
+                                   "serve --mesh", "train", "shard"])
+def test_a_mesh_of_more_than_one_device_raises(entry, monkeypatch):
+    """The reference shards over a mesh of several devices; the port runs
+    one process on one device and raises ``NotImplementedError`` before it
+    serves or trains anything, never running unsharded in its place.  Four
+    devices are stood in for by stubbing ``mesh.devices``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh, serve, train
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import Model
+    monkeypatch.setattr(mesh, "devices",
+                        lambda device="cuda": [torch.device("cpu")] * 4)
+    four = mesh.make_serve_mesh(4, device="cpu")
+    assert four.shape == (4, 1)
+    cfg = get_config("chatglm3-6b").reduced()
+    model = Model(cfg)
+    params = model.init(seed=0, device="cpu")
+    prompts = torch.zeros((4, 4), dtype=torch.long)
+    calls = {
+        "generate": lambda: serve.generate(model, params, prompts, 2, 8,
+                                           mesh=four, device="cpu"),
+        "guarded_generate": lambda: serve.generate(
+            model, params, prompts, 2, 8, mesh=four, guarded=True,
+            device="cpu"),
+        "serve --mesh": lambda: serve.main([
+            "--arch", "chatglm3-6b", "--reduced", "--batch", "4",
+            "--prompt-len", "4", "--gen", "2", "--mesh", "--device", "cpu"]),
+        "train": lambda: train.main([
+            "--arch", "chatglm3-6b", "--reduced", "--steps", "1",
+            "--batch", "2", "--seq", "8", "--device", "cpu"]),
+    }
+    if entry == "shard":
+        with four, sharding.logical_axis_rules(mesh.axis_map_for(four)):
+            with pytest.raises(NotImplementedError, match="one device"):
+                sharding.shard(torch.ones(4, 2), "batch", None)
+        return
+    # the reference's training mesh is (data 2, model 1)
+    n = 2 if entry == "train" else 4
+    with pytest.raises(NotImplementedError, match=f"{n} devices"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["loss", "decode_step"])
+def test_padded_heads_the_kv_heads_do_not_group_raise_value_error(entry):
+    """whisper-tiny under ``padheads``: 6 query heads padded to 16 over 6
+    KV heads.  Both packages fail: the reference with a ``TypeError``
+    (a reshape) in its full-sequence attention and a ``ValueError`` (an
+    einsum) at decode; the port with a ``ValueError`` in both, naming the
+    head counts (at decode, first the cross-attention's query width).
+    Shapes only: meta tensors on the port's side."""
     import jax
     from repro.configs import get_config as rget_config
     from repro.models import optflags as roptflags
@@ -312,15 +359,76 @@ def test_flags_the_port_does_not_compute_raise(flag):
     from repro_torch.configs import get_config
     from repro_torch.models import optflags
     from repro_torch.models.transformer import Model
-    rcfg = rget_config("chatglm3-6b").reduced()
-    with roptflags.optimizations((flag,)):
-        model = RModel(rcfg)
-        params = model.init(jax.random.key(0))
-        logits, _ = model.decode_step(params, model.init_cache(2, 8),
-                                      jnp.array([1, 2], jnp.int32),
-                                      jnp.asarray(0, jnp.int32))
-        assert bool(jnp.all(jnp.isfinite(logits)))
-    with optflags.optimizations((flag,)):
-        with pytest.raises(NotImplementedError, match=flag):
-            Model(get_config("chatglm3-6b").reduced()).init(seed=0,
-                                                            device="cpu")
+    rcfg, cfg = rget_config("whisper-tiny"), get_config("whisper-tiny")
+    flags = ("padheads",)
+    with roptflags.optimizations(flags):
+        rmodel = RModel(rcfg)
+        rparams = jax.eval_shape(lambda: rmodel.init(jax.random.key(0)))
+        if entry == "loss":
+            batch = {"tokens": jax.ShapeDtypeStruct((1, 8), jnp.int32),
+                     "labels": jax.ShapeDtypeStruct((1, 8), jnp.int32),
+                     "enc_frames": jax.ShapeDtypeStruct(
+                         (1, rcfg.enc_seq, rcfg.d_model), jnp.float32)}
+            with pytest.raises(TypeError, match="reshape"):
+                jax.eval_shape(rmodel.loss, rparams, batch)
+        else:
+            cache = jax.eval_shape(lambda: rmodel.init_cache(2, 8))
+            with pytest.raises(ValueError):
+                jax.eval_shape(rmodel.decode_step, rparams, cache,
+                               jax.ShapeDtypeStruct((2,), jnp.int32),
+                               jax.ShapeDtypeStruct((), jnp.int32))
+    meta = torch.device("meta")
+    with optflags.optimizations(flags):
+        model = Model(cfg)
+        params = model.init(device="meta")
+        match = "16 query heads do not group over 6 KV heads" \
+            if entry == "loss" else "cross-attention decode takes 6 heads"
+        with pytest.raises(ValueError, match=match):
+            if entry == "loss":
+                tokens = torch.zeros((1, 8), dtype=torch.long, device=meta)
+                model.loss(params, {
+                    "tokens": tokens, "labels": tokens,
+                    "enc_frames": torch.zeros((1, cfg.enc_seq, cfg.d_model),
+                                              device=meta)})
+            else:
+                model.decode_step(params,
+                                  model.init_cache(2, 8, device="meta"),
+                                  torch.zeros(2, dtype=torch.long,
+                                              device=meta), 0)
+
+
+def test_padded_weights_the_plans_blocks_do_not_tile_raise_value_error():
+    """deepseek-coder-33b under ``padheads``: the bitmap plan (searched on
+    the unpadded roles) stores wq in 1024 x 7168 blocks, which do not tile
+    the padded 7168 x 8192 wq.  Both packages refuse the plan before any
+    kernel runs: the reference's ``block_prune`` with an
+    ``AssertionError``, the port's with a ``ValueError`` naming the block
+    and the weight.  Shapes only (one layer): meta tensors on the port's
+    side."""
+    import jax
+    from repro import exec as rexec
+    from repro.configs import get_config as rget_config
+    from repro.models import optflags as roptflags
+    from repro.models.transformer import Model as RModel
+    from repro_torch import exec as texec
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import optflags
+    from repro_torch.models.transformer import Model
+    rcfg = dataclasses.replace(rget_config("deepseek-coder-33b"), n_layers=1)
+    cfg = dataclasses.replace(get_config("deepseek-coder-33b"), n_layers=1)
+    plan = serve._fast_plan(cfg, 64, serve.PLAN_SPARSITY["bitmap"])
+    wq = next(op.choice for op in plan.ops if op.role == "attn.wq")
+    assert (wq.block_n, wq.block_k) == (1024, 7168)
+    rplan = rexec.ExecPlan.from_json(plan.to_json())
+    with roptflags.optimizations(("padheads",)):
+        rparams = jax.eval_shape(lambda: RModel(rcfg).init(
+            jax.random.key(0)))
+        with pytest.raises(AssertionError):
+            jax.eval_shape(lambda p: rexec.prune_params(p, rplan, rcfg),
+                           rparams)
+    with optflags.optimizations(("padheads",)):
+        params = Model(cfg).init(device="meta")
+        with pytest.raises(ValueError, match=r"block \(1024, 7168\) does "
+                                             r"not tile \(7168, 8192\)"):
+            texec.prune_params(params, plan, cfg)

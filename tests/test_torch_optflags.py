@@ -9,8 +9,12 @@ at fp32 to 1e-4 (``tests/test_serve.py``'s bound, as
 ``test_torch_models.py``); at bf16 to ``test_torch_bf16.py``'s bound, the
 reference's own jit-vs-eager spread plus one bf16 ulp of max|logits|.
 ``maskedkv`` is parametrised with ``gqagroup`` as in
-``tests/test_optflags.py::test_decode_flags_preserve_logits``.  The flags
-the port does not compute raise; the inert ones change nothing.
+``tests/test_optflags.py::test_decode_flags_preserve_logits``.  The mesh
+and training flags change nothing on the serving path.
+
+``sparseffn``, ``padheads`` and ``bf16params`` are held to the reference
+in ``test_torch_sparseffn.py``, ``test_torch_padheads.py`` and
+``test_torch_bf16params.py``.
 """
 
 import math
@@ -171,34 +175,3 @@ def test_mesh_and_training_flags_are_inert_on_the_serving_path(reduced,
     toks = _tokens(cfg.vocab)
     assert np.array_equal(_port_logits(cfg, params, toks, (flag,), True),
                           _port_logits(cfg, params, toks, (), True))
-
-
-@pytest.mark.parametrize("flag", ["sparseffn", "bf16params"])
-def test_flags_the_port_does_not_serve_raise(reduced, flag):
-    _, cfg, _, params = reduced
-    model = Model(cfg)
-    toks = torch.from_numpy(_tokens(cfg.vocab))
-    with optflags.optimizations((flag,)):
-        with pytest.raises(NotImplementedError, match=flag):
-            model.init(seed=0, device="cpu")
-        with pytest.raises(NotImplementedError, match=flag):
-            model.prefill(params, toks, 16)
-        with pytest.raises(NotImplementedError, match=flag):
-            model.logits(params, toks)
-        cache = model.init_cache(2, 16, device="cpu")
-        with pytest.raises(NotImplementedError, match=flag):
-            model.decode_step(params, cache, toks[:, 0], 0)
-
-
-def test_padheads_raises_only_where_it_pads(reduced):
-    """chatglm3-6b's 32 heads are a multiple of the TP degree (16): padding
-    changes nothing, as in the reference's ``eff_heads``; the reduced
-    config's 4 heads would be padded to 16, which the port refuses."""
-    _, cfg, _, params = reduced
-    with optflags.optimizations(("padheads",)), \
-            roptflags.optimizations(("padheads",)):
-        assert RL.eff_heads(32) == 32 and RL.eff_heads(4) == 16
-        optflags.check_served(get_config("chatglm3-6b").n_heads)
-        with pytest.raises(NotImplementedError, match="padheads"):
-            Model(cfg).prefill(params, torch.zeros((1, 4), dtype=torch.long),
-                               8)
