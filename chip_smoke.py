@@ -188,7 +188,7 @@ non-zero exit code when it fails:
    and the calibrated plan must come back from its JSON equal, with its
    hardware resolved;
 11. every other model the compressed plane serves (``repro_torch.configs``:
-   granite-moe-3b-a800m with all 32 layers on the bitmap and the 2:4
+   granite-moe-3b-a800m cut to 16 of 32 layers on the bitmap and the 2:4
    plan; qwen3-moe-30b-a3b, deepseek-coder-33b, internlm2-20b and
    pixtral-12b cut to 4 layers, whose full depth does not fit the card
    with fp32 params beside a pruned copy and a store; full width,
@@ -278,7 +278,22 @@ non-zero exit code when it fails:
    params, in turns (ms/token, greedy agreement, peak memory), graph ==
    eager on the cast params; (d) ``make_serve_mesh(4)`` is ``None`` on
    one card and ``serve.main`` gives the same tokens with ``--mesh`` as
-   without.
+   without;
+15. the dry run (``repro_torch.launch.dryrun``, ``launch.op_cost``) on
+   this machine without JAX: (a) its CLI on ``DRYRUN_CELLS`` (chatglm3-6b
+   train_4k and decode_32k, mamba2-780m prefill_32k and long_500k) at
+   full width on the single production mesh, each record ``ok`` with its
+   trace seconds, the step's FLOPs and bytes and the per-device argument
+   and output bytes printed; (b) phase 13's cell on a one-device mesh
+   (chatglm3-6b cut to ``TRAIN_LAYERS``, batch ``TRAIN_BATCH`` x
+   ``TRAIN_SEQ``, bf16, remat, AdamW): the FLOPs and bytes traced at that
+   depth on the meta device must equal those extrapolated from 1 and 2
+   layers, the FLOPs counted over one real step on the card must equal
+   the meta count, and the predicted peak may fall short of phase 13's
+   measured ``max_memory_allocated`` by at most ``PEAK_SHORTFALL``
+   (10 %); the achieved TFLOP/s (the counted FLOPs over phase 13's median
+   step) printed beside the card's name and power limit.  None of the
+   five kernels may launch in the phase.
 
 The line before the last is one JSON object describing every kernel (its
 launches in phases 5-11 and 14, each counted from zero before the
@@ -339,15 +354,21 @@ CLI_MIXER = ("mixer_admissions_total", "mixer_decode_step_seconds",
              "straggler_ewma_seconds", "straggler_flagged_total")
 TIMING_SERIES = ("mixer_straggler_spikes_total",)
 # phase 11: every model the compressed plane serves beside chatglm3-6b:
-# (arch, layers on the card, 0 for all of them; the plans it serves)
+# (arch, layers on the card, 0 for all of them; the plans it serves).
+# granite-moe-3b-a800m keeps 16 of its 32 layers: on an H100 80GB HBM3 at
+# 700 W it took 81.2 s of the phase at 32 and 41.6 s at 16, and phase 15
+# needed the room
 FAMILIES = (
-    ("granite-moe-3b-a800m", 0, ("bitmap", "nm")),
+    ("granite-moe-3b-a800m", 16, ("bitmap", "nm")),
     ("qwen3-moe-30b-a3b", 4, ("bitmap",)),
     ("deepseek-coder-33b", 4, ("bitmap",)),
     ("internlm2-20b", 4, ("bitmap",)),
     ("pixtral-12b", 4, ("bitmap",)),
 )
 FAMILY_RUNS = 3              # serving runs a mode
+# the model of phase 11 that also serves phase 6's stream and a guarded run
+# with a flipped expert bit
+FAMILY_STREAM = "granite-moe-3b-a800m"
 FAMILY_MS = (M_DECODE, MIX_WIDE, M_PREFILL)
 # the relative gap between two experts' fp32 gates below which the
 # attention kernels' summation order may swap them in a MoE router (a few
@@ -391,6 +412,15 @@ FLAG_INGEST, FLAG_RUNS, FLAG_PAD_LAYERS = 16, 3, 4
 # up over 10 steps (11.57 -> 11.81); 1e-4 lowered the mean of the last 5
 # by 0.018, 3e-4 by 0.047
 TRAIN_LR = 3e-4
+# phase 15: the dry run's cells on the single production mesh, (arch,
+# shape): a train, a prefill, a decode and a long_500k cell.  mamba2's
+# prefill, since a full-attention prefill_32k cell traces 64 x 64 chunk
+# pairs a layer (about a minute on a CPU)
+DRYRUN_CELLS = (("chatglm3-6b", "train_4k"), ("mamba2-780m", "prefill_32k"),
+                ("chatglm3-6b", "decode_32k"), ("mamba2-780m", "long_500k"))
+# the share of phase 13's measured peak the dry run's prediction may fall
+# short by
+PEAK_SHORTFALL = 0.10
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -2945,7 +2975,7 @@ def _family(arch: str, layers: int, kinds: tuple, card: str, dev,
             _family_kernels(cfg, store, pruned, card, dev, acc)
         toks, prompts = _family_serving(cfg, cm, pruned, kind, card, dev,
                                         launches)
-        if cfg.moe and kind == "bitmap" and not layers:
+        if arch == FAMILY_STREAM and kind == "bitmap":
             _family_mixer(cfg, cm, pruned, card, launches)
             _family_guarded(cfg, cm, pruned, toks, prompts, card, dev,
                             launches)
@@ -3426,9 +3456,11 @@ def _train_cli(card: str) -> None:
     print(f"[train cli] resumed at step 4 from its checkpoint; {card}")
 
 
-def phase_train(card: str, dev) -> None:
+def phase_train(card: str, dev) -> dict:
     """Phase 13: training (see the module docstring).  Launches none of
-    the five kernels."""
+    the five kernels.  Returns the bf16 run's ``peak_bytes`` (the
+    allocator's peak over init and its 10 steps) and ``median_ms`` (a
+    step, after the first), which phase 15 reads."""
     import dataclasses
     import gc
     import torch
@@ -3460,7 +3492,8 @@ def phase_train(card: str, dev) -> None:
     state[1] = adamw.init(state[0], opt_cfg)
     losses, ms = _train_steps(build_train_step(model, opt_cfg), state,
                               pipe, range(TRAIN_STEPS), dev)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 2**30
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     if not all(math.isfinite(x) for x in losses) or not last < first:
         _fail(f"train: losses {losses}: the last 5 do not fall below the "
@@ -3510,6 +3543,7 @@ def phase_train(card: str, dev) -> None:
         _fail(f"phase 13 launched kernels: {counts}; training runs dense")
     print(f"[train] no kernel of the five launched in the phase "
           f"({counts}); phase 13 took {time.perf_counter() - t_all:.1f} s")
+    return {"peak_bytes": peak_bytes, "median_ms": med}
 
 
 # ---------------------------------------------------------------------------
@@ -3858,6 +3892,132 @@ def phase_flags(card: str, dev, acc: dict) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dry run and its cost counter
+# ---------------------------------------------------------------------------
+
+def _dryrun_cells(card: str) -> None:
+    """Phase 15 (a): ``repro_torch.launch.dryrun``'s CLI on each of
+    ``DRYRUN_CELLS`` at full width on the single production mesh, into a
+    temporary directory: exit 0, every record ``ok``."""
+    import io
+    import tempfile
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape in DRYRUN_CELLS:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                try:
+                    dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
+                                 "single", "--out", d])
+                    code = 0
+                except SystemExit as e:
+                    code = e.code
+            with open(os.path.join(d, f"{arch}__{shape}__single.json")) as f:
+                rec = json.load(f)
+            if code != 0 or not rec["ok"] or rec.get("skipped"):
+                _fail(f"dryrun {arch} {shape}: exit {code}, record "
+                      f"{ {k: v for k, v in rec.items() if k != 'traceback'} }"
+                      f"; {out.getvalue()[-2000:]}")
+            mem = rec["memory_analysis"]
+            print(f"[dryrun {arch} {shape}] full width, the single "
+                  f"production mesh ({rec['devices']} devices, per-device "
+                  f"terms {rec['flops']}, partitioned {rec['partitioned']}):"
+                  f" traced in {rec['lower_s']} s ({rec['traced_ops']} ops); "
+                  f"the step {rec['step_flops']:.6e} FLOPs, "
+                  f"{rec['step_bytes']:.6e} bytes; per device: arguments "
+                  f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB, outputs "
+                  f"{mem['output_size_in_bytes'] / 2**30:.3f} GiB; on the "
+                  f"host of {card}")
+
+
+def phase_dryrun(card: str, dev, train: dict) -> None:
+    """Phase 15: the dry run (see the module docstring).  ``train`` is
+    phase 13's peak and median step.  Launches none of the five
+    kernels."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    ops.reset_launch_counts()
+    t_all = time.perf_counter()
+    _dryrun_cells(card)
+
+    # (b) phase 13's cell on one device: the meta count against a step on
+    # the card, the predicted peak against phase 13's
+    cfg = dataclasses.replace(get_config("chatglm3-6b"),
+                              n_layers=TRAIN_LAYERS)
+    shape = ShapeCfg("phase13", TRAIN_SEQ, TRAIN_BATCH, "train")
+    one = Mesh(("data", "model"), (1, 1))
+    rec = dryrun.run_cell(cfg.name, shape.name, False, mesh=one, cfg=cfg,
+                          shape=shape)
+    if not rec["ok"]:
+        _fail(f"dryrun phase 13's cell: {rec.get('error')}\n"
+              f"{rec.get('traceback')}")
+    ext = dryrun.step_cost(cfg, shape, one, extrapolate=True)
+    if (ext.cost.flops, ext.cost.bytes) != (rec["flops"], rec["hlo_bytes"]):
+        _fail(f"dryrun phase 13's cell: extrapolated from 1 and 2 layers "
+              f"{ext.cost.flops} FLOPs, {ext.cost.bytes} bytes; traced at "
+              f"{TRAIN_LAYERS} layers {rec['flops']}, {rec['hlo_bytes']}")
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=40)
+    opt = adamw.init(params, opt_cfg)
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, device=dev).batch_at(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, _, _), card_step = op_cost.count(
+        build_train_step(model, opt_cfg), params, opt, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    loss = float(loss)
+    del params, opt, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if card_step.cost.flops != rec["flops"] or not math.isfinite(loss):
+        _fail(f"dryrun phase 13's cell: {card_step.cost.flops} FLOPs "
+              f"counted over a step on the card (loss {loss}), "
+              f"{rec['flops']} on the meta device")
+    predicted = rec["memory_analysis"]["peak_memory_in_bytes"]
+    measured = train["peak_bytes"]
+    print(f"[dryrun phase 13's cell] chatglm3-6b, {TRAIN_LAYERS} layers, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat, AdamW, one "
+          f"device: traced on the meta device in {rec['lower_s']} s "
+          f"({rec['traced_ops']} ops): {rec['flops']} FLOPs, "
+          f"{rec['hlo_bytes']} bytes (extrapolated from 1 and 2 layers: "
+          f"the same); one step on the card under the counter "
+          f"({counted_s:.2f} s, loss {loss:.4f}): {card_step.cost.flops} "
+          f"FLOPs == the meta count, {card_step.cost.bytes} bytes, live "
+          f"peak {card_step.peak / 2**30:.3f} GiB")
+    if predicted < (1 - PEAK_SHORTFALL) * measured:
+        _fail(f"dryrun: predicted peak {predicted / 2**30:.3f} GiB falls "
+              f"short of phase 13's measured "
+              f"{measured / 2**30:.3f} GiB by more than "
+              f"{PEAK_SHORTFALL:.0%}")
+    tflops = rec["flops"] / (train["median_ms"] / 1e3) / 1e12
+    print(f"[dryrun phase 13's cell] predicted peak "
+          f"{predicted / 2**30:.3f} GiB against phase 13's measured "
+          f"max_memory_allocated {measured / 2**30:.3f} GiB "
+          f"(predicted / measured {predicted / measured:.4f}, bound >= "
+          f"{1 - PEAK_SHORTFALL:.2f}); achieved {tflops:.2f} TFLOP/s "
+          f"({rec['flops']} counted FLOPs over phase 13's median step "
+          f"{train['median_ms']:.1f} ms); {card}")
+    counts = ops.launch_counts()
+    if sum(counts.values()):
+        _fail(f"phase 15 launched kernels: {counts}")
+    print(f"[dryrun] no kernel of the five launched in the phase "
+          f"({counts}); phase 15 took {time.perf_counter() - t_all:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3898,8 +4058,9 @@ def main() -> None:
     timed("10", phase_search, cfg, card, forwards)
     families_launches = timed("11", phase_families, card, dev, acc)
     timed("12", phase_dense_families, card, dev)
-    timed("13", phase_train, card, dev)
+    train = timed("13", phase_train, card, dev)
     flags_launches = timed("14", phase_flags, card, dev, acc)
+    timed("15", phase_dryrun, card, dev, train)
     print("[time] wall seconds a phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; sum {sum(seconds.values()):.1f}")

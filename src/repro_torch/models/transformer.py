@@ -53,7 +53,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCfg
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -650,3 +650,32 @@ class Model:
                                   vc[i], cache_pos)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return L.logits_head(x, params["embed"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-device stand-ins, no allocation): the dry run's inputs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeCfg, device="meta") -> dict:
+    """The inputs of one (arch x shape) cell, as the reference's
+    ``input_specs``: int32 token (and label) batches and, for the
+    encoder-decoder, fp32 stub frontend embeddings (train / prefill); one
+    token a row and a 0-d int32 position (decode).  The decode cache
+    itself comes from :meth:`Model.init_cache` on the same device.  On
+    the meta device the tensors have shapes and dtypes only."""
+    dev = resolve(device)
+    b, s = shape.global_batch, shape.seq_len
+
+    def empty(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=dev)
+
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": empty(b, s)}
+        if shape.kind == "train":
+            out["labels"] = empty(b, s)
+        if cfg.family == "encdec":
+            out["enc_frames"] = empty(b, cfg.enc_seq, cfg.d_model,
+                                      dtype=torch.float32)
+        return out
+    # decode: one new token against a seq_len-deep cache
+    return {"tokens": empty(b), "pos": empty()}

@@ -432,3 +432,34 @@ def test_padded_weights_the_plans_blocks_do_not_tile_raise_value_error():
         with pytest.raises(ValueError, match=r"block \(1024, 7168\) does "
                                              r"not tile \(7168, 8192\)"):
             texec.prune_params(params, plan, cfg)
+
+
+def test_the_dry_run_gives_no_per_device_terms_on_a_production_mesh():
+    """The reference's dry run reads per-device FLOPs, bytes and
+    collectives from post-partitioning HLO; the port has no partitioner.
+    On a production mesh its record says ``"partitioned": false``, leaves
+    those fields and the peak ``null`` and gives the whole step's counts
+    under ``step_flops`` / ``step_bytes``; the per-device argument and
+    output bytes come from the specs.  On a mesh of one device the
+    per-device fields are the step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    cfg = get_config("chatglm3-6b").reduced()
+    multi = dryrun.run_cell("chatglm3-6b", "decode_32k", False, cfg=cfg)
+    assert multi["ok"] and multi["devices"] == 256
+    assert multi["partitioned"] is False
+    assert multi["flops"] is multi["hlo_bytes"] is None
+    assert multi["collectives"] is multi["coll_bytes"] is None
+    assert multi["memory_analysis"]["peak_memory_in_bytes"] is None
+    assert multi["step_flops"] > 0 and multi["step_bytes"] > 0
+    one = dryrun.run_cell("chatglm3-6b", "decode_32k", False, cfg=cfg,
+                          mesh=Mesh(("data", "model"), (1, 1)))
+    assert one["ok"] and one["devices"] == 1 and one["partitioned"] is True
+    assert (one["flops"], one["hlo_bytes"]) == \
+        (one["step_flops"], one["step_bytes"]) == \
+        (multi["step_flops"], multi["step_bytes"])
+    assert one["coll_bytes"] == one["collectives"]["count"] == 0
+    mem = one["memory_analysis"]
+    assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"] > \
+        multi["memory_analysis"]["argument_size_in_bytes"]
