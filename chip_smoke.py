@@ -45,7 +45,11 @@ non-zero exit code when it fails:
    pruned: the pipelined N:M kernel must equal the naive one (NaN for
    NaN, finite outputs bit for bit) and both must give the plain
    version's NaN / +-Inf masks, as must both bitmap variants, whose
-   finite outputs stay within the tolerance of the plain version's;
+   finite outputs stay within the tolerance of the plain version's; and
+   kernel 4's masked tail groups (``PARTIAL_BATCH_CASES``: K = 4096, M 1
+   to 16, 2:4 and 1:4 at an N whose last slice ends in a partial row
+   batch, +Inf in x's last column): the naive kernel equal to the
+   pipelined one and the plain version's masks, its Inf outputs included;
 4. flash attention vs its plain version at chatglm3-6b's attention width
    (BH = 4 x 32 heads, D = 128; S = 128 and 2048, causal or not, fp32 and
    bf16; one S = 8192 causal bf16 case at BH = 32), timed beside the
@@ -76,7 +80,8 @@ non-zero exit code when it fails:
    replay adds says, and every sparse kernel as often as the eager trace.
    Device memory is printed before each plan and after its model is
    deleted, graphs included;
-6. the mixer: full-width chatglm3-6b served as a request stream through
+6. the mixer: full-width chatglm3-6b cut to ``MIX_LAYERS`` (14) of 28
+   layers served as a request stream through
    ``repro_torch.launch.mixer.Mixer`` on both plans: 12 greedy requests
    drawn with ``np.random.default_rng(3)`` (prompts of 8-256 tokens, one
    of 16 or fewer and one above 200; 8-32 new tokens), 4 slots, max_len
@@ -188,7 +193,7 @@ non-zero exit code when it fails:
    and the calibrated plan must come back from its JSON equal, with its
    hardware resolved;
 11. every other model the compressed plane serves (``repro_torch.configs``:
-   granite-moe-3b-a800m cut to 16 of 32 layers on the bitmap and the 2:4
+   granite-moe-3b-a800m cut to 8 of 32 layers on the bitmap and the 2:4
    plan; qwen3-moe-30b-a3b, deepseek-coder-33b, internlm2-20b and
    pixtral-12b cut to 4 layers, whose full depth does not fit the card
    with fp32 params beside a pruned copy and a store; full width,
@@ -221,8 +226,8 @@ non-zero exit code when it fails:
 12. the four families the reference serves dense only (its compressed
    plane refuses them): gemma3-27b cut to 8 layers (one 5 local + 1
    global period and the 2-layer tail; window 1024), recurrentgemma-2b
-   cut to 14 of 26 layers (4 rec, rec, attn periods and the 2-layer
-   tail), mamba2-780m cut to 24 of 48 and whisper-tiny (whole, ``enc_seq``
+   cut to 8 of 26 layers (2 rec, rec, attn periods and the 2-layer
+   tail), mamba2-780m cut to 12 of 48 and whisper-tiny (whole, ``enc_seq``
    1500); full width, seeded random weights.  Each serves
    ``serve.generate``'s batch (4 x 128, 16 tokens, bf16), the prompt
    ingested token by token through the same CUDA graph as decode: one
@@ -277,8 +282,8 @@ non-zero exit code when it fails:
    params cast once to bf16 (``convert.bf16_params``) and over fp32
    params, in turns (ms/token, greedy agreement, peak memory), graph ==
    eager on the cast params; (d) ``make_serve_mesh(4)`` is ``None`` on
-   one card and ``serve.main`` gives the same tokens with ``--mesh`` as
-   without;
+   one card (on n, the reference's (gcd(4, n), 1)) and ``serve.main``
+   gives the same tokens with ``--mesh`` as without;
 15. the dry run (``repro_torch.launch.dryrun``, ``launch.op_cost``) on
    this machine without JAX: (a) its CLI on ``DRYRUN_CELLS`` (chatglm3-6b
    train_4k and decode_32k, mamba2-780m prefill_32k and long_500k) at
@@ -293,10 +298,28 @@ non-zero exit code when it fails:
    measured ``max_memory_allocated`` by at most ``PEAK_SHORTFALL``
    (10 %); the achieved TFLOP/s (the counted FLOPs over phase 13's median
    step) printed beside the card's name and power limit.  None of the
-   five kernels may launch in the phase.
+   five kernels may launch in the phase;
+16. a data mesh (``repro_torch.launch.data_parallel``): chatglm3-6b at
+   full width cut to ``MESH_LAYERS`` (8) layers on both shipped plans,
+   batch 4 x 128, 16 tokens, bf16, through ``serve.generate`` on a (2, 1)
+   mesh repeating ``cuda:0`` (and, on a host of two or more cards, over
+   the first two): each replica's tokens, prefill logits and every decode
+   step's logits ``torch.equal`` to its 2 rows served alone on one
+   device, graph == eager, launches 2 x 7 x layers x (1 + 16) of the
+   plan's kernel only (the naive kernels too, same tokens); 3 runs a mode
+   in turns (mesh graphed, mesh eager, one device at batch 4) give
+   prefill ms and decode ms/token; at fp32 the replicas' prefill logits
+   within 1e-3 max|logits| of the dense model on the same pruned weights;
+   ``guarded_generate`` healthy (tokens equal, launches) and with replica
+   1's payload bit flipped (``checksum_mismatch``, the role demoted on
+   both replicas, the demoted model's tokens).  Then ``train.train`` at
+   ``MESH_TRAIN_LAYERS`` (2) layers, 4 x 512, fp32, 3 steps on the (2, 1)
+   mesh: the replicas' params bit for bit equal after every step, every
+   loss within 1e-5 of one device's over the whole batch, no kernel
+   launch.
 
 The line before the last is one JSON object describing every kernel (its
-launches in phases 5-11 and 14, each counted from zero before the
+launches in phases 5-11, 14 and 16, each counted from zero before the
 phase's run; ``families`` holds phase 11's per-model sums);
 the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 port's sources beside this script, it exits non-zero and prints no result.
@@ -328,8 +351,11 @@ BATCH, PROMPT, GEN = 4, 128, 16
 TRACE_STEPS = 4              # decode steps in the serving trace
 RUNS = 5                     # serving runs per variant and mode
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
-# phase 6: the mixer's stream
+# phase 6: the mixer's stream, and chatglm3-6b's layers serving it: 14 of
+# 28 since phase 16 came, when the script took 954 s on an H100 80GB HBM3
+# at 700 W (phase 6 158 s of it at 28 layers)
 MIX_REQUESTS, MIX_SLOTS, MIX_MAX_LEN, MIX_WIDE = 12, 4, 288, 16
+MIX_LAYERS = 14
 # phase 8: decode steps a mixer takes in each timed round
 GQA_MIX_STEPS = 4
 # phase 9: the serve CLI's --metrics series beside the dispatcher's per-role
@@ -355,11 +381,11 @@ CLI_MIXER = ("mixer_admissions_total", "mixer_decode_step_seconds",
 TIMING_SERIES = ("mixer_straggler_spikes_total",)
 # phase 11: every model the compressed plane serves beside chatglm3-6b:
 # (arch, layers on the card, 0 for all of them; the plans it serves).
-# granite-moe-3b-a800m keeps 16 of its 32 layers: on an H100 80GB HBM3 at
-# 700 W it took 81.2 s of the phase at 32 and 41.6 s at 16, and phase 15
-# needed the room
+# granite-moe-3b-a800m keeps 8 of its 32 layers: on an H100 80GB HBM3 at
+# 700 W it took 81.2 s of the phase at 32 and 41.6 s at 16; phase 15 needed
+# the room, and with phase 16 the script took 856 s there
 FAMILIES = (
-    ("granite-moe-3b-a800m", 16, ("bitmap", "nm")),
+    ("granite-moe-3b-a800m", 8, ("bitmap", "nm")),
     ("qwen3-moe-30b-a3b", 4, ("bitmap",)),
     ("deepseek-coder-33b", 4, ("bitmap",)),
     ("internlm2-20b", 4, ("bitmap",)),
@@ -380,12 +406,12 @@ GUARD_LAYERS = 4
 # phase 12: the families the reference serves dense only: (arch, layers on
 # the card, 0 for all of them).  gemma3-27b keeps one 5 local + 1 global
 # period and the 2-layer tail: at 62 layers its fp32 params (about 108 GB)
-# do not fit the card.  recurrentgemma-2b keeps 4 of its 8 periods and the
-# tail, mamba2-780m 24 of 48 layers: at full depth they took 49 and 44 s
-# on an H100 80GB HBM3 at 700 W, and with phase 14 the script took 802 s
-# there, past its 800 s budget
-DENSE_FAMILIES = (("gemma3-27b", 8), ("recurrentgemma-2b", 14),
-                  ("mamba2-780m", 24), ("whisper-tiny", 0))
+# do not fit the card.  recurrentgemma-2b keeps 2 of its 8 periods and the
+# tail, mamba2-780m 12 of 48 layers: at full depth they took 49 and 44 s
+# on an H100 80GB HBM3 at 700 W; with phase 14 the script took 802 s
+# there (then 4 periods and 24 layers), with phase 16 856 s
+DENSE_FAMILIES = (("gemma3-27b", 8), ("recurrentgemma-2b", 8),
+                  ("mamba2-780m", 12), ("whisper-tiny", 0))
 DENSE_RUNS = 3               # serving runs a mode
 DENSE_MIXED = ("gemma3-27b", "mamba2-780m")
 # the mixer's stream there: requests, shortest and longest prompt, tokens a
@@ -421,6 +447,12 @@ DRYRUN_CELLS = (("chatglm3-6b", "train_4k"), ("mamba2-780m", "prefill_32k"),
 # the share of phase 13's measured peak the dry run's prediction may fall
 # short by
 PEAK_SHORTFALL = 0.10
+# phase 16: chatglm3-6b's layers served over a (2, 1) data mesh, serving
+# runs a mode, and the data-parallel training cut (layers, steps; batch
+# TRAIN_BATCH x TRAIN_SEQ): two replicas on one card hold two copies of
+# the params and the store (about 12 GB a replica at 8 layers)
+MESH_LAYERS, MESH_RUNS = 8, 3
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -861,6 +893,7 @@ def phase_kernels(cfg, card: str, dev) -> dict[str, _Acc]:
         del w
     acc["bitmap_spmm_naive"].masked = _masked_steps(gen, flush, dev)
     _non_finite_inputs(cfg, dev)
+    _partial_row_batch(dev)
     return acc
 
 
@@ -972,6 +1005,56 @@ def _non_finite_inputs(cfg, dev) -> None:
               f"{M_PREFILL}, bf16: bitmap {counts[f'bitmap M={M_PREFILL}']}, "
               f"N:M {counts[f'nm M={M_PREFILL}']}")
 
+
+#: (M, N, n_sel) at K = 4096 whose last slice ends in a partial row batch of
+#: the naive decode kernel (NV_ROWS kept rows: 8 at M <= 4, 4 above)
+PARTIAL_BATCH_CASES = tuple((m, 4104, 2) for m in (1, 2, 3, 4)) + \
+    tuple((m, 4100, 2) for m in (8, 16)) + \
+    tuple((m, 4112, 1) for m in (1, 2, 4)) + \
+    tuple((m, 4104, 1) for m in (8, 16))
+
+
+def _partial_row_batch(dev) -> None:
+    """Phase 3: kernel 4's masked tail groups.  At each of
+    ``PARTIAL_BATCH_CASES``, x fp32 and bf16, +Inf in x's last column (the
+    last group of the last slice, whose batch the kernel fills with masked
+    groups) and, above M = 1, NaN in the last row: the naive kernel must
+    equal the pipelined one (NaN for NaN, the rest bit for bit) and give
+    the plain version's NaN / +-Inf masks, its Inf outputs included."""
+    import torch
+    from repro_torch.kernels import nm_spmm as nm_cuda
+    from repro_torch.kernels import ops, ref
+    k = 4096
+    gen = torch.Generator(device=dev).manual_seed(12)
+    infs = 0
+    for m, n, n_sel in PARTIAL_BATCH_CASES:
+        slices, length = nm_cuda.split_plan(m, n, k, n_sel, 4)
+        last = n // 4 - (slices - 1) * length
+        if not last % ((8 if m <= 4 else 4) // n_sel):
+            _fail(f"nm_spmm M={m} N={n} {n_sel}:4: no partial row batch")
+        c = ops.compress_nm(torch.randn((n, k), generator=gen, device=dev),
+                            n_sel, 4)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, n), generator=gen, device=dev)
+            x[:, n - 1] = float("inf")
+            if m > 1:
+                x[m - 1, 1] = float("nan")
+            x = x.to(dtype)
+            case = f"M={m} N={n} {n_sel}:4 {str(dtype)[6:]} partial batch"
+            y4 = ops.nm_spmm(x, c, pipeline=False)
+            _held_non_finite(f"nm_spmm_naive {case} vs pipelined", y4,
+                             ops.nm_spmm(x, c, pipeline=True), True)
+            want = ref.nm_spmm_ref(x, c.values, c.indices, n_sel, 4)
+            _held_non_finite(f"nm_spmm_naive {case} vs plain", y4, want,
+                             False)
+            if not torch.isinf(want).any():
+                _fail(f"nm_spmm {case}: the plain version gives no Inf")
+            infs += int(torch.isinf(want).sum())
+    print(f"[kernels] kernel 4's masked tail: at K={k}, "
+          f"{len(PARTIAL_BATCH_CASES)} (M, N, n_sel) whose last slice ends "
+          f"in a partial row batch, x fp32 and bf16, +Inf in the last "
+          f"column: naive == pipelined (equal_nan, finite bit for bit) == "
+          f"plain in NaN / +-Inf masks ({infs} Inf outputs)")
 
 def _masked_steps(gen, flush, dev) -> dict:
     """Kernel 2 at decode with the static bound above the longest column:
@@ -3846,14 +3929,18 @@ def _flags_bf16params(card: str, dev) -> None:
 
 
 def _flags_mesh(card: str) -> None:
-    """Phase 14 (d): no serving mesh on one card; ``serve --mesh`` serves
-    the tokens of the run without it."""
+    """Phase 14 (d): no serving mesh on one card (on several, the
+    reference's (gcd(batch, cards), 1)); ``serve --mesh`` serves the
+    tokens of the run without it."""
     import io
     import torch
     from repro_torch.launch import mesh, serve
-    if mesh.make_serve_mesh(BATCH) is not None:
-        _fail(f"make_serve_mesh({BATCH}) on {torch.cuda.device_count()} "
-              f"card(s) is not None")
+    n = torch.cuda.device_count()
+    got = mesh.make_serve_mesh(BATCH)
+    want = None if n == 1 else (math.gcd(BATCH, n), 1)
+    if (got and got.shape) != want:
+        _fail(f"make_serve_mesh({BATCH}) on {n} card(s) is "
+              f"{got and got.shape}, not {want}")
     argv = ["--arch", "chatglm3-6b", "--batch", str(BATCH), "--prompt-len",
             "16", "--gen", "8"]
     samples = []
@@ -3865,9 +3952,9 @@ def _flags_mesh(card: str) -> None:
                         if "sample out" in line])
     if not samples[0] or samples[0] != samples[1]:
         _fail(f"serve --mesh: {samples[1]} against {samples[0]}")
-    print(f"[flags mesh] make_serve_mesh({BATCH}) is None on "
-          f"{torch.cuda.device_count()} card; serve.main at full width with "
-          f"and without --mesh: {samples[0][0].strip()} both; {card}")
+    print(f"[flags mesh] make_serve_mesh({BATCH}) is {want} on {n} "
+          f"card(s); serve.main at full width with and without --mesh: "
+          f"{samples[0][0].strip()} both; {card}")
 
 
 def phase_flags(card: str, dev, acc: dict) -> dict[str, int]:
@@ -4018,6 +4105,259 @@ def phase_dryrun(card: str, dev, train: dict) -> None:
           f"({counts}); phase 15 took {time.perf_counter() - t_all:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serving and training over a data mesh
+# ---------------------------------------------------------------------------
+
+def _data_meshes(dev) -> list:
+    """Phase 16's meshes, (label, mesh): (2, 1) repeating ``dev`` and, on
+    a host of two or more cards, (2, 1) over the first two."""
+    import torch
+    from repro_torch.launch import mesh
+    out = [(f"(2, 1) repeating {dev}",
+            mesh.Mesh(("data", "model"), (2, 1),
+                      mesh.grid([dev, dev], (2, 1))))]
+    if torch.cuda.device_count() >= 2:
+        out.append(("(2, 1) over cuda:0 and cuda:1",
+                    mesh.make_small_mesh(2, 1)))
+    return out
+
+
+def _mesh_plan(cfg, kind: str, kname: str, card: str, dev
+               ) -> dict[str, int]:
+    """Phase 16 on one shipped plan; returns the launches of its first
+    mesh's capturing run (pipelined) and of its naive run."""
+    import torch
+    from repro_torch.exec.compress import compress_params, prune_params
+    from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled, data_parallel, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import guard, inject
+
+    one = 7 * cfg.n_layers * (1 + GEN)     # one replica's launches a run
+    rows = BATCH // 2
+    plan = shipped_plan(cfg, kind)
+    params = Model(cfg).init(seed=0, device=dev)
+    pruned = prune_params(params, plan, cfg)
+    del params
+    cm = CompressedModel(Model(cfg), compress_params(pruned, plan, cfg))
+    pg = torch.Generator(device=dev).manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                            device=dev)
+    log: list = []
+
+    class Recorded(compiled.CompiledStep):
+        def __call__(self, *args):
+            logits, cache = super().__call__(*args)
+            log.append((id(self.model), logits.clone()))
+            return logits, cache
+
+    def run(model, x, record=False, graphed=True):
+        """One counted run: tokens, prefill ms, decode ms/token, launch
+        counts and, recorded, every step's logits by the model object
+        that stepped them."""
+        plain = serve.CompiledStep
+        log.clear()
+        if record:
+            serve.CompiledStep = Recorded
+        try:
+            ops.reset_launch_counts()
+            with contextlib.nullcontext() if graphed else compiled.disable():
+                toks, tp, tg = serve.generate(model, pruned, x, GEN,
+                                              PROMPT + GEN, device=dev)
+            counts = ops.launch_counts()
+        finally:
+            serve.CompiledStep = plain
+        steps: dict = {}
+        for key, lg in log:
+            steps.setdefault(key, []).append(lg)
+        return toks, 1e3 * tp, 1e3 * tg / GEN, counts, steps
+
+    def only(counts, name, n, label):
+        if counts[name] != n or sum(counts.values()) != n:
+            _fail(f"mesh {kind} {label}: launch counts {counts}; expected "
+                  f"{n} of {name} only")
+
+    def same(a, b) -> bool:
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    launches: dict[str, int] = {}
+    for label, mesh_ in _data_meshes(dev):
+        reps = data_parallel.replicate_model(cm, pruned, mesh_)
+        toks, _, _, counts, steps = run(reps, prompts, record=True)
+        only(counts, kname, 2 * one, f"{label} capturing run")
+        launches.setdefault(kname, counts[kname])
+        # each replica against its rows served alone on one device
+        pre = reps.prefill(reps.params, prompts, PROMPT + GEN)[0]
+        for i, rm in enumerate(reps.models):
+            x = prompts[i * rows:(i + 1) * rows]
+            at, _, _, c1, st1 = run(cm, x, record=True)
+            only(c1, kname, one, f"replica {i} alone")
+            alone_pre = cm.prefill(pruned, x, PROMPT + GEN)[0]
+            if not torch.equal(toks[i * rows:(i + 1) * rows], at) or \
+                    not same(steps[id(rm)], st1[id(cm)]) or \
+                    not torch.equal(pre[i * rows:(i + 1) * rows],
+                                    alone_pre.to(pre.device)):
+                _fail(f"mesh {kind} {label}: replica {i}'s tokens, decode "
+                      f"or prefill logits differ from its rows served "
+                      f"alone")
+        del pre
+        # graph == eager, every replica's every step
+        et, _, _, counts, esteps = run(reps, prompts, record=True,
+                                       graphed=False)
+        only(counts, kname, 2 * one, f"{label} eager")
+        if not torch.equal(et, toks) or any(
+                not same(esteps[id(rm)], steps[id(rm)])
+                for rm in reps.models):
+            _fail(f"mesh {kind} {label}: graph and eager differ")
+        print(f"[mesh {kind}] {label}: tokens, prefill logits and every "
+              f"decode step's logits of each replica torch.equal to its "
+              f"{rows} rows served alone on {dev}; graph == eager; "
+              f"{2 * one} launches of {kname} (2 x 7 x {cfg.n_layers} x "
+              f"(1 + {GEN})); on {card}")
+    reps = data_parallel.replicate_model(cm, pruned, _data_meshes(dev)[0][1])
+    run(reps, prompts)                     # captures the replicas' graphs
+    run(cm, prompts)                       # and one device's at batch 4
+    rec: dict = {"mesh graphed": [], "mesh eager": [], "one device": []}
+    for _ in range(MESH_RUNS):
+        for mode, model, graphed in (("mesh graphed", reps, True),
+                                     ("mesh eager", reps, False),
+                                     ("one device", cm, True)):
+            _, tp, tg, _, _ = run(model, prompts, graphed=graphed)
+            rec[mode].append((tp, tg))
+    print(f"[mesh {kind}] bf16, {MESH_RUNS} runs a mode in turns, prefill "
+          f"ms / decode ms/token, median (min-max): " + "; ".join(
+              f"{mode} {_spread([t[0] for t in r])} / "
+              f"{_spread([t[1] for t in r])}" for mode, r in rec.items())
+          + f"; on {card}")
+    with ops.pipeline_default(False):
+        nt, *_, counts, _ = run(reps, prompts)
+    only(counts, f"{kname}_naive", 2 * one, "naive")
+    launches[f"{kname}_naive"] = counts[f"{kname}_naive"]
+    if not torch.equal(nt, toks):
+        _fail(f"mesh {kind}: the naive kernels' tokens differ")
+    # fp32: the replicas' prefill logits against the dense model's on the
+    # same pruned weights, the whole batch on one device
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        lc = reps.prefill(reps.params, prompts, PROMPT)[0]
+        ld = Model(cfg).prefill(pruned, prompts, PROMPT)[0]
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    share = (lc - ld).abs().max().item() / (1e-3 * ld.abs().max().item())
+    del lc, ld
+    if not share <= 1:
+        _fail(f"mesh {kind}: fp32 prefill logits {share:.3f} of 1e-3 "
+              f"max|logits| from the dense model")
+    # guarded: healthy, and with replica 1's payload bit flipped
+    ops.reset_launch_counts()
+    gt, rep = guard.guarded_generate(reps, None, prompts, GEN, device=dev)
+    counts = ops.launch_counts()
+    only(counts, kname, 2 * one, "guarded")
+    if not rep.healthy or not torch.equal(gt, toks):
+        _fail(f"mesh {kind} guarded: healthy={rep.healthy}, tokens "
+              f"{'equal' if torch.equal(gt, toks) else 'differ'}")
+    role = plan.ops[0].role
+    flipped = reps.each(lambda m: m)
+    flipped.models[1] = CompressedModel(
+        reps.models[1].model, inject.bitflip_payload(reps.models[1].store,
+                                                     role))
+    ops.reset_launch_counts()
+    ft, frep = guard.guarded_generate(flipped, None, prompts, GEN,
+                                      device=dev)
+    counts = ops.launch_counts()
+    only(counts, kname, 2 * 6 * cfg.n_layers * (1 + GEN), "bit flipped")
+    dt, *_ = run(reps.each(lambda m: m.demoted([role])), prompts)
+    if frep.verify[role] != "checksum_mismatch" or \
+            [f["code"] for f in frep.fallbacks] != ["integrity_violation"] \
+            or not torch.equal(ft, dt):
+        _fail(f"mesh {kind} bit flip on replica 1: {frep.stable_dict()}, "
+              f"tokens {'equal' if torch.equal(ft, dt) else 'differ'}")
+    print(f"[mesh {kind}] fp32 prefill logits {share:.4f} of 1e-3 "
+          f"max|logits| from the dense model; guarded healthy: tokens "
+          f"equal, {2 * one} launches; replica 1's {role} bit flipped: "
+          f"checksum_mismatch, the role demoted on both replicas, the "
+          f"demoted model's tokens; naive: tokens equal, {2 * one} "
+          f"launches; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB")
+    return launches
+
+
+def _mesh_train(cfg, card: str, dev) -> None:
+    """Phase 16's training: ``train.train`` on (2, 1) repeating ``dev``
+    against one device, fp32."""
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import data_parallel, train
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+    tcfg = dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS)
+    params = Model(tcfg).init(seed=0, device=dev)
+    args = train.parse_args([
+        "--arch", "chatglm3-6b", "--steps", str(MESH_TRAIN_STEPS),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr",
+        str(TRAIN_LR), "--log-every", "1", "--device", str(dev)])
+    mesh_ = _data_meshes(dev)[0][1]
+    seconds = {}
+    L.COMPUTE_DTYPE = torch.float32
+    ops.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            # one device first: it pays the first step's warm-up
+            t0 = time.perf_counter()
+            alone = train.train(tcfg, params, args, device=dev)
+            seconds["one device"] = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            meshed = train.train(tcfg, params, args, device=dev, mesh=mesh_)
+            seconds["mesh"] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    if sum(ops.launch_counts().values()):
+        _fail(f"mesh train: kernels launched {ops.launch_counts()}")
+    gap = max(abs(a - b) for a, b in zip(meshed.losses, alone.losses))
+    if len(meshed.replicas) != 2 or \
+            not data_parallel.params_equal(meshed.replicas) or \
+            len(meshed.losses) != len(alone.losses) or gap > 1e-5:
+        _fail(f"mesh train: losses {meshed.losses} against one device's "
+              f"{alone.losses}; replicas equal "
+              f"{data_parallel.params_equal(meshed.replicas)}")
+    print(f"[mesh train] chatglm3-6b {MESH_TRAIN_LAYERS} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, fp32, {MESH_TRAIN_STEPS} steps on "
+          f"(2, 1) repeating {dev}: the replicas' params bit for bit equal "
+          f"after every step; losses {[round(x, 6) for x in meshed.losses]}"
+          f", largest gap to one device over the whole batch {gap:.3e}; "
+          f"{seconds['mesh']:.1f} s against {seconds['one device']:.1f} s "
+          f"on one device (run first, with the warm-up); the mesh's peak "
+          f"{peak:.2f} GiB; no kernel launched; "
+          f"{card}")
+
+
+def phase_mesh(cfg, card: str, dev) -> dict[str, int]:
+    """Phase 16: serving and training over a data mesh (see the module
+    docstring).  Returns kernel -> launches of its mesh run."""
+    import gc
+    import torch
+    t_all = time.perf_counter()
+    launches: dict[str, int] = {}
+    for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
+        launches.update(_mesh_plan(cfg, kind, kname, card, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+    _mesh_train(cfg, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] phase 16 took {time.perf_counter() - t_all:.1f} s "
+          f"({', '.join(label for label, _ in _data_meshes(dev))})")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4042,7 +4382,8 @@ def main() -> None:
     acc = timed("3", phase_kernels, cfg, card, dev)
     flash = timed("4", phase_flash, cfg, card, dev)
     launches = timed("5", phase_serving, cfg, card, dev)
-    mixer_launches = timed("6", phase_mixer, cfg, card, dev)
+    mixer_launches = timed("6", phase_mixer, dataclasses.replace(
+        cfg, n_layers=MIX_LAYERS), card, dev)
     guarded_launches = timed("7", phase_guarded, dataclasses.replace(
         cfg, n_layers=GUARD_LAYERS), card, dev)
     forwards: dict[str, dict] = {}
@@ -4061,6 +4402,8 @@ def main() -> None:
     train = timed("13", phase_train, card, dev)
     flags_launches = timed("14", phase_flags, card, dev, acc)
     timed("15", phase_dryrun, card, dev, train)
+    mesh_launches = timed("16", phase_mesh, dataclasses.replace(
+        cfg, n_layers=MESH_LAYERS), card, dev)
     print("[time] wall seconds a phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; sum {sum(seconds.values()):.1f}")
@@ -4093,6 +4436,7 @@ def main() -> None:
                  "search_launches": search_launches.get(name, 0),
                  "families_launches": families_launches.get(name, 0),
                  "flags_launches": flags_launches.get(name, 0),
+                 "mesh_launches": mesh_launches.get(name, 0),
                  "max_abs_err": a.max_abs_err}
         for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
             s = a.sums[(cfg.name, m, torch.bfloat16)]
@@ -4125,7 +4469,7 @@ def main() -> None:
         "source": sources["flash_attention"][0],
         "replaces": sources["flash_attention"][1],
         "launches": flash["launches"], "families_launches": 0,
-        "flags_launches": 0,
+        "flags_launches": 0, "mesh_launches": 0,
         "max_abs_err": flash["max_abs_err"],
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "at")},

@@ -129,7 +129,9 @@
 //   from an index).  The kept rows come as one float4 of values and one
 //   word of four int8 indices each (VEC), or by plain loads for values off
 //   16 bytes or indices off 4; NV_ROWS rows a batch (8 at MT <= 4, 4
-//   above), the next batch in flight during the current one's FMAs.  The
+//   above), the next batch in flight during the current one's FMAs; the
+//   groups a slice's last batch lacks read groups of zero x columns staged
+//   after the slice (an Inf in x stays Inf, as in kernel 3).  The
 //   served group shapes (2:4, 1:4) are compile-time bodies whose rows stay
 //   in registers; any other shape takes a loop that re-reads a group's
 //   rows for each position from L1 (a block's rows of one group: n_sel *
@@ -239,6 +241,12 @@ constexpr int SK_ROWS = 8;               // kept rows per load batch
 // rows, 4 above (fewer registers, and faster; tools/nm_naive_sweep.py)
 template <int MT>
 constexpr int NV_ROWS = MT <= 4 ? 8 : 4;
+// groups of zero x columns the naive decode kernel stages after its slice
+// for naive_groups' shapes (2:4, 1:4): the most a last batch can lack
+// (NV_ROWS / n_sel - 1, 7 at 1:4); none for naive_groups_any's
+__host__ __device__ constexpr int nv_pad_groups(int n_sel, int m_group) {
+  return m_group == 4 && n_sel <= 2 ? 7 : 0;
+}
 constexpr int SK_SMEM = 48 * 1024;       // its x slice, bytes at most
 constexpr int RED_THREADS = 256;         // threads of a reduce block
 
@@ -842,8 +850,10 @@ __device__ __forceinline__ void fma_dense_row(const float* xc,
 // registers: batches of R rows (R / NS whole groups), the next
 // batch loaded during the current one's FMAs.  `stage` stages x once the
 // first batch is in flight.  A group past the slice's end (the tail of the
-// last batch) has w = 0 and reads the slice's last x columns: its FMAs add
-// exact zeros.
+// last batch) has w = 0 and reads one of the groups of zero columns staged
+// after the slice (nv_pad_groups): its FMAs add 0 * 0, so an Inf in the
+// slice's last columns stays Inf (read there, 0 * Inf would be NaN), as
+// kernel 3's masked rows read its column of zeros.
 template <int MT, bool VEC, int NS, int MG, class Stage>
 __device__ __forceinline__ void naive_groups(const float* xs,
                                              const float* vp,
@@ -852,6 +862,8 @@ __device__ __forceinline__ void naive_groups(const float* xs,
                                              float (&acc)[MT][4]) {
   constexpr int R = NV_ROWS<MT>;
   static_assert(R % NS == 0, "a batch holds whole groups");
+  static_assert(R / NS - 1 <= nv_pad_groups(NS, MG),
+                "the zero groups cover a last batch's missing groups");
   const int rows = gcur * NS;
   float4 v[R];
   int p[R];
@@ -863,7 +875,11 @@ __device__ __forceinline__ void naive_groups(const float* xs,
     naive_rows<VEC>(vp, ip, k, q0 + R, rows, vn, pn);         // next batch
 #pragma unroll
     for (int gg = 0; gg < R / NS; ++gg) {
-      const float* xg = xs + min(q0 / NS + gg, gcur - 1) * MG * MT;
+      // a tail group reads the zero groups: unclamped at MT <= 4, clamped
+      // to the first above (each the faster there on an H100:
+      // tools/nm_parent_bench.py --naive)
+      const int xo = (q0 / NS + gg) * MG * MT;
+      const float* xg = xs + (MT <= 4 ? xo : min(xo, gcur * MG * MT));
       float b[NS][4];
       unsigned pos[NS][4];
 #pragma unroll
@@ -949,6 +965,12 @@ nm_spmm_naive_small_m_kernel(const T* __restrict__ x,
   auto stage = [&] {
     stage_x_slice<T, MT>(x, xs, m, n, (size_t)g0 * m_group, gcur * m_group);
   };
+  // groups of zero columns after the slice, which the masked tail groups of
+  // naive_groups read; written before the first loads are in flight (few
+  // registers live), and stage_x_slice's barrier covers them
+  for (int e = threadIdx.x; e < nv_pad_groups(n_sel, m_group) * m_group * MT;
+       e += SK_THREADS)
+    xs[gcur * m_group * MT + e] = 0.f;
 
   float acc[MT][4];
 #pragma unroll
@@ -1351,9 +1373,14 @@ int launch(const void* x, const void* values, const void* indices, void* y,
       case 8: go = launch_decode<T, 8>; break;
       default: go = launch_decode<T, 16>;
     }
+    // after the slice: the pipelined kernel's column of zeros, the naive
+    // kernel's groups of zero columns
     const int e = go(entry, aligned, grid,
-                     (int)smem + (entry == SMALL_M ? mt * (int)sizeof(float)
-                                                   : 0),
+                     (int)smem + mt * (entry == SMALL_M
+                                           ? 1
+                                           : nv_pad_groups(n_sel, m_group) *
+                                                 m_group) *
+                                     (int)sizeof(float),
                      st, x, values, indices, out, m, n, k, n_sel, m_group,
                      slice_groups);
     if (e) return e;

@@ -253,10 +253,13 @@ class CompressedModel:
     Mirrors the dense model's serving surface, for every family the model
     serves (``dense``, ``moe``, ``vlm``); MoE expert matmuls run dense
     over the pruned weights (their entries are accounting only), as in
-    the reference."""
+    the reference.  With ``plain`` every compressed projection runs its
+    kernel's plain version over the same entry (:func:`active`): the
+    guarded serving path's witness, never a serving path."""
 
     model: T.Model
     store: CompressedStore
+    plain: bool = False
 
     @property
     def cfg(self):
@@ -280,22 +283,22 @@ class CompressedModel:
         return CompressedModel(self.model, self.store.without_roles(roles))
 
     def hidden_states(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        with active(self.store):
+        with active(self.store, self.plain):
             return self.model.hidden_states(params, tokens)
 
     def logits(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        with active(self.store):
+        with active(self.store, self.plain):
             return self.model.logits(params, tokens)
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int):
-        with active(self.store):
+        with active(self.store, self.plain):
             return self.model.prefill(params, tokens, max_len)
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         return self.model.init_cache(batch, max_len, device=device)
 
     def decode_step(self, params, cache, tokens: torch.Tensor, pos):
-        with active(self.store):
+        with active(self.store, self.plain):
             return self.model.decode_step(params, cache, tokens, pos)
 
     def generate(self, params, prompts: torch.Tensor, gen: int,

@@ -5,9 +5,13 @@ A :class:`Mesh` is the port's own small object: axis names, axis sizes
 and, where devices back it, the grid of ``torch.device`` it spans.  The
 functions return ``None`` wherever the reference's return ``None`` for the
 same device count, so on one card every serving mesh is ``None`` and
-serving runs unsharded, as the reference's does on one device.  The port
-runs one process on one card: an entry point given a mesh of more than one
-device raises ``NotImplementedError`` (:func:`check_one_device`), and
+serving runs unsharded, as the reference's does on one device.  A mesh
+whose axes other than ``pod`` / ``data`` have size 1 is served and
+trained data-parallel by one process
+(:mod:`repro_torch.launch.data_parallel`); a ``model`` axis larger than 1
+(tensor parallelism) raises ``NotImplementedError``.  A grid may repeat a
+device (:func:`grid`): four replicas on one CPU or one card stand in for
+four devices, as the reference's forced host devices do.
 :meth:`Mesh.device_mesh` builds a ``torch.distributed`` ``DeviceMesh``
 only where a process group exists.
 
@@ -85,7 +89,9 @@ def devices(device="cuda") -> list[torch.device]:
     return [dev]
 
 
-def _grid(devs: list, shape: tuple[int, ...]) -> np.ndarray:
+def grid(devs: list, shape: tuple[int, ...]) -> np.ndarray:
+    """The first ``prod(shape)`` of ``devs`` as an object array of
+    ``shape`` (a device may repeat)."""
     grid = np.empty(math.prod(shape), dtype=object)
     grid[:] = devs[:math.prod(shape)]
     return grid.reshape(shape)
@@ -128,7 +134,7 @@ def make_small_mesh(data: int = 1, model: int = 1, device="cuda"
     if len(devs) < data * model:
         return None
     return Mesh(("data", "model"), (data, model),
-                _grid(devs, (data, model)))
+                grid(devs, (data, model)))
 
 
 def make_serve_mesh(batch: int, model: int = 1, device="cuda"
@@ -144,7 +150,7 @@ def make_serve_mesh(batch: int, model: int = 1, device="cuda"
     if data * model <= 1:
         return None
     return Mesh(("data", "model"), (data, model),
-                _grid(devs, (data, model)))
+                grid(devs, (data, model)))
 
 
 def degraded_serve_mesh(batch: int, lost: int, model: int = 1,
@@ -166,15 +172,23 @@ def degraded_serve_mesh(batch: int, lost: int, model: int = 1,
     if data * model <= 1:
         return None
     return Mesh(("data", "model"), (data, model),
-                _grid(devs, (data, model)))
+                grid(devs, (data, model)))
 
 
-def check_one_device(mesh: Optional[Mesh], what: str) -> None:
-    """Raise ``NotImplementedError`` for a mesh of more than one device:
-    the port runs one process on one card, and never serves or trains
-    unsharded in its place."""
-    if mesh is not None and mesh.size > 1:
+def check_data_only(mesh: Optional[Mesh], what: str) -> None:
+    """Raise ``NotImplementedError`` for a mesh with an axis other than
+    ``pod`` / ``data`` larger than 1 (tensor parallelism), and
+    ``ValueError`` for one without devices (a production mesh's sizes):
+    neither is served or trained, unsharded or otherwise."""
+    if mesh is None:
+        return
+    sizes = mesh_axis_sizes(mesh)
+    wide = {a: n for a, n in sizes.items()
+            if a not in ("pod", "data") and n > 1}
+    if wide:
         raise NotImplementedError(
-            f"{what}: a mesh of {mesh.size} devices "
-            f"({dict(zip(mesh.axis_names, mesh.shape))}); the port runs "
-            f"one process on one device")
+            f"{what}: a mesh of {mesh.size} devices ({sizes}) with "
+            f"{wide}: the port runs data parallelism only (a 'model' axis "
+            f"larger than 1 is tensor parallelism)")
+    if mesh.devices is None:
+        raise ValueError(f"{what}: the mesh {sizes} has no devices")

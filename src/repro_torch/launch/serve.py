@@ -66,8 +66,9 @@ from repro_torch.device import resolve, synchronize
 from repro_torch.exec.compress import compress_params, prune_params
 from repro_torch.exec.dispatch import CompressedModel, instrument
 from repro_torch.exec.plans import ExecPlan, build_exec_plan
+from repro_torch.launch import data_parallel
 from repro_torch.launch.compiled import CompiledStep
-from repro_torch.launch.mesh import Mesh, check_one_device, make_serve_mesh
+from repro_torch.launch.mesh import Mesh, make_serve_mesh
 from repro_torch.launch.mixer import (Mixer, Request, ingest,
                                       prefill_request, write_slot)
 from repro_torch.models.transformer import Model
@@ -108,6 +109,40 @@ def _prompt_offsets(prompts: torch.Tensor, prompt_pad_id: Optional[int]
     return offsets
 
 
+def _prefill(model, params, prompts: torch.Tensor, offsets: np.ndarray,
+             ragged: bool, max_len: int, step, tid, row0: int = 0):
+    """The logits at each row's last prompt position, the filled cache and
+    each row's first decode position (``None`` in lockstep).  ``row0``
+    is the first row's index in the whole batch (a replica's rows)."""
+    b, plen = prompts.shape
+    dev = prompts.device
+    if ragged:
+        # ragged left-padded rows: admit each row alone at its REAL length
+        # into its row of the shared cache, then decode with a per-row
+        # position vector — the continuous-batching admission primitive
+        # (launch.mixer)
+        cache = model.init_cache(b, max_len, device=dev)
+        lasts = []
+        for r in range(b):
+            with otr.span("admit", trace_id=tid, row=row0 + r,
+                          prompt_len=plen - int(offsets[r])):
+                last, rcache = prefill_request(
+                    model, params, prompts[r:r + 1, int(offsets[r]):],
+                    max_len, step_fn=step)
+                write_slot(cache, rcache, r)
+            lasts.append(last)
+        return torch.stack(lasts), cache, \
+            torch.as_tensor(plen - offsets, device=dev)
+    try:
+        all_logits, cache = model.prefill(params, prompts, max_len)
+        return all_logits[:, -1], cache, None
+    except NotImplementedError:
+        # ring windows / hybrid / ssm / encdec: exact decode-path ingest
+        # through the decode's own step
+        logits, cache = ingest(model, params, prompts, max_len, step)
+        return logits, cache, None
+
+
 def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
               eos_id: Optional[int] = None, pad_id: int = -1,
               prompt_pad_id: Optional[int] = None):
@@ -116,42 +151,26 @@ def _generate(model, params, prompts: torch.Tensor, gen: int, max_len: int,
         raise ValueError(f"prompt ({plen}) + gen ({gen}) exceeds "
                          f"max_len ({max_len})")
     offsets = _prompt_offsets(prompts, prompt_pad_id)
+    ragged = bool(offsets.any())
     dev = prompts.device
     tid = otr.trace_id()
 
     # one compiled step (a CUDA graph on the card) decodes, and ingests a
     # prompt token by token for a model without a one-pass prefill: the
-    # reference's shared jitted step
-    step = CompiledStep(model)
+    # reference's shared jitted step (one per replica over a mesh)
+    step = data_parallel.step_of(model, CompiledStep)
     t0 = time.perf_counter()
     with otr.span("prefill", trace_id=tid, batch=b, plen=plen,
-                  ragged=bool(offsets.any())):
-        if offsets.any():
-            # ragged left-padded rows: admit each row alone at its REAL
-            # length into its row of the shared cache, then decode with a
-            # per-row position vector — the continuous-batching admission
-            # primitive (launch.mixer)
-            cache = model.init_cache(b, max_len, device=dev)
-            lasts = []
-            for r in range(b):
-                with otr.span("admit", trace_id=tid, row=r,
-                              prompt_len=plen - int(offsets[r])):
-                    last, rcache = prefill_request(
-                        model, params, prompts[r:r + 1, int(offsets[r]):],
-                        max_len, step_fn=step)
-                    write_slot(cache, rcache, r)
-                lasts.append(last)
-            logits = torch.stack(lasts)
-            first = torch.as_tensor(plen - offsets, device=dev)  # per-row
+                  ragged=ragged):
+        if isinstance(model, data_parallel.Replicated):
+            rows = data_parallel.rows_each(b, len(model.models))
+            logits, cache, first = model.map(
+                lambda i, m, p, s, x, off: _prefill(
+                    m, p, x, off, ragged, max_len, s, tid, row0=i * rows),
+                params, step.steps, prompts, offsets)
         else:
-            first = None                                      # lockstep
-            try:
-                all_logits, cache = model.prefill(params, prompts, max_len)
-                logits = all_logits[:, -1]
-            except NotImplementedError:
-                # ring windows / hybrid / ssm / encdec: exact decode-path
-                # ingest through the decode's own step
-                logits, cache = ingest(model, params, prompts, max_len, step)
+            logits, cache, first = _prefill(model, params, prompts, offsets,
+                                            ragged, max_len, step, tid)
         synchronize(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -203,10 +222,19 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
     to serve LEFT-padded ragged rows (each row prefills alone at its real
     length and decodes at its own position).  ``eos_id`` ends rows early:
     the EOS token is emitted, later positions hold ``pad_id``, and decode
-    stops once every row is done.  A ``mesh``
-    (:mod:`repro_torch.launch.mesh`) of one device serves as ``None``
-    does; one of more devices raises ``NotImplementedError`` (the
-    reference shards the batch over it).
+    stops once every row is done.
+
+    A ``mesh`` (:mod:`repro_torch.launch.mesh`) of more than one device
+    serves data-parallel, as the reference shards the batch over its data
+    axis: the model and params are replicated on the mesh's devices
+    (:func:`repro_torch.launch.data_parallel.replicate_model`), each
+    replica prefills and decodes its rows with a step of its own, and the
+    tokens come back on the mesh's first device in row order.  Pass a
+    :class:`~repro_torch.launch.data_parallel.Replicated` as ``model`` to
+    serve replicas built once (its own params then serve).  A mesh whose
+    ``model`` axis is larger than 1 raises ``NotImplementedError``; one of
+    one device serves as ``None`` does.  ``device`` must be of the mesh's
+    device type.
 
     ``guarded=True`` routes through the robustness layer
     (:func:`repro_torch.runtime.guard.guarded_generate`: store
@@ -228,8 +256,12 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
     if guard_kwargs:
         raise TypeError(f"generate: {sorted(guard_kwargs)} need "
                         f"guarded=True")
-    check_one_device(mesh, "generate")
     dev = resolve(device)
+    if mesh is not None and mesh.size > 1:
+        model = data_parallel.serving_replicas(model, params, mesh, dev,
+                                               "generate")
+    if isinstance(model, data_parallel.Replicated):
+        params, dev = model.params, model.devices[0]
     prompts = torch.as_tensor(prompts, device=dev).long()
     return _generate(model, params, prompts, gen, max_len, eos_id=eos_id,
                      pad_id=pad_id, prompt_pad_id=prompt_pad_id)
@@ -291,7 +323,7 @@ def main(argv=None) -> None:
                          "block-pruned (bitmap kernels) or 2:4 (N:M)")
     ap.add_argument("--mesh", action="store_true",
                     help="shard the request batch over available devices "
-                         "(one device: serves unsharded; more raise)")
+                         "(data-parallel; one device serves unsharded)")
     ap.add_argument("--guarded", action="store_true",
                     help="serve through the robustness layer (verify + "
                          "retry + dense degradation) and print the health "
@@ -340,9 +372,11 @@ def main(argv=None) -> None:
         fb = model.store.plan.fallback_counts()
         label += f" [compressed: ratio={ratio:.3f} fallbacks={fb or 'none'}]"
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    # --mesh: the request batch shards over every visible device (as the
+    # reference's; the mixer does not shard, and its rates are per device)
     mesh = make_serve_mesh(args.batch, device=args.device) if args.mesh \
         else None
-    check_one_device(mesh, "serve --mesh")
+    ndev = mesh.size if mesh is not None else 1
     rng = np.random.default_rng(0)
 
     # telemetry (--trace / --metrics): the contexts wrap the serving run
@@ -399,7 +433,7 @@ def main(argv=None) -> None:
         results = mx.run(reqs)
         st = mx.stats()
         print(f"[serve/mixer] {label}: slots={slots} requests={len(reqs)} "
-              f"on {where}")
+              f"on {where} devices={ndev}")
         for req, res in zip(reqs, results):
             print(f"  {res.uid}: prompt={len(req.prompt)} "
                   f"tok={res.n_tokens}/{len(res.tokens)} slot={res.slot} "
@@ -408,8 +442,9 @@ def main(argv=None) -> None:
         print(f"  admit   {st['admits']} requests in {st['t_admit_s']:.3f}s")
         print(f"  decode  {st['tokens']} tok in {st['t_decode_s']:.3f}s "
               f"over {st['steps']} steps "
-              f"({_rate(st['tokens'], st['t_decode_s']):.1f} tok/s) "
-              f"slot_reuse_admits={st['slot_reuse_admits']}")
+              f"({_rate(st['tokens'], st['t_decode_s']):.1f} tok/s, "
+              f"{_rate(st['tokens'], st['t_decode_s']) / ndev:.1f} "
+              f"tok/s/dev) slot_reuse_admits={st['slot_reuse_admits']}")
         _telemetry_done(mx)
         return
 
@@ -427,11 +462,13 @@ def main(argv=None) -> None:
             mesh=mesh, eos_id=args.eos, device=dev)
     n_pref = args.batch * args.prompt_len
     n_gen = args.batch * args.gen
-    print(f"[serve] {label}: batch={args.batch} on {where}")
+    print(f"[serve] {label}: batch={args.batch} devices={ndev} on {where}")
     print(f"  prefill {n_pref} tok in {t_prefill:.3f}s "
-          f"({_rate(n_pref, t_prefill):.1f} tok/s)")
+          f"({_rate(n_pref, t_prefill):.1f} tok/s, "
+          f"{_rate(n_pref, t_prefill) / ndev:.1f} tok/s/dev)")
     print(f"  decode  {n_gen} tok in {t_gen:.3f}s "
-          f"({_rate(n_gen, t_gen):.1f} tok/s)")
+          f"({_rate(n_gen, t_gen):.1f} tok/s, "
+          f"{_rate(n_gen, t_gen) / ndev:.1f} tok/s/dev)")
     print(f"  sample out: {toks[0, :8].tolist()}")
     if report is not None:
         print(f"  health: healthy={report.healthy} "

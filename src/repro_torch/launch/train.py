@@ -10,10 +10,10 @@ bounded retry through ``StepGuard`` and straggler monitoring.  The step
 runs eagerly; ``torch.cuda.synchronize()`` stands where the reference
 blocks on the loss, so a step's time is the device's.  The reference's
 mesh branch is the port's too: with more than one device to train on
-(``--device cuda`` on a host of several cards) :func:`main` makes the
-reference's (data 2, model 1) mesh and raises ``NotImplementedError`` for
-it, as :func:`train` does, since the port runs one process on one device;
-``--device cuda:N`` trains on card N alone.
+(``--device cuda`` on a host of several cards) :func:`main` trains on the
+reference's (data 2, model 1) mesh, data-parallel in one process
+(:func:`build_data_parallel_step`); ``--device cuda:N`` trains on card N
+alone.
 
 What the guard retries is the port's ``StepGuard``'s:
 ``NonFiniteError`` and ``KernelFault``, neither of which the dense eager
@@ -45,6 +45,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import PipelineState, TokenPipeline
 from repro_torch.device import resolve, synchronize
+from repro_torch.launch import data_parallel
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw
@@ -73,27 +74,82 @@ def build_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
     return train_step
 
 
+def build_data_parallel_step(model: Model, opt_cfg: adamw.AdamWConfig,
+                             devices: list):
+    """The train step over replicas, one per device: each replica's loss
+    and gradients on its rows of the global batch, the gradients summed in
+    replica order on the first replica's device and scaled to the global
+    batch's mean (what the reference's step under GSPMD differentiates:
+    the rows split evenly, so the global mean is the mean of the replicas'
+    means), then the same AdamW update on every replica.  ``params`` and
+    ``opt_state`` are lists, one per replica; the new params are asserted
+    bit for bit equal across replicas.  ``grad_compress`` acts on the
+    summed gradient, where the reference's ``adamw.apply`` meets it."""
+    n = len(devices)
+
+    def train_step(params, opt_state, batch):
+        rows = {k: data_parallel.split_rows(v, n) for k, v in batch.items()}
+        losses, grads = [], []
+        for i, (p, dev) in enumerate(zip(params, devices)):
+            with data_parallel.device_ctx(dev):
+                loss, g = value_and_grad(
+                    model.loss, p, {k: v[i].to(dev) for k, v in rows.items()})
+            losses.append(loss)
+            grads.append(g)
+        first = devices[0]
+        total = grads[0]
+        for g in grads[1:]:
+            total = tree.map_leaves(lambda a, b: a + b.to(a.device), total, g)
+        # tensor divisors: CUDA multiplies by a Python scalar's reciprocal
+        scale = torch.tensor(float(n), device=first)
+        total = tree.map_leaves(lambda a: a / scale.to(a.dtype), total)
+        loss = sum(x.to(first) for x in losses) / scale
+        new = []
+        for p, o, dev in zip(params, opt_state, devices):
+            with data_parallel.device_ctx(dev):
+                new.append(adamw.apply(
+                    p, tree.map_leaves(lambda a: a.to(dev), total), o,
+                    opt_cfg))
+        params = [p for p, _ in new]
+        if not data_parallel.params_equal(params):
+            raise AssertionError("the replicas' params differ after an "
+                                 "update")
+        return loss, params, [o for _, o in new]
+    return train_step
+
+
 @dataclasses.dataclass
 class TrainRun:
     """What :func:`train` leaves: every step's loss (replays included),
-    the final params, optimizer and pipeline state, the guard's events and
-    the straggler monitor."""
+    the final params and optimizer state (replica 0's over a mesh), the
+    pipeline state, the guard's events, the straggler monitor and every
+    replica's params (one entry without a mesh)."""
     losses: list
     params: PyTree
     opt_state: adamw.OptState
     pstate: PipelineState
     events: list
     monitor: StragglerMonitor
+    replicas: list = dataclasses.field(default_factory=list)
 
 
 def train(cfg: ModelConfig, params: PyTree, args: argparse.Namespace,
           device="cuda", mesh: Optional[mesh_mod.Mesh] = None) -> TrainRun:
     """The reference's training loop from ``params`` (``args`` as
     :func:`main` parses them), printing its lines.  A ``mesh`` of more
-    than one device raises ``NotImplementedError``; one of one device
+    than one device trains data-parallel
+    (:func:`build_data_parallel_step`): params and AdamW state per
+    replica, the global batch split by rows; the checkpoint is replica
+    0's, restored onto every replica.  A mesh whose ``model`` axis is
+    larger than 1 raises ``NotImplementedError``; one of one device
     trains as ``None`` does."""
-    mesh_mod.check_one_device(mesh, "train")
     dev = resolve(device)
+    devs = [dev]
+    if mesh is not None and mesh.size > 1:
+        devs = data_parallel.data_devices(mesh, "train")
+        if devs[0].type != dev.type:
+            raise ValueError(f"train: device {dev} is not of the mesh's "
+                             f"type ({devs[0].type})")
     model = Model(cfg)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=min(20, args.steps // 5),
@@ -101,16 +157,19 @@ def train(cfg: ModelConfig, params: PyTree, args: argparse.Namespace,
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=args.seq,
                          global_batch=args.batch,
                          enc_seq=cfg.enc_seq if cfg.family == "encdec" else 0,
-                         d_model=cfg.d_model, device=dev)
-    opt_state = adamw.init(params, opt_cfg)
+                         d_model=cfg.d_model, device=devs[0])
+    # one entry per replica (one without a mesh)
+    params = data_parallel.replicate(params, devs)
+    opt_state = [adamw.init(p, opt_cfg) for p in params]
     pstate = PipelineState()
 
     def do_restore():
         nonlocal params, opt_state, pstate
         if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
             restored, extra = ckpt.restore(
-                args.ckpt_dir, {"params": params, "opt": opt_state})
-            params, opt_state = restored["params"], restored["opt"]
+                args.ckpt_dir, {"params": params[0], "opt": opt_state[0]})
+            params = data_parallel.replicate(restored["params"], devs)
+            opt_state = data_parallel.replicate(restored["opt"], devs)
             pstate = PipelineState.from_dict(extra["pipeline"])
 
     if args.resume and args.ckpt_dir and \
@@ -118,7 +177,14 @@ def train(cfg: ModelConfig, params: PyTree, args: argparse.Namespace,
         do_restore()
         print(f"[resume] step {pstate.step}")
 
-    step_fn = build_train_step(model, opt_cfg)
+    if len(devs) > 1:
+        step_fn = build_data_parallel_step(model, opt_cfg, devs)
+    else:
+        one = build_train_step(model, opt_cfg)
+
+        def step_fn(ps, os_, batch):
+            loss, p, o = one(ps[0], os_[0], batch)
+            return loss, [p], [o]
     monitor = StragglerMonitor()
     guard = StepGuard(max_retries=1, on_restore=do_restore)
     losses = []
@@ -128,7 +194,8 @@ def train(cfg: ModelConfig, params: PyTree, args: argparse.Namespace,
 
         def one_step():
             out = step_fn(params, opt_state, batch)
-            synchronize(dev)                # honest step timing
+            for d in dict.fromkeys(devs):
+                synchronize(d)              # honest step timing
             return out
 
         out = guard.run(pstate.step, one_step)
@@ -145,19 +212,19 @@ def train(cfg: ModelConfig, params: PyTree, args: argparse.Namespace,
                   flush=True)
         if args.ckpt_dir and pstate.step % args.ckpt_every == 0:
             ckpt.save(args.ckpt_dir, pstate.step,
-                      {"params": params, "opt": opt_state},
+                      {"params": params[0], "opt": opt_state[0]},
                       extra={"pipeline": pstate.to_dict()})
             ckpt.prune_old(args.ckpt_dir, keep=3)
 
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, pstate.step,
-                  {"params": params, "opt": opt_state},
+                  {"params": params[0], "opt": opt_state[0]},
                   extra={"pipeline": pstate.to_dict()})
     n = max(len(losses) // 10, 1)
     print(f"[done] first-10 mean loss {sum(losses[:n])/n:.4f} → "
           f"last-10 mean {sum(losses[-n:])/n:.4f}")
-    return TrainRun(losses, params, opt_state, pstate, guard.events,
-                    monitor)
+    return TrainRun(losses, params[0], opt_state[0], pstate, guard.events,
+                    monitor, params)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -187,7 +254,6 @@ def main(argv=None) -> TrainRun:
     mesh = mesh_mod.make_small_mesh(data=min(2, n_dev), model=1,
                                     device=args.device) if n_dev > 1 \
         else None
-    mesh_mod.check_one_device(mesh, "train")
     params = Model(cfg).init(seed=0, device=args.device)
     return train(cfg, params, args, device=args.device, mesh=mesh)
 

@@ -6,9 +6,12 @@ launch layer binds to mesh axes.  The port computes the same bindings
 (:func:`logical_axis_rules`, :func:`spec`, :func:`named_sharding`); a spec
 is the tuple that ``tuple(PartitionSpec)`` gives in the reference.
 :func:`shard` is the identity where the reference's changes no value:
-without rules (the reference's no-op) and in a mesh of one device.  Where
-the reference would constrain a mesh of more than one device it raises
-``NotImplementedError``: the port runs one process on one card.
+without rules (the reference's no-op), and in a mesh whose axes bound to
+the names are of size 1 or are the data axes (``pod`` / ``data``): the
+port runs a data mesh as replicas in one process
+(:mod:`repro_torch.launch.data_parallel`), so a replica's tensor is
+already its shard.  Where a bound ``model`` / ``vocab`` / ``expert`` axis
+is larger than 1 (tensor parallelism) it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,13 +51,20 @@ def spec(*logical_axes: Optional[str]) -> tuple:
 
 
 def shard(x, *logical_axes: Optional[str]):
-    """``x`` itself, except inside a mesh of more than one device with
-    rules bound, where it raises ``NotImplementedError``."""
+    """``x`` itself, except where the current rules bind one of
+    ``logical_axes`` to a mesh axis other than ``pod`` / ``data`` that is
+    larger than 1 in the current mesh: then ``NotImplementedError``."""
     m = mesh_mod.current()
-    if m is not None and m.size > 1 and _axis_map() is not None:
-        raise NotImplementedError(
-            f"shard{spec(*logical_axes)}: the port runs one process on one "
-            f"device, not a mesh of {m.size}")
+    if m is None or _axis_map() is None:
+        return x
+    sizes = mesh_mod.mesh_axis_sizes(m)
+    for entry in spec(*logical_axes):
+        for axis in entry if isinstance(entry, tuple) else (entry,):
+            if axis not in (None, "pod", "data") and sizes.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"shard{spec(*logical_axes)}: mesh axis {axis!r} of "
+                    f"{sizes[axis]} devices; the port runs data "
+                    f"parallelism only")
     return x
 
 

@@ -225,35 +225,55 @@ def guarded_generate(model, params, prompts, gen: int,
     before ``deadline_s`` hold ``pad_id``.  With ``eos_id``, a row's
     tokens after its EOS hold ``pad_id`` and decode stops early once EVERY
     row has emitted EOS (``report.eos_hit``) instead of burning the
-    remaining steps.  A ``mesh`` of one device serves as ``None`` does;
-    one of more devices raises ``NotImplementedError`` before anything is
-    verified or served."""
-    from repro_torch.exec.dispatch import CompressedModel
-    from repro_torch.launch.mesh import check_one_device
+    remaining steps.
 
-    check_one_device(mesh, "guarded_generate")
+    A ``mesh`` of more than one device serves data-parallel, as
+    :func:`repro_torch.launch.serve.generate` does (a
+    :class:`~repro_torch.launch.data_parallel.Replicated` ``model`` serves
+    its replicas as they are): every replica's store is verified and a
+    role that fails on any replica is demoted on all of them; a step whose
+    logits are non-finite on any replica is retried, and switched to the
+    dense model, as a whole; the deadline and the report are global.  A
+    mesh whose ``model`` axis is larger than 1 raises
+    ``NotImplementedError`` before anything is verified or served; one of
+    one device serves as ``None`` does."""
+    from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.launch import data_parallel as dp
 
     t_start = time.perf_counter()
     dev = resolve(device)
+    cm = model
+    if mesh is not None and mesh.size > 1:
+        cm = dp.serving_replicas(model, params, mesh, dev,
+                                 "guarded_generate")
+    if isinstance(cm, dp.Replicated):
+        params, dev = cm.params, cm.devices[0]
+        if dense_model is not None and \
+                not isinstance(dense_model, dp.Replicated):
+            dense_model = dp.with_model(cm, dense_model)
     prompts = torch.as_tensor(prompts, device=dev).long()
     tid = obs_trace.trace_id()
     report = HealthReport(gen=gen, trace_id=tid)
     if max_len is None:
         max_len = prompts.shape[1] + gen
 
-    cm = model
-    compressed = isinstance(model, CompressedModel)
+    compressed = isinstance(dp.replica_models(cm)[0], CompressedModel)
     if compressed and dense_model is None:
-        dense_model = model.model
+        dense_model = dp.each(cm, lambda m: m.model)
     with obs_trace.span("guarded_request", trace_id=tid,
                         batch=int(prompts.shape[0]), gen=gen,
                         compressed=compressed):
         if compressed and verify:
             with obs_trace.span("verify", trace_id=tid):
-                results = integrity.role_errors(cm.store)
-            report.verify = {role: "ok" if err is None else err.reason
-                             for role, err in results}
-            errors = {role: err for role, err in results if err is not None}
+                results = [integrity.role_errors(m.store)
+                           for m in dp.replica_models(cm)]
+            # a role's first failure on any replica, in replica order
+            errors = {}
+            for per_replica in results:
+                for role, err in per_replica:
+                    report.verify.setdefault(role, "ok")
+                    if err is not None and role not in errors:
+                        report.verify[role], errors[role] = err.reason, err
             for role in sorted(errors):
                 err = errors[role]
                 report.record_fallback(role, "integrity_violation",
@@ -262,7 +282,7 @@ def guarded_generate(model, params, prompts, gen: int,
                                 code="integrity_violation",
                                 reason=err.reason)
             if errors:
-                cm = cm.demoted(errors)
+                cm = dp.each(cm, lambda m: m.demoted(errors))
         toks = _drive(cm, dense_model, params, prompts, gen, max_len,
                       report, deadline_s, max_retries, pad_id, t_start,
                       compressed, eos_id)
@@ -279,6 +299,7 @@ def _drive(cm, dense, params, prompts: torch.Tensor, gen: int, max_len: int,
            compressed: bool, eos_id: Optional[int] = None) -> torch.Tensor:
     from repro_torch.exec import dispatch
     from repro_torch.launch import compiled
+    from repro_torch.launch import data_parallel as dp
 
     b, plen = prompts.shape
     dev = prompts.device
@@ -296,10 +317,10 @@ def _drive(cm, dense, params, prompts: torch.Tensor, gen: int, max_len: int,
             obs_trace.event("demote", trace_id=tid, role=role,
                             code="kernel_failure")
 
-    step_c = compiled.CompiledStep(cm)
+    step_c = dp.step_of(cm, compiled.CompiledStep)
     step_d = None
     if dense is not None and dense is not cm:
-        step_d = compiled.CompiledStep(dense)
+        step_d = dp.step_of(dense, compiled.CompiledStep)
     guard = fault.StepGuard(max_retries=max_retries, on_restore=lambda: None)
     dense_guard = fault.StepGuard(max_retries=max_retries,
                                   on_restore=lambda: None)
@@ -346,7 +367,7 @@ def _drive(cm, dense, params, prompts: torch.Tensor, gen: int, max_len: int,
         ev = None
         if dev.type == "cuda":
             ev = torch.cuda.Event()
-            ev.record()
+            ev.record(torch.cuda.current_stream(dev))
         return lg, nc, ev, lambda: undo(nc)
 
     def attempt(fn, cache, tok, pos: int, speculate: bool):
@@ -383,10 +404,10 @@ def _drive(cm, dense, params, prompts: torch.Tensor, gen: int, max_len: int,
     def witness(where: str, run, last: str) -> None:
         """After a compressed step kept giving non-finite logits: the same
         step with every kernel replaced by its plain version over the same
-        store (eager, no launch).  Finite logits there put the fault in a
-        kernel, which the dense model must not hide."""
-        with dispatch.active(cm.store, plain=True):
-            lg = run()
+        store (eager, no launch), ``run`` of that model.  Finite logits
+        there put the fault in a kernel, which the dense model must not
+        hide."""
+        lg = run(dp.each(cm, lambda m: dataclasses.replace(m, plain=True)))
         if _finite(lg):
             raise KernelNonFiniteError(
                 f"non-finite logits at {where} from the compressed kernels, "
@@ -410,7 +431,7 @@ def _drive(cm, dense, params, prompts: torch.Tensor, gen: int, max_len: int,
                 return res
             last = guard.events[-1].error
             if compressed and _failure_code(last) == "nonfinite_logits":
-                witness(f"position {pos}", lambda: cm.model.decode_step(
+                witness(f"position {pos}", lambda m: m.decode_step(
                     params, cache, tok, pos_t.fill_(pos))[0], last)
             if step_d is None:
                 raise RuntimeError(
@@ -457,7 +478,7 @@ def _drive(cm, dense, params, prompts: torch.Tensor, gen: int, max_len: int,
                     last = guard.events[-1].error
                     if compressed and \
                             _failure_code(last) == "nonfinite_logits":
-                        witness("the prefill", lambda: cm.model.prefill(
+                        witness("the prefill", lambda m: m.prefill(
                             params, prompts, max_len)[0][:, -1], last)
                     if step_d is None:
                         raise RuntimeError(

@@ -223,12 +223,14 @@ def _nv_rows(m: int) -> int:
 @pytest.mark.parametrize("arch", SERVED)
 def test_no_served_nm_role_leaves_a_partial_row_batch(arch, reduce):
     """The naive decode kernel runs its last batch's missing groups against
-    the slice's last x columns with weight 0, which turns an Inf there
-    into NaN (ROADMAP Queue 3.3).  That needs a slice whose groups do not
-    fill whole batches of ``NV_ROWS / n_sel`` groups; every slice but the
-    last is a multiple of 8 groups, so it comes down to the last one.  No
-    role that is dispatched to a kernel (the experts are not) has one, at
-    any decode M, 2:4 or 1:4."""
+    a group of zero columns staged after the slice (ROADMAP Queue 3.3,
+    repaired: before, they read the slice's last x columns with weight 0,
+    which turned an Inf there into NaN).  That path needs a slice whose
+    groups do not fill whole batches of ``NV_ROWS / n_sel`` groups; every
+    slice but the last is a multiple of 8 groups, so it comes down to the
+    last one.  No role that is dispatched to a kernel (the experts are
+    not) has one, at any decode M, 2:4 or 1:4: the card tests hold the
+    path itself (``test_nm_naive_decode_keeps_inf_at_a_partial_row_batch``)."""
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduce else cfg
     for role in cfg.matmul_roles():

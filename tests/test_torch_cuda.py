@@ -1353,6 +1353,44 @@ def test_nm_pipelined_equals_naive_on_non_finite_x(card, m, n, k, n_sel,
         _close(y[fin], y_plain[fin])
 
 
+#: (M, N, n_sel) at K = 4096 whose last slice ends in a partial row batch
+#: of the naive decode kernel (NV_ROWS kept rows: 8 at M <= 4, 4 above)
+PARTIAL_BATCH_CASES = [(m, 4104, 2) for m in (1, 2, 3, 4)] + \
+    [(m, 4100, 2) for m in (8, 16)] + [(m, 4112, 1) for m in (1, 2, 4)] + \
+    [(m, 4104, 1) for m in (8, 16)]
+
+
+@pytest.mark.parametrize("m,n,n_sel", PARTIAL_BATCH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_naive_decode_keeps_inf_at_a_partial_row_batch(card, m, n, n_sel,
+                                                          dtype):
+    """+Inf in x's last column, a NaN in the last row: the naive decode
+    kernel's masked tail groups read a group of zeros, so it gives the
+    pipelined kernel's result (equal_nan, finite bit for bit) and +-Inf
+    wherever the plain version does, where reading the slice's last
+    columns with weight 0 turned that Inf into NaN."""
+    from repro_torch.kernels import nm_spmm as nm_cuda
+    k = 4096
+    slices, length = nm_cuda.split_plan(m, n, k, n_sel, 4)
+    last = n // 4 - (slices - 1) * length
+    assert last % ((8 if m <= 4 else 4) // n_sel)       # a partial batch
+    rng = np.random.default_rng(m + n + n_sel)
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(card)
+    c = ops.compress_nm(w, n_sel, 4)
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    x[:, n - 1] = float("inf")
+    if m > 1:
+        x[m - 1, 1] = float("nan")            # row m - 1: NaN throughout
+    x = x.to(card, dtype)
+    y = ops.nm_spmm(x, c)
+    y_naive = ops.nm_spmm(x, c, pipeline=False)
+    y_plain = ref.nm_spmm_ref(x, c.values, c.indices, n_sel, 4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y_naive, y, rtol=0, atol=0, equal_nan=True)
+    _same_masks(y_naive, y_plain)
+    assert torch.isinf(y_plain).sum() >= k // 8
+
+
 # ---------------------------------------------------------------------------
 # The search plane on the card's host
 # ---------------------------------------------------------------------------

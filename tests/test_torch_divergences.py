@@ -304,27 +304,31 @@ def test_kernel_timer_reads_device_events_at_exit(monkeypatch):
 @pytest.mark.parametrize("entry", ["generate", "guarded_generate",
                                    "serve --mesh", "train", "shard"])
 def test_a_mesh_of_more_than_one_device_raises(entry, monkeypatch):
-    """The reference shards over a mesh of several devices; the port runs
-    one process on one device and raises ``NotImplementedError`` before it
-    serves or trains anything, never running unsharded in its place.  Four
-    devices are stood in for by stubbing ``mesh.devices``."""
+    """The reference shards over a (data, model) mesh with ``model`` > 1
+    (tensor parallelism); the port serves and trains a mesh's data axis
+    only and raises ``NotImplementedError`` for a ``model`` axis larger
+    than 1 before it serves or trains anything, never running unsharded
+    in its place.  A (2, 2) mesh over the CPU repeated; the two CLI
+    entries get it through the mesh function each calls."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh, serve, train
     from repro_torch.models import sharding
     from repro_torch.models.transformer import Model
-    monkeypatch.setattr(mesh, "devices",
-                        lambda device="cuda": [torch.device("cpu")] * 4)
-    four = mesh.make_serve_mesh(4, device="cpu")
-    assert four.shape == (4, 1)
+    cpu = torch.device("cpu")
+    tp = mesh.Mesh(("data", "model"), (2, 2), mesh.grid([cpu] * 4, (2, 2)))
+    monkeypatch.setattr(mesh, "make_serve_mesh", lambda *a, **k: tp)
+    monkeypatch.setattr(mesh, "make_small_mesh", lambda *a, **k: tp)
+    monkeypatch.setattr(serve, "make_serve_mesh", lambda *a, **k: tp)
+    monkeypatch.setattr(mesh, "devices", lambda device="cuda": [cpu] * 4)
     cfg = get_config("chatglm3-6b").reduced()
     model = Model(cfg)
     params = model.init(seed=0, device="cpu")
     prompts = torch.zeros((4, 4), dtype=torch.long)
     calls = {
         "generate": lambda: serve.generate(model, params, prompts, 2, 8,
-                                           mesh=four, device="cpu"),
+                                           mesh=tp, device="cpu"),
         "guarded_generate": lambda: serve.generate(
-            model, params, prompts, 2, 8, mesh=four, guarded=True,
+            model, params, prompts, 2, 8, mesh=tp, guarded=True,
             device="cpu"),
         "serve --mesh": lambda: serve.main([
             "--arch", "chatglm3-6b", "--reduced", "--batch", "4",
@@ -334,13 +338,13 @@ def test_a_mesh_of_more_than_one_device_raises(entry, monkeypatch):
             "--batch", "2", "--seq", "8", "--device", "cpu"]),
     }
     if entry == "shard":
-        with four, sharding.logical_axis_rules(mesh.axis_map_for(four)):
-            with pytest.raises(NotImplementedError, match="one device"):
-                sharding.shard(torch.ones(4, 2), "batch", None)
+        with tp, sharding.logical_axis_rules(mesh.axis_map_for(tp)):
+            assert sharding.shard(torch.ones(4, 2), "batch", None) is not \
+                None
+            with pytest.raises(NotImplementedError, match="'model' of 2"):
+                sharding.shard(torch.ones(4, 2), "batch", "model")
         return
-    # the reference's training mesh is (data 2, model 1)
-    n = 2 if entry == "train" else 4
-    with pytest.raises(NotImplementedError, match=f"{n} devices"):
+    with pytest.raises(NotImplementedError, match="'model': 2"):
         calls[entry]()
 
 

@@ -18,8 +18,9 @@
 * ``serve.generate`` with ``mesh=None`` or a mesh of one device, and the
   CLI's ``--mesh``, serve the tokens of the mesh-less call.
 
-A mesh of more than one device raises in the port: pinned in
-``test_torch_divergences.py``.
+A mesh whose ``model`` axis is larger than 1 raises in the port: pinned in
+``test_torch_divergences.py``; data meshes of several devices serve and
+train in ``test_torch_data_parallel.py``.
 """
 
 import functools

@@ -1,27 +1,29 @@
 #!/usr/bin/env python3
-"""Time the pipelined N:M kernel (kernel 3) of an older source beside the
-committed one, and beside edits of it, on one card.
+"""Time the pipelined N:M kernel (kernel 3), or with ``--naive`` the naive
+one (kernel 4), of an older source beside the committed one, and beside
+edits of it, on one card.
 
     python3 tools/nm_parent_bench.py --parent OLD/nm_spmm.cu [--variants]
-        [--out DIR]
+        [--naive] [--out DIR]
 
 Builds ``OLD/nm_spmm.cu`` and ``src/repro_torch/csrc/nm_spmm.cu`` (with
 ``--variants`` also the committed source edited as ``VARIANTS`` says) into
 ``DIR`` (default ``build/nm_parent``), each by its own ``nvcc`` with the
 port's flags, and prints ptxas's registers and spills for every source's
-pipelined kernels.  The variants take parts of the non-finite handling out
-or move them, to split its cost: they are for timing only, and give the
-committed result on finite x.  Then at every projection role of full-width
-chatglm3-6b, 2:4 weights pruned from a seeded generator, M = 4, 16 and 512,
-x bf16, it calls each source's pipelined C entry (``nm_spmm_small_m_bf16``
-at M <= 16, ``nm_spmm_bf16`` above) directly, with the wrapper's entry,
-order and workspace (the committed workspace, which the older source's
-fits in), and holds the two results on finite x to each other: equal
-(``torch.equal``) and the count of outputs whose bits differ printed.  It
-times them (CUDA events around one call after an L2 flush, the mean of 10
-calls at M <= 16 and of 5 at 512) in passes over every case, older,
-committed, committed, older, and prints per pass the seven roles' sum at
-each M and each role's time; with ``--variants`` the passes run parent,
+pipelined and naive kernels. The variants take parts of the non-finite
+handling out or move them, to split its cost: they are for timing only, and
+give the committed result on finite x. Then at every projection role of
+full-width chatglm3-6b, 2:4 weights pruned from a seeded generator, M = 4,
+16 and 512, x bf16, it calls each source's pipelined C entry
+(``nm_spmm_small_m_bf16`` at M <= 16, ``nm_spmm_bf16`` above) directly, with
+the wrapper's entry, order and workspace (the committed workspace, which the
+older source's fits in; with ``--naive`` the naive entry
+``nm_spmm_naive_bf16``), and holds the two results on finite x to each
+other: equal (``torch.equal``) and the count of outputs whose bits differ
+printed. It times them (CUDA events around one call after an L2 flush, the
+mean of 10 calls at M <= 16 and of 5 at 512) in passes over every case,
+older, committed, committed, older, and prints per pass the seven roles' sum
+at each M and each role's time; with ``--variants`` the passes run parent,
 committed, the variants, the variants again in reverse, committed, parent.
 """
 
@@ -87,6 +89,7 @@ def _build(parent: str, out_dir: str, variants: bool
         lines = out.splitlines()
         for i, line in enumerate(lines):
             hit = re.search(r"(nm_spmm_small_m_kernel|nm_spmm_prefill_kernel"
+                            r"|nm_spmm_naive_small_m_kernel"
                             r"|nm_transpose_x_kernel)I\w*", line)
             if "Function properties for" in line and hit:
                 print(f"[build] {name}: {hit[0][:90]}: "
@@ -101,6 +104,8 @@ def main() -> None:
                     help="the older nm_spmm.cu to time beside the committed")
     ap.add_argument("--variants", action="store_true",
                     help="also time the committed source's VARIANTS")
+    ap.add_argument("--naive", action="store_true",
+                    help="time the naive entry (kernel 4), not the pipelined")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "nm_parent"))
     args = ap.parse_args()
     import torch
@@ -120,9 +125,11 @@ def main() -> None:
     flush = torch.empty(64 << 20, device=dev)
 
     def call(lib, x, c):
-        """One call of ``lib``'s pipelined entry, as the wrapper makes it."""
+        """One call of ``lib``'s pipelined (or naive) entry, as the wrapper
+        makes it."""
         entry, slices, length = nm.select_entry(x, c.values, c.indices,
-                                                c.n_sel, c.m_group)
+                                                c.n_sel, c.m_group,
+                                                pipeline=not args.naive)
         m, n = x.shape
         k = c.values.shape[1]
         y = torch.empty((m, k), device=dev)
