@@ -300,7 +300,7 @@ non-zero exit code when it fails:
    step) printed beside the card's name and power limit.  None of the
    five kernels may launch in the phase;
 16. a data mesh (``repro_torch.launch.data_parallel``): chatglm3-6b at
-   full width cut to ``MESH_LAYERS`` (8) layers on both shipped plans,
+   full width cut to ``MESH_LAYERS`` (6) layers on both shipped plans,
    batch 4 x 128, 16 tokens, bf16, through ``serve.generate`` on a (2, 1)
    mesh repeating ``cuda:0`` (and, on a host of two or more cards, over
    the first two): each replica's tokens, prefill logits and every decode
@@ -316,10 +316,28 @@ non-zero exit code when it fails:
    ``MESH_TRAIN_LAYERS`` (2) layers, 4 x 512, fp32, 3 steps on the (2, 1)
    mesh: the replicas' params bit for bit equal after every step, every
    loss within 1e-5 of one device's over the whole batch, no kernel
-   launch.
+   launch;
+17. tensor parallelism over a mesh's ``model`` axis
+   (``repro_torch.launch.tensor_parallel``): chatglm3-6b at full width
+   cut to ``TP_LAYERS`` (8) layers on both shipped plans, batch 4 x 128,
+   16 tokens, bf16, through ``serve.generate`` on a (1, 2) mesh repeating
+   ``cuda:0`` (and, on a host of two or more cards, over the first two;
+   else it prints that this is untried): every shard's role at M = 4 and
+   512, x fp32 and bf16, held to its plain version within phase 3's
+   tolerance, naive == pipelined; launches 2 x 7 x layers x (1 + 16) of
+   the plan's kernel only, pipelined and naive (same tokens); greedy
+   agreement with one device printed; at fp32 the prefill logits within
+   1e-3 max|logits| of the dense model on the same pruned weights;
+   ``guarded_generate`` healthy (tokens equal, launches) and with one
+   shard's payload bit flipped (``checksum_mismatch``, the role demoted
+   on both shards, the demoted model's tokens); 3 runs a mode in turns
+   (the mesh, eager; one device graphed and eager) give prefill ms and
+   decode ms/token, and the peak GiB of each shard device.  On 2:4, (2, 2)
+   and (1, 4) meshes repeating ``cuda:0`` once each: tokens against one
+   device and the fp32 share.
 
 The line before the last is one JSON object describing every kernel (its
-launches in phases 5-11, 14 and 16, each counted from zero before the
+launches in phases 5-11, 14, 16 and 17, each counted from zero before the
 phase's run; ``families`` holds phase 11's per-model sums);
 the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 port's sources beside this script, it exits non-zero and prints no result.
@@ -450,9 +468,14 @@ PEAK_SHORTFALL = 0.10
 # phase 16: chatglm3-6b's layers served over a (2, 1) data mesh, serving
 # runs a mode, and the data-parallel training cut (layers, steps; batch
 # TRAIN_BATCH x TRAIN_SEQ): two replicas on one card hold two copies of
-# the params and the store (about 12 GB a replica at 8 layers)
-MESH_LAYERS, MESH_RUNS = 8, 3
+# the params and the store (about 12 GB a replica at 8 layers).  6 of 28
+# layers since phase 17 came, when the script took 774 s on an H100 80GB
+# HBM3 at 700 W (phase 16 52.7 s of it at 8 layers)
+MESH_LAYERS, MESH_RUNS = 6, 3
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3
+# phase 17: chatglm3-6b's layers served tensor-parallel, and the timed runs
+# a mode
+TP_LAYERS, TP_RUNS = 8, 3
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -4358,6 +4381,282 @@ def phase_mesh(cfg, card: str, dev) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: tensor-parallel serving over a mesh's model axis
+# ---------------------------------------------------------------------------
+
+def _tp_mesh(dev, data: int, model: int, devs=None):
+    """A (data, model) mesh over ``devs`` (``dev`` repeated by default)."""
+    from repro_torch.launch import mesh
+    devs = devs or [dev] * (data * model)
+    return mesh.Mesh(("data", "model"), (data, model),
+                     mesh.grid(devs, (data, model)))
+
+
+def _tp_meshes(dev) -> list:
+    """Phase 17's (1, 2) meshes, (label, mesh): repeating ``dev`` and, on
+    a host of two or more cards, over the first two."""
+    import torch
+    out = [(f"(1, 2) repeating {dev}", _tp_mesh(dev, 1, 2))]
+    if torch.cuda.device_count() >= 2:
+        out.append(("(1, 2) over cuda:0 and cuda:1", _tp_mesh(
+            dev, 1, 2, [torch.device("cuda", 0), torch.device("cuda", 1)])))
+    else:
+        print(f"[tp] (1, 2) over two cards: untried, this host has "
+              f"{torch.cuda.device_count()} card")
+    return out
+
+
+def _tp_kernels(tp, kname: str, acc: dict) -> float:
+    """Both variants of ``kname`` at every shard's layer-0 entry of every
+    kernel role, M = 4 and 512, x fp32 and bf16, against the plain
+    version (:func:`_run_case`, untimed); returns the largest share of
+    the tolerance."""
+    import torch
+    from repro_torch.device import device_ctx
+    gen = torch.Generator(device=tp.devices[0]).manual_seed(17)
+    worst = 0.0
+    for s, (shard, d) in enumerate(zip(tp.shards, tp.devices)):
+        for e in shard.store:
+            if e.layer != 0 or e.kind == "dense":
+                continue
+            case = _bitmap_case(e.data) if e.kind == "bitmap" \
+                else _nm_case(e.data)
+            for m in (M_DECODE, M_PREFILL):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, e.data.n), generator=gen,
+                                    device=tp.devices[0]).to(d, dtype)
+                    with device_ctx(d):
+                        worst = max(worst, _run_case(
+                            acc, None, kname, f"tp shard {s} {e.role}", x,
+                            case, None, log=False))
+    return worst
+
+
+def _tp_plan(cfg, kind: str, kname: str, card: str, dev, acc: dict
+             ) -> dict[str, int]:
+    """Phase 17 on one shipped plan; returns the launches of its first
+    mesh's run, pipelined and naive."""
+    import gc
+    import torch
+    from repro_torch.exec.compress import compress_params, prune_params
+    from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.exec.plans import shipped_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled, data_parallel, serve
+    from repro_torch.launch import tensor_parallel as tpm
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+
+    one = 7 * cfg.n_layers * (1 + GEN)     # one device's launches a run
+    secs: dict[str, float] = {}            # wall seconds by part
+    t0 = time.perf_counter()
+
+    def lap(part: str) -> None:
+        nonlocal t0
+        now = time.perf_counter()
+        secs[part] = secs.get(part, 0.0) + now - t0
+        t0 = now
+
+    plan = shipped_plan(cfg, kind)
+    params = Model(cfg).init(seed=0, device=dev)
+    pruned = prune_params(params, plan, cfg)
+    del params
+    cm = CompressedModel(Model(cfg), compress_params(pruned, plan, cfg))
+    pg = torch.Generator(device=dev).manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=pg,
+                            device=dev)
+
+    def run(model, graphed=True):
+        """One counted run: tokens, prefill ms, decode ms/token, launch
+        counts (``model`` a mesh's groups serves its own params)."""
+        ops.reset_launch_counts()
+        with contextlib.nullcontext() if graphed else compiled.disable():
+            toks, tp_, tg = serve.generate(model, pruned, prompts, GEN,
+                                           PROMPT + GEN, device=dev)
+        return toks, 1e3 * tp_, 1e3 * tg / GEN, ops.launch_counts()
+
+    def only(counts, name, n, label):
+        if counts[name] != n or sum(counts.values()) != n:
+            _fail(f"tp {kind} {label}: launch counts {counts}; expected "
+                  f"{n} of {name} only")
+
+    def fp32_share(groups) -> float:
+        """The groups' fp32 prefill logits against the dense model's on
+        the same pruned weights, as a share of 1e-3 max|logits|."""
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            lc = groups.prefill(groups.params, prompts, PROMPT)[0]
+            ld = Model(cfg).prefill(pruned, prompts, PROMPT)[0]
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        share = (lc.to(ld.device) - ld).abs().max().item() \
+            / (1e-3 * ld.abs().max().item())
+        if not share <= 1:
+            _fail(f"tp {kind}: fp32 prefill logits {share:.3f} of 1e-3 "
+                  f"max|logits| from the dense model")
+        return share
+
+    base, *_ = run(cm)                     # one device, graphed (captures)
+    lap("plan, prune, compress, one device")
+    launches: dict[str, int] = {}
+    first = None                           # the first mesh's tokens
+    for n, (label, mesh_) in enumerate(_tp_meshes(dev)):
+        before = secs.get("split", 0.0)
+        groups = data_parallel.serving_replicas(cm, pruned, mesh_, dev,
+                                                "phase 17")
+        tp = groups.models[0]
+        lap("split")
+        built = secs["split"] - before
+        worst = _tp_kernels(tp, kname, acc) if n == 0 else None
+        lap("kernels vs plain")
+        toks, _, _, counts = run(groups)
+        only(counts, kname, 2 * one, label)
+        launches.setdefault(kname, counts[kname])
+        agree = (toks == base).float().mean().item()
+        first = toks if first is None else first
+        with ops.pipeline_default(False):
+            nt, _, _, counts = run(groups)
+        only(counts, f"{kname}_naive", 2 * one, f"{label} naive")
+        launches.setdefault(f"{kname}_naive", counts[f"{kname}_naive"])
+        if not torch.equal(nt, toks):
+            _fail(f"tp {kind} {label}: the naive kernels' tokens differ")
+        lap("runs")
+        share = fp32_share(groups)
+        lap("fp32")
+        bits = [tpm.Layout(cfg, 2).cut(r, 1) for r in ("attn.wq",
+                                                       "ffn.w_down")]
+        print(f"[tp {kind}] {label}: split in {built:.1f} s (shard 1 cuts "
+              f"wq at columns {bits[0][1:]}, w_down at rows {bits[1][1:]}); "
+              + (f"every shard role's kernels within the tolerance of the "
+                 f"plain version at M={M_DECODE} / {M_PREFILL}, fp32 / bf16 "
+                 f"(largest share {worst:.4f}), naive == pipelined; "
+                 if worst is not None else "")
+              + f"{2 * one} launches of {kname} (2 x 7 x {cfg.n_layers} x "
+              f"(1 + {GEN})), the naive kernels' too with the same tokens; "
+              f"greedy agreement with one device {agree:.4f}"
+              + (f", tokens {'' if torch.equal(toks, first) else 'not '}"
+                 f"equal to the first mesh's" if n else "")
+              + f"; fp32 prefill logits {share:.4f} of 1e-3 max|logits| "
+              f"from the dense model; on {card}")
+        if n == 0:
+            _tp_guarded(cfg, kind, kname, groups, toks, prompts, one, card,
+                        dev)
+            lap("guarded")
+        _tp_timing(kind, label, cm, groups, run, card)
+        lap("timing")
+        del groups, tp
+        gc.collect()
+        torch.cuda.empty_cache()
+    if kind == "nm":
+        for shape in ((2, 2), (1, 4)):
+            groups = data_parallel.serving_replicas(
+                cm, pruned, _tp_mesh(dev, *shape), dev, "phase 17")
+            toks, _, _, counts = run(groups)
+            only(counts, kname, shape[0] * shape[1] * one, f"{shape}")
+            agree = (toks == base).float().mean().item()
+            share = fp32_share(groups)
+            print(f"[tp {kind}] {shape} repeating {dev}: "
+                  f"{counts[kname]} launches of {kname}; greedy agreement "
+                  f"with one device {agree:.4f}; fp32 prefill logits "
+                  f"{share:.4f} of 1e-3 max|logits| from the dense model; "
+                  f"on {card}")
+            del groups
+            gc.collect()
+            torch.cuda.empty_cache()
+        lap("(2, 2) and (1, 4)")
+    print(f"[tp {kind}] wall seconds: " + ", ".join(
+        f"{part} {v:.1f}" for part, v in secs.items()))
+    return launches
+
+
+def _tp_guarded(cfg, kind: str, kname: str, groups, toks, prompts,
+                one: int, card: str, dev) -> None:
+    """Guarded serving over the groups: healthy, and with one shard's
+    payload bit flipped."""
+    import torch
+    from repro_torch.exec.dispatch import CompressedModel
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch import tensor_parallel as tpm
+    from repro_torch.runtime import guard, inject
+
+    ops.reset_launch_counts()
+    gt, rep = guard.guarded_generate(groups, None, prompts, GEN, device=dev)
+    counts = ops.launch_counts()
+    if counts[kname] != 2 * one or sum(counts.values()) != 2 * one or \
+            not rep.healthy or not torch.equal(gt, toks):
+        _fail(f"tp {kind} guarded: launches {counts}, healthy="
+              f"{rep.healthy}, tokens "
+              f"{'equal' if torch.equal(gt, toks) else 'differ'}")
+    tp = groups.models[0]
+    role = tp.shards[0].store.plan.ops[0].role
+    shards = list(tp.shards)
+    shards[1] = CompressedModel(shards[1].model, inject.bitflip_payload(
+        shards[1].store, role))
+    flipped = groups.each(lambda m: m)
+    flipped.models[0] = tpm.TensorParallel(shards, tp.layout, tp.devices)
+    ops.reset_launch_counts()
+    ft, frep = guard.guarded_generate(flipped, None, prompts, GEN,
+                                      device=dev)
+    counts = ops.launch_counts()
+    want = 2 * 6 * cfg.n_layers * (1 + GEN)
+    dt, *_ = serve.generate(groups.each(lambda m: m.demoted([role])), None,
+                            prompts, GEN, PROMPT + GEN, device=dev)
+    if counts[kname] != want or frep.verify[role] != "checksum_mismatch" \
+            or [f["code"] for f in frep.fallbacks] != \
+            ["integrity_violation"] or not torch.equal(ft, dt):
+        _fail(f"tp {kind} bit flip on shard 1: launches {counts}, "
+              f"{frep.stable_dict()}, tokens "
+              f"{'equal' if torch.equal(ft, dt) else 'differ'}")
+    print(f"[tp {kind}] guarded healthy: tokens equal, {2 * one} launches; "
+          f"shard 1's {role} bit flipped: checksum_mismatch, the role "
+          f"demoted on both shards ({want} launches), the demoted model's "
+          f"tokens; on {card}")
+
+
+def _tp_timing(kind: str, label: str, cm, groups, run, card: str) -> None:
+    """``TP_RUNS`` runs a mode in turns: the groups (eager: no graph is
+    captured for a tensor-parallel step) against one device graphed and
+    eager; then the peak memory of each shard device over a run."""
+    import torch
+    rec: dict = {"tp eager": [], "one device graphed": [],
+                 "one device eager": []}
+    for _ in range(TP_RUNS):
+        for mode, model, graphed in (("tp eager", groups, True),
+                                     ("one device graphed", cm, True),
+                                     ("one device eager", cm, False)):
+            _, tp_, tg, _ = run(model, graphed)
+            rec[mode].append((tp_, tg))
+    devs = sorted({d for m in groups.models for d in m.devices}, key=str)
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    run(groups)
+    peaks = ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**30:.2f}"
+                      f" GiB" for d in devs)
+    print(f"[tp {kind}] {label}: bf16, {TP_RUNS} runs a mode in turns, "
+          f"prefill ms / decode ms/token, median (min-max): " + "; ".join(
+              f"{mode} {_spread([t[0] for t in r])} / "
+              f"{_spread([t[1] for t in r])}" for mode, r in rec.items())
+          + f"; peak over a tp run (both shards' devices): {peaks}; on "
+          f"{card}")
+
+
+def phase_tensor_parallel(cfg, card: str, dev, acc: dict) -> dict[str, int]:
+    """Phase 17: serving over a mesh's ``model`` axis (see the module
+    docstring).  Returns kernel -> launches of its first mesh's runs."""
+    import gc
+    import torch
+    t_all = time.perf_counter()
+    launches: dict[str, int] = {}
+    for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
+        launches.update(_tp_plan(cfg, kind, kname, card, dev, acc))
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[tp] phase 17 took {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4404,6 +4703,8 @@ def main() -> None:
     timed("15", phase_dryrun, card, dev, train)
     mesh_launches = timed("16", phase_mesh, dataclasses.replace(
         cfg, n_layers=MESH_LAYERS), card, dev)
+    tp_launches = timed("17", phase_tensor_parallel, dataclasses.replace(
+        cfg, n_layers=TP_LAYERS), card, dev, acc)
     print("[time] wall seconds a phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; sum {sum(seconds.values()):.1f}")
@@ -4437,6 +4738,7 @@ def main() -> None:
                  "families_launches": families_launches.get(name, 0),
                  "flags_launches": flags_launches.get(name, 0),
                  "mesh_launches": mesh_launches.get(name, 0),
+                 "tp_launches": tp_launches.get(name, 0),
                  "max_abs_err": a.max_abs_err}
         for key, m in (("decode", M_DECODE), ("prefill", M_PREFILL)):
             s = a.sums[(cfg.name, m, torch.bfloat16)]
@@ -4469,7 +4771,7 @@ def main() -> None:
         "source": sources["flash_attention"][0],
         "replaces": sources["flash_attention"][1],
         "launches": flash["launches"], "families_launches": 0,
-        "flags_launches": 0, "mesh_launches": 0,
+        "flags_launches": 0, "mesh_launches": 0, "tp_launches": 0,
         "max_abs_err": flash["max_abs_err"],
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "at")},

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -27,3 +29,9 @@ def synchronize(dev: torch.device) -> None:
     read after it times the device's work, not its enqueue."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def device_ctx(dev: torch.device):
+    """``dev`` made the current CUDA device (nothing for the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()

@@ -226,6 +226,18 @@ class _Dispatcher:
 
 
 @contextlib.contextmanager
+def installed(disp: Optional[_Dispatcher]) -> Iterator[Optional[_Dispatcher]]:
+    """``disp`` made the projection hook for the scope (none, for
+    ``None``), the previous hook put back after."""
+    prev = L._PROJ_HOOK
+    L.set_proj_hook(disp)
+    try:
+        yield disp
+    finally:
+        L.set_proj_hook(prev)
+
+
+@contextlib.contextmanager
 def active(store: CompressedStore, plain: bool = False
            ) -> Iterator[_Dispatcher]:
     """Install the dispatch hook for ``store``.  With ``plain``, each
@@ -234,12 +246,8 @@ def active(store: CompressedStore, plain: bool = False
     and with no launch: the guarded serving path's witness for a kernel's
     non-finite output (:mod:`repro_torch.runtime.guard`), never a serving
     path."""
-    disp = _Dispatcher(store, plain)
-    L.set_proj_hook(disp)
-    try:
+    with installed(_Dispatcher(store, plain)) as disp:
         yield disp
-    finally:
-        L.set_proj_hook(None)
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,10 @@ is one), and one jitted program runs on every device.  The port has no
 counterpart module: one process enqueues each replica's work on its own
 device, in mesh order, before it reads anything back.
 
-* :func:`data_devices` — a mesh's replicas: its devices in grid order.
-  Only the ``pod`` and ``data`` axes may be larger than 1 (a ``model``
-  axis larger than 1 is tensor parallelism, not ported); a mesh may
-  repeat a device, as the reference's forced host devices stand in for
-  several.
+* :func:`data_devices` — a data mesh's replicas: its devices in grid
+  order.  Only the ``pod`` and ``data`` axes may be larger than 1 there
+  (training); a mesh may repeat a device, as the reference's forced host
+  devices stand in for several.
 * :func:`replicate` — a copy of a tree (params, a compressed store,
   optimizer state) per replica.  The first replica on a device takes the
   tree moved there (the caller's own tensors where they already lie on
@@ -26,11 +25,13 @@ device, in mesh order, before it reads anything back.
   device, and a cache of its own; a batch's rows split over the replicas
   and their outputs come back gathered.  :mod:`repro_torch.launch.serve`
   and :mod:`repro_torch.runtime.guard` serve it as they serve one model.
+  Over a mesh whose ``model`` axis is larger than 1 each replica is a
+  :class:`~repro_torch.launch.tensor_parallel.TensorParallel` group on
+  its row of the grid (:func:`tensor_groups`), which steps eagerly.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -38,8 +39,11 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.device import device_ctx
 from repro_torch.exec.dispatch import CompressedModel
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import tensor_parallel as tp_mod
+from repro_torch.launch.tensor_parallel import Shards, TensorParallel
 
 
 def data_devices(mesh: mesh_mod.Mesh, what: str = "data_devices"
@@ -48,12 +52,6 @@ def data_devices(mesh: mesh_mod.Mesh, what: str = "data_devices"
     then ``data``): the order the reference splits a batch's rows in."""
     mesh_mod.check_data_only(mesh, what)
     return [torch.device(d) for d in mesh.devices.flat]
-
-
-def device_ctx(dev: torch.device):
-    """``dev`` made the current CUDA device (nothing for the CPU)."""
-    return torch.cuda.device(dev) if dev.type == "cuda" \
-        else contextlib.nullcontext()
 
 
 def _to(x: Any, dev: torch.device, clone: bool) -> Any:
@@ -102,13 +100,6 @@ def split_rows(x, n: int) -> list:
 def gather(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
     """The parts' rows, in order, on ``device``."""
     return torch.cat([p.to(device, non_blocking=True) for p in parts])
-
-
-class Shards(dict):
-    """One value per replica, by replica index: a cache, params, steps.
-    A dict, so the cache helpers that walk a cache tree
-    (:func:`repro_torch.models.transformer.step_writes`,
-    :func:`repro_torch.launch.compiled.leaves`) walk every replica's."""
 
 
 @dataclasses.dataclass(eq=False)
@@ -184,9 +175,10 @@ class Replicated:
 
     def step(self, cls: Callable) -> "ReplicatedStep":
         """A step of ``cls(model)`` per replica (a
-        :class:`~repro_torch.launch.compiled.CompiledStep`)."""
+        :class:`~repro_torch.launch.compiled.CompiledStep`; a
+        tensor-parallel group's eager ``decode_step``)."""
         return ReplicatedStep(self, Shards(
-            (i, cls(m)) for i, m in enumerate(self.models)))
+            (i, step_of(m, cls)) for i, m in enumerate(self.models)))
 
 
 @dataclasses.dataclass(eq=False)
@@ -213,9 +205,33 @@ def each(model, fn: Callable):
     return model.each(fn) if isinstance(model, Replicated) else fn(model)
 
 
+def shard_models(model) -> list:
+    """Every shard's model of every replica, in order (each replica's
+    model itself where it is not a tensor-parallel group)."""
+    return [s for m in replica_models(model)
+            for s in (m.shards if isinstance(m, TensorParallel) else [m])]
+
+
+def stores(model) -> list:
+    """The compressed store of every shard of every replica, in order."""
+    return [m.store for m in shard_models(model)
+            if isinstance(m, CompressedModel)]
+
+
+def compressed(model) -> bool:
+    """Whether ``model`` serves compressed stores."""
+    return isinstance(shard_models(model)[0], CompressedModel)
+
+
 def step_of(model, cls: Callable):
-    """``cls(model)``, or a step of ``cls`` per replica."""
-    return model.step(cls) if isinstance(model, Replicated) else cls(model)
+    """``cls(model)``, or a step of ``cls`` per replica; a
+    tensor-parallel group steps eagerly (its ``decode_step``: no CUDA
+    graph is captured)."""
+    if isinstance(model, Replicated):
+        return model.step(cls)
+    if isinstance(model, TensorParallel):
+        return model.decode_step
+    return cls(model)
 
 
 def _own_model(model, store=None):
@@ -239,14 +255,42 @@ def replicate_model(model, params, mesh: mesh_mod.Mesh,
                       Shards(enumerate(replicate(params, devs))), devs)
 
 
+def tensor_groups(model, params, groups: list, what: str = "tensor_groups"
+                  ) -> Replicated:
+    """``model`` over ``params`` as one
+    :class:`~repro_torch.launch.tensor_parallel.TensorParallel` group per
+    list of ``groups`` (:func:`repro_torch.launch.mesh.model_groups`), the
+    groups replicas of one another: the first group is split from
+    ``model`` and ``params``, every later one gets a copy of its shards'
+    params and stores (the same bytes and checksums, not cut again), so
+    each group's tensors are its own.  A replica's rows go to its group's
+    first device."""
+    first, ps = tp_mod.build(model, params, groups[0], what)
+    models, params_ = [first], Shards({0: ps})
+    for i, g in enumerate(groups[1:], 1):
+        stores = [_to(m.store, d, clone=True)
+                  if isinstance(m, CompressedModel) else None
+                  for m, d in zip(first.shards, g)]
+        models.append(TensorParallel(
+            [_own_model(m, st) for m, st in zip(first.shards, stores)],
+            first.layout, list(g), first.plain))
+        params_[i] = Shards((s, _to(ps[s], d, clone=True))
+                            for s, d in enumerate(g))
+    return Replicated(models, params_, [g[0] for g in groups])
+
+
 def serving_replicas(model, params, mesh: mesh_mod.Mesh,
                      device: torch.device, what: str) -> Replicated:
     """What serves over ``mesh``: ``model`` itself where it is a
     :class:`Replicated` on the mesh's devices, else ``model`` over
-    ``params`` replicated there.  Raises ``ValueError`` where ``device``
-    (the caller's) is not of the mesh's device type, or a given
-    :class:`Replicated` lies on other devices than the mesh's."""
-    devs = data_devices(mesh, what)
+    ``params`` replicated there, as tensor-parallel groups where the
+    mesh's ``model`` axis is larger than 1 (:func:`tensor_groups`).
+    Raises ``ValueError`` where ``device`` (the caller's) is not of the
+    mesh's device type, or a given :class:`Replicated` lies on other
+    devices than the mesh's."""
+    mesh_mod.check_servable(mesh, what)
+    groups = mesh_mod.model_groups(mesh)
+    devs = [g[0] for g in groups]
     if device.type != devs[0].type:
         raise ValueError(f"{what}: device {device} is not of the mesh's "
                          f"type ({devs[0].type})")
@@ -255,13 +299,18 @@ def serving_replicas(model, params, mesh: mesh_mod.Mesh,
             raise ValueError(f"{what}: replicas on {model.devices}, not on "
                              f"the mesh's {devs}")
         return model
+    if len(groups[0]) > 1:
+        return tensor_groups(model, params, groups, what)
     return replicate_model(model, params, mesh, what)
 
 
 def with_model(replicated: Replicated, model) -> Replicated:
     """``model`` (a dense model) over ``replicated``'s params: the guard's
-    degradation target for a replicated compressed model."""
-    return replicated.each(lambda _: _own_model(model))
+    degradation target for a replicated compressed model (split as each
+    tensor-parallel group is)."""
+    return replicated.each(lambda m: m.with_model(model)
+                           if isinstance(m, TensorParallel)
+                           else _own_model(model))
 
 
 def params_equal(replicas: list) -> bool:

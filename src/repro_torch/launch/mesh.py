@@ -8,10 +8,13 @@ same device count, so on one card every serving mesh is ``None`` and
 serving runs unsharded, as the reference's does on one device.  A mesh
 whose axes other than ``pod`` / ``data`` have size 1 is served and
 trained data-parallel by one process
-(:mod:`repro_torch.launch.data_parallel`); a ``model`` axis larger than 1
-(tensor parallelism) raises ``NotImplementedError``.  A grid may repeat a
-device (:func:`grid`): four replicas on one CPU or one card stand in for
-four devices, as the reference's forced host devices do.
+(:mod:`repro_torch.launch.data_parallel`).  A ``model`` axis larger than
+1 is served tensor-parallel (:func:`check_servable`, :func:`model_groups`,
+:mod:`repro_torch.launch.tensor_parallel`: each of the grid's rows one
+group of shards); training and the dry run take data axes only
+(:func:`check_data_only`).  A grid may repeat a device (:func:`grid`):
+four replicas on one CPU or one card stand in for four devices, as the
+reference's forced host devices do.
 :meth:`Mesh.device_mesh` builds a ``torch.distributed`` ``DeviceMesh``
 only where a process group exists.
 
@@ -177,9 +180,10 @@ def degraded_serve_mesh(batch: int, lost: int, model: int = 1,
 
 def check_data_only(mesh: Optional[Mesh], what: str) -> None:
     """Raise ``NotImplementedError`` for a mesh with an axis other than
-    ``pod`` / ``data`` larger than 1 (tensor parallelism), and
-    ``ValueError`` for one without devices (a production mesh's sizes):
-    neither is served or trained, unsharded or otherwise."""
+    ``pod`` / ``data`` larger than 1 (tensor parallelism, which only
+    serving takes: :func:`check_servable`), and ``ValueError`` for one
+    without devices (a production mesh's sizes): neither is trained,
+    unsharded or otherwise."""
     if mesh is None:
         return
     sizes = mesh_axis_sizes(mesh)
@@ -188,7 +192,41 @@ def check_data_only(mesh: Optional[Mesh], what: str) -> None:
     if wide:
         raise NotImplementedError(
             f"{what}: a mesh of {mesh.size} devices ({sizes}) with "
-            f"{wide}: the port runs data parallelism only (a 'model' axis "
-            f"larger than 1 is tensor parallelism)")
+            f"{wide}: it takes data parallelism only (a 'model' axis "
+            f"larger than 1 is tensor parallelism, which serving takes)")
     if mesh.devices is None:
         raise ValueError(f"{what}: the mesh {sizes} has no devices")
+
+
+def check_servable(mesh: Optional[Mesh], what: str) -> None:
+    """Raise ``ValueError`` for a mesh without devices (a production
+    mesh's sizes), and ``NotImplementedError`` for an axis other than
+    ``pod`` / ``data`` / ``model`` larger than 1: what serving takes is
+    data replicas (``pod`` / ``data``) of tensor-parallel groups
+    (``model``)."""
+    if mesh is None:
+        return
+    sizes = mesh_axis_sizes(mesh)
+    other = {a: n for a, n in sizes.items()
+             if a not in ("pod", "data", "model") and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"{what}: a mesh of {mesh.size} devices ({sizes}) with "
+            f"{other}: serving takes 'pod' / 'data' replicas of 'model' "
+            f"groups only")
+    if mesh.devices is None:
+        raise ValueError(f"{what}: the mesh {sizes} has no devices")
+
+
+def model_groups(mesh: Mesh) -> list[list[torch.device]]:
+    """The grid's rows in mesh order (``pod`` major, then ``data``), each
+    the list of its ``model`` axis's t devices: one tensor-parallel group
+    a row.  Devices may repeat."""
+    check_servable(mesh, "model_groups")
+    t = mesh_axis_sizes(mesh).get("model", 1)
+    flat = [torch.device(d) for d in mesh.devices.flat]
+    if "model" in mesh.axis_names and \
+            mesh.axis_names.index("model") != len(mesh.axis_names) - 1:
+        raise ValueError(f"model_groups: the 'model' axis of "
+                         f"{mesh.axis_names} is not the last")
+    return [flat[i:i + t] for i in range(0, len(flat), t)]

@@ -232,9 +232,15 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
     tokens come back on the mesh's first device in row order.  Pass a
     :class:`~repro_torch.launch.data_parallel.Replicated` as ``model`` to
     serve replicas built once (its own params then serve).  A mesh whose
-    ``model`` axis is larger than 1 raises ``NotImplementedError``; one of
-    one device serves as ``None`` does.  ``device`` must be of the mesh's
-    device type.
+    ``model`` axis is larger than 1 serves tensor-parallel: each row of
+    its grid is one group of shards
+    (:mod:`repro_torch.launch.tensor_parallel`: heads, ``d_ff`` and the
+    vocab split over the shards, each compressed shard on the kernels over
+    its own store), the rows replicas of one another; a group decodes
+    eagerly.  A uniform full-attention stack with no optflag on serves
+    so; anything else raises ``NotImplementedError`` before any work.  A
+    mesh of one device serves as ``None`` does.  ``device`` must be of the
+    mesh's device type.
 
     ``guarded=True`` routes through the robustness layer
     (:func:`repro_torch.runtime.guard.guarded_generate`: store

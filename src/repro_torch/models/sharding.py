@@ -10,8 +10,11 @@ without rules (the reference's no-op), and in a mesh whose axes bound to
 the names are of size 1 or are the data axes (``pod`` / ``data``): the
 port runs a data mesh as replicas in one process
 (:mod:`repro_torch.launch.data_parallel`), so a replica's tensor is
-already its shard.  Where a bound ``model`` / ``vocab`` / ``expert`` axis
-is larger than 1 (tensor parallelism) it raises ``NotImplementedError``.
+already its shard.  Inside the tensor-parallel driver
+(:mod:`repro_torch.launch.tensor_parallel`) each shard's tensors are its
+slice too, and :func:`local_view` binds the names bound to ``model`` to
+``None`` there.  Elsewhere, where a bound ``model`` / ``vocab`` /
+``expert`` axis is larger than 1 it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,19 @@ def logical_axis_rules(axis_map: dict):
         _state.axis_map = prev
 
 
+@contextlib.contextmanager
+def local_view():
+    """A shard's local view for the scope: every logical name bound to
+    the ``model`` axis bound to ``None`` (nothing, without rules)."""
+    amap = _axis_map()
+    if amap is None:
+        yield
+        return
+    with logical_axis_rules({k: None if v == "model" else v
+                             for k, v in amap.items()}):
+        yield
+
+
 def spec(*logical_axes: Optional[str]) -> tuple:
     """The spec of ``logical_axes`` under the current rules; without
     rules, fully replicated (every entry ``None``)."""
@@ -63,8 +79,8 @@ def shard(x, *logical_axes: Optional[str]):
             if axis not in (None, "pod", "data") and sizes.get(axis, 1) > 1:
                 raise NotImplementedError(
                     f"shard{spec(*logical_axes)}: mesh axis {axis!r} of "
-                    f"{sizes[axis]} devices; the port runs data "
-                    f"parallelism only")
+                    f"{sizes[axis]} devices outside the tensor-parallel "
+                    f"driver")
     return x
 
 

@@ -117,13 +117,29 @@ def _take(tree: PyTree, i: int) -> PyTree:
     return tree[i]
 
 
+def attn_out(x, p, cfg: ModelConfig, freqs, positions, causal=True,
+             window=0, return_kv=False):
+    """A layer's attention sublayer before its residual add:
+    ``attention(ln1(x))`` (with ``return_kv``, also its post-RoPE,
+    pre-GQA-repeat (K, V)).  A tensor-parallel shard's partial sum
+    (:mod:`repro_torch.launch.tensor_parallel`)."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    return attn.attention_block(h, p["attn"], cfg, freqs, positions,
+                                causal=causal, window=window,
+                                return_kv=return_kv)
+
+
+def ffn_out(x, p, cfg: ModelConfig):
+    """A layer's FFN sublayer before its residual add: ``ffn(ln2(x))``."""
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return _ffn_apply(h, p["ffn"], cfg)
+
+
 def _attn_half(x, p, cfg: ModelConfig, freqs, positions, causal=True,
                window=0):
     """A layer up to its attention output (the reference's first
     ``ar_out``): ``x + attention(ln1(x))``."""
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    return x + attn.attention_block(h, p["attn"], cfg, freqs, positions,
-                                    causal=causal, window=window)
+    return x + attn_out(x, p, cfg, freqs, positions, causal, window)
 
 
 def _ffn_half(x, p, cfg: ModelConfig, positions, kv_override=None):
@@ -133,17 +149,32 @@ def _ffn_half(x, p, cfg: ModelConfig, positions, kv_override=None):
         h = L.rms_norm(x, p["ln3"], cfg.norm_eps)
         x = x + attn.attention_block(h, p["cross"], cfg, None, positions,
                                      causal=False, kv_override=kv_override)
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn_apply(h, p["ffn"], cfg)
+    return x + ffn_out(x, p, cfg)
 
 
 def _attn_layer_kv(x, p, cfg: ModelConfig, freqs, positions):
     """A causal self-attention layer that also returns its post-RoPE,
     pre-GQA-repeat (K, V): the prefill's."""
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, k, v = attn.attention_block(h, p["attn"], cfg, freqs, positions,
-                                   return_kv=True)
+    a, k, v = attn_out(x, p, cfg, freqs, positions, return_kv=True)
     return _ffn_half(x + a, p, cfg, positions), k, v
+
+
+def attn_step_out(h, p, cfg: ModelConfig, freqs, pos, kc, vc, cache_pos):
+    """A decode step's attention sublayer before its residual add, writing
+    the step's K / V into ``kc`` / ``vc`` at ``cache_pos``."""
+    hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    return attn.attention_decode_block(hn, p["attn"], cfg, freqs, pos, kc,
+                                       vc, cache_pos)
+
+
+def ffn_step_out(h, p, cfg: ModelConfig):
+    """A decode step's FFN sublayer before its residual add."""
+    hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    if cfg.moe:
+        return moe_mod.moe_decode(hn, p["ffn"], cfg)
+    if "payload_gate" in p["ffn"]:
+        return L.sparse_mlp_decode(hn, p["ffn"])
+    return L.mlp(hn, p["ffn"])
 
 
 def _attn_pieces(p, cfg: ModelConfig, freqs, positions, causal=True,
@@ -282,6 +313,20 @@ def step_writes(cache: PyTree, pos: int) -> list[torch.Tensor]:
         elif t.ndim >= 2:
             out.append(t)
     return out
+
+
+def decode_pos(tokens: torch.Tensor, pos) -> torch.Tensor:
+    """A decode step's ``pos`` as a tensor on the tokens' device: a scalar
+    (lockstep) or one position a row; anything else raises
+    ``ValueError``."""
+    pos = torch.as_tensor(pos, device=tokens.device)
+    if pos.ndim not in (0, 1) or \
+            (pos.ndim == 1 and pos.shape[0] != tokens.shape[0]):
+        raise ValueError(
+            f"decode_step: pos must be a scalar or a per-slot vector "
+            f"matching the batch ({tokens.shape[0]},); got "
+            f"{tuple(pos.shape)}")
+    return pos
 
 
 @dataclasses.dataclass(frozen=True)
@@ -550,26 +595,13 @@ class Model:
         cfg = self.cfg
         _check_family(cfg)
         dev = tokens.device
-        pos = torch.as_tensor(pos, device=dev)
-        if pos.ndim not in (0, 1) or \
-                (pos.ndim == 1 and pos.shape[0] != tokens.shape[0]):
-            raise ValueError(
-                f"decode_step: pos must be a scalar or a per-slot vector "
-                f"matching the batch ({tokens.shape[0]},); got "
-                f"{tuple(pos.shape)}")
+        pos = decode_pos(tokens, pos)
         x = params["embed"][tokens].to(L.COMPUTE_DTYPE)
         freqs = L.rope_freqs(cfg, dev)
 
         def attn_step(h, p, kc, vc, cache_pos):
-            hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
-            h = h + attn.attention_decode_block(hn, p["attn"], cfg, freqs,
-                                                pos, kc, vc, cache_pos)
-            hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-            if cfg.moe:
-                return h + moe_mod.moe_decode(hn, p["ffn"], cfg)
-            if "payload_gate" in p["ffn"]:
-                return h + L.sparse_mlp_decode(hn, p["ffn"])
-            return h + L.mlp(hn, p["ffn"])
+            h = h + attn_step_out(h, p, cfg, freqs, pos, kc, vc, cache_pos)
+            return h + ffn_step_out(h, p, cfg)
 
         def rec_step(h, p, i):
             hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)

@@ -72,6 +72,7 @@ the dense matmul computes what the compressed kernel encodes.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -234,18 +235,30 @@ def guarded_generate(model, params, prompts, gen: int,
     role that fails on any replica is demoted on all of them; a step whose
     logits are non-finite on any replica is retried, and switched to the
     dense model, as a whole; the deadline and the report are global.  A
-    mesh whose ``model`` axis is larger than 1 raises
-    ``NotImplementedError`` before anything is verified or served; one of
-    one device serves as ``None`` does."""
+    mesh whose ``model`` axis is larger than 1 serves each replica as a
+    tensor-parallel group (:mod:`repro_torch.launch.tensor_parallel`):
+    the store it was split from and every shard's store are verified, a
+    role that fails on any of them is demoted on every shard of every
+    replica, a step non-finite on any shard is retried whole, and
+    ``dense_model`` degrades to the dense model split as the groups are.
+    What a ``model`` axis does not serve raises ``NotImplementedError``
+    before anything is verified or served; a mesh of one device serves as
+    ``None`` does."""
     from repro_torch.exec.dispatch import CompressedModel
     from repro_torch.launch import data_parallel as dp
 
     t_start = time.perf_counter()
     dev = resolve(device)
     cm = model
+    split_from = []     # the store this call split over shards, if any
     if mesh is not None and mesh.size > 1:
         cm = dp.serving_replicas(model, params, mesh, dev,
                                  "guarded_generate")
+        if cm is not model and isinstance(model, CompressedModel) and \
+                isinstance(cm.models[0], dp.TensorParallel):
+            # a shard's checksums are taken from its cut of this store:
+            # they cannot see a corruption the store held before the cut
+            split_from = [model.store]
     if isinstance(cm, dp.Replicated):
         params, dev = cm.params, cm.devices[0]
         if dense_model is not None and \
@@ -257,17 +270,20 @@ def guarded_generate(model, params, prompts, gen: int,
     if max_len is None:
         max_len = prompts.shape[1] + gen
 
-    compressed = isinstance(dp.replica_models(cm)[0], CompressedModel)
+    compressed = dp.compressed(cm)
     if compressed and dense_model is None:
         dense_model = dp.each(cm, lambda m: m.model)
     with obs_trace.span("guarded_request", trace_id=tid,
                         batch=int(prompts.shape[0]), gen=gen,
                         compressed=compressed):
         if compressed and verify:
-            with obs_trace.span("verify", trace_id=tid):
-                results = [integrity.role_errors(m.store)
-                           for m in dp.replica_models(cm)]
-            # a role's first failure on any replica, in replica order
+            stores = split_from + dp.stores(cm)
+            with obs_trace.span("verify", trace_id=tid), \
+                    concurrent.futures.ThreadPoolExecutor(len(stores)) as pool:
+                # the stores side by side (sha256 releases the GIL)
+                results = list(pool.map(integrity.role_errors, stores))
+            # a role's first failure on any store, in replica (and shard)
+            # order
             errors = {}
             for per_replica in results:
                 for role, err in per_replica:

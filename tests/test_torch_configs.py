@@ -229,11 +229,17 @@ def test_no_served_nm_role_leaves_a_partial_row_batch(arch, reduce):
     groups do not fill whole batches of ``NV_ROWS / n_sel`` groups; every
     slice but the last is a multiple of 8 groups, so it comes down to the
     last one.  No role that is dispatched to a kernel (the experts are
-    not) has one, at any decode M, 2:4 or 1:4: the card tests hold the
-    path itself (``test_nm_naive_decode_keeps_inf_at_a_partial_row_batch``)."""
+    not) has one, at any decode M, 2:4 or 1:4, in the whole model or in
+    a tensor-parallel shard of it (t = 2 and 4, where a ``model`` axis
+    serves the config and t divides it): the card tests hold the path
+    itself (``test_nm_naive_decode_keeps_inf_at_a_partial_row_batch``)."""
+    from repro_torch.launch import tensor_parallel as tpm
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduce else cfg
-    for role in cfg.matmul_roles():
+    cfgs = [cfg]
+    if tpm.unserved(cfg) is None:
+        cfgs += [tpm.Layout(cfg, t).shard_cfg() for t in (2, 4)]
+    for role in (r for c in cfgs for r in c.matmul_roles()):
         if role.role.startswith("moe."):
             continue
         for n_sel in (2, 1):

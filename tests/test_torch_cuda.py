@@ -1392,6 +1392,54 @@ def test_nm_naive_decode_keeps_inf_at_a_partial_row_batch(card, m, n, n_sel,
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism over a mesh's model axis
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_tensor_parallel_serves_on_the_kernels(card, kind, monkeypatch):
+    """Reduced chatglm3-6b, fp32, on a (1, 2) mesh repeating the card (and
+    over the first two cards where there are two): every shard's
+    projections on the kernels over its own store (2 x one device's
+    launches, of the plan's kernel only), the tokens of the same mesh
+    served on the CPU by the plain versions, and prefill logits within
+    1e-4 max|logits| of the CPU's."""
+    from repro_torch.launch import data_parallel, mesh, serve
+    from repro_torch.models import layers as L
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    cfg, cm, pruned = _served(kind)
+    cpu = torch.device("cpu")
+    prompts = _prompts(cfg, b=4, s=6)
+    gen, one = 4, 7 * cfg.n_layers * (1 + 4)
+    kname = "bitmap_spmm" if kind == "bitmap" else "nm_spmm"
+
+    def on(devs):
+        return mesh.Mesh(("data", "model"), (1, 2),
+                         mesh.grid(devs, (1, 2)))
+    cpu_cm = data_parallel._to(cm, cpu, clone=False)
+    cpu_pruned = data_parallel._to(pruned, cpu, clone=False)
+    want, _, _ = serve.generate(cpu_cm, cpu_pruned, prompts.cpu(), gen, 10,
+                                mesh=on([cpu, cpu]), device="cpu")
+    cpu_groups = data_parallel.serving_replicas(cpu_cm, cpu_pruned,
+                                                on([cpu, cpu]), cpu, "test")
+    want_lg = cpu_groups.prefill(cpu_groups.params, prompts.cpu(), 10)[0]
+    meshes = [on([card, card])]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(on([torch.device("cuda", 0),
+                          torch.device("cuda", 1)]))
+    for m in meshes:
+        ops.reset_launch_counts()
+        toks, _, _ = serve.generate(cm, pruned, prompts, gen, 10, mesh=m,
+                                    device=card)
+        counts = ops.launch_counts()
+        assert counts[kname] == 2 * one == sum(counts.values()), counts
+        assert torch.equal(toks.cpu(), want)
+        groups = data_parallel.serving_replicas(cm, pruned, m, card, "test")
+        lg = groups.prefill(groups.params, prompts, 10)[0]
+        assert (lg.cpu() - want_lg).abs().max().item() <= \
+            1e-4 * want_lg.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
 # The search plane on the card's host
 # ---------------------------------------------------------------------------
 
