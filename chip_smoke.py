@@ -80,7 +80,7 @@ non-zero exit code when it fails:
    replay adds says, and every sparse kernel as often as the eager trace.
    Device memory is printed before each plan and after its model is
    deleted, graphs included;
-6. the mixer: full-width chatglm3-6b cut to ``MIX_LAYERS`` (14) of 28
+6. the mixer: full-width chatglm3-6b cut to ``MIX_LAYERS`` (7) of 28
    layers served as a request stream through
    ``repro_torch.launch.mixer.Mixer`` on both plans: 12 greedy requests
    drawn with ``np.random.default_rng(3)`` (prompts of 8-256 tokens, one
@@ -144,7 +144,8 @@ non-zero exit code when it fails:
    ``deadline_hit`` with the healthy run's tokens up to it and the tail
    padded;
 8. grouped-query decode (``repro_torch.models.optflags``, flag
-   ``gqagroup``): full-width chatglm3-6b on both shipped plans.  Under the
+   ``gqagroup``): full-width chatglm3-6b cut to ``GQA_LAYERS`` (14) of
+   28 layers on both shipped plans.  Under the
    flag the graph and the eager step must give ``torch.equal`` tokens and
    logits at every decode step, both variants, bf16 and fp32; at fp32
    each row's decode logits must stay within 1e-3 max|logits| of the
@@ -334,7 +335,20 @@ non-zero exit code when it fails:
    (the mesh, eager; one device graphed and eager) give prefill ms and
    decode ms/token, and the peak GiB of each shard device.  On 2:4, (2, 2)
    and (1, 4) meshes repeating ``cuda:0`` once each: tokens against one
-   device and the fp32 share.
+   device and the fp32 share.  On the first mesh the fp32 greedy tokens of
+   the tensor-parallel decode against one device's, and at the first
+   step where they part, the top-2 logit gap beside the two runs' logit
+   difference there.  Then expert parallelism: granite-moe-3b-a800m at
+   full width cut to ``TP_MOE_LAYERS`` (4) layers on both
+   searched plans, the same batch, meshes and checks (4 attention roles a
+   layer on the kernels, the experts dense; each shard holds 20 of the 40
+   experts, the whole embedding: the vocab 49,155 splits over no t > 1),
+   the fp32 share on the rows whose routing does not part at a near tie
+   (``NEAR_TIE``, as phase 11; every shard routes alike), the guarded
+   run's flipped bit in the last layer's last expert's ``moe.w_up`` entry
+   on the shard that holds it (the role demoted on every shard, the
+   healthy run's tokens), 3 runs a mode in turns (the mesh, eager; one
+   device graphed), and on 2:4 a (1, 4) mesh (10 experts a shard).
 
 The line before the last is one JSON object describing every kernel (its
 launches in phases 5-11, 14, 16 and 17, each counted from zero before the
@@ -371,11 +385,14 @@ RUNS = 5                     # serving runs per variant and mode
 M_DECODE, M_PREFILL = BATCH, BATCH * PROMPT
 # phase 6: the mixer's stream, and chatglm3-6b's layers serving it: 14 of
 # 28 since phase 16 came, when the script took 954 s on an H100 80GB HBM3
-# at 700 W (phase 6 158 s of it at 28 layers)
+# at 700 W (phase 6 158 s of it at 28 layers); 7 since phase 17's MoE
+# part came, when it took 808-907 s there (phase 6 70-86 s of it at 14)
 MIX_REQUESTS, MIX_SLOTS, MIX_MAX_LEN, MIX_WIDE = 12, 4, 288, 16
-MIX_LAYERS = 14
-# phase 8: decode steps a mixer takes in each timed round
-GQA_MIX_STEPS = 4
+MIX_LAYERS = 7
+# phase 8: chatglm3-6b's layers (and so phase 10's forwards'): 14 of 28
+# since phase 17's MoE part came (phase 8 111-128 s of the runs above at
+# 28), and the decode steps a mixer takes in each timed round
+GQA_LAYERS, GQA_MIX_STEPS = 14, 4
 # phase 9: the serve CLI's --metrics series beside the dispatcher's per-role
 # exec_* ones (``%s`` the plan's kind), for a static run and a --mixer run;
 # series that only timing can create are left out of the comparison
@@ -476,6 +493,10 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3
 # phase 17: chatglm3-6b's layers served tensor-parallel, and the timed runs
 # a mode
 TP_LAYERS, TP_RUNS = 8, 3
+# phase 17's MoE part: the model and its depth.  4 of 32 layers: at phase
+# 11's 8 the part took 43.7 and 49.2 s on an H100 80GB HBM3 at 700 W, over
+# its 45 s budget
+TP_MOE_ARCH, TP_MOE_LAYERS = "granite-moe-3b-a800m", 4
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -2497,7 +2518,8 @@ def phase_gqagroup(cfg, card: str, dev, then=None) -> dict[str, int]:
     launches = {}
     reqs = _mixer_requests(cfg)
     print(f"[gqagroup] chatglm3-6b at full width ({cfg.n_heads} heads, "
-          f"{cfg.n_kv_heads} KV heads), batch {BATCH}, prompt {PROMPT}, "
+          f"{cfg.n_kv_heads} KV heads), {cfg.n_layers} layers, batch "
+          f"{BATCH}, prompt {PROMPT}, "
           f"{GEN} tokens; {RUNS} runs a mode in turns; host clock, "
           f"synchronised, on {card}")
     for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
@@ -4418,7 +4440,7 @@ def _tp_kernels(tp, kname: str, acc: dict) -> float:
     worst = 0.0
     for s, (shard, d) in enumerate(zip(tp.shards, tp.devices)):
         for e in shard.store:
-            if e.layer != 0 or e.kind == "dense":
+            if e.layer != 0 or e.kind == "dense" or e.expert >= 0:
                 continue
             case = _bitmap_case(e.data) if e.kind == "bitmap" \
                 else _nm_case(e.data)
@@ -4433,10 +4455,54 @@ def _tp_kernels(tp, kname: str, acc: dict) -> float:
     return worst
 
 
+def _tp_fp32_agreement(tag: str, groups, cm, pruned, prompts) -> str:
+    """fp32 greedy tokens of the groups' eager decode against one device's
+    (the compressed model's eager step), and at the first step where they
+    part (its first row) the one device's top-2 logit gap beside the two
+    runs' largest logit difference on that row there: a gap within twice
+    that difference is a near tie the all-reduces' summation order can
+    swap; a wider one fails the run."""
+    import torch
+    from repro_torch.launch import compiled
+    from repro_torch.models import layers as L
+
+    def logits_run(step, model, params):
+        first = model.prefill(params, prompts, PROMPT + GEN)[0][:, -1]
+        toks, steps = compiled.greedy(step, model, params, prompts, GEN)
+        return toks, [first] + steps
+
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        toks_tp, logits_tp = logits_run(groups.step(compiled.CompiledStep),
+                                        groups, groups.params)
+        toks_one, logits_one = logits_run(cm.decode_step, cm, pruned)
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    same = toks_tp == toks_one.to(toks_tp.device)
+    out = (f"fp32 greedy agreement with one device "
+           f"{same.float().mean().item():.4f}")
+    parted = (~same).nonzero().tolist()
+    if not parted:
+        return out
+    row, i = min(parted, key=lambda ri: (ri[1], ri[0]))
+    one = logits_one[i][row].float()
+    top2 = torch.topk(one, 2).values
+    gap = (top2[0] - top2[1]).item()
+    diff = (logits_tp[i][row].to(one.device) - one).abs().max().item()
+    out = (f"{out}; first parted at token {i} of row {row}: one device's "
+           f"top-2 logit gap {gap:.6g} ({gap / one.abs().max().item():.3e} "
+           f"of max|logits|), the runs' largest logit difference there "
+           f"{diff:.6g}")
+    if gap > 2 * diff:
+        _fail(f"{tag}: {out}: not a near tie")
+    return f"{out}: a near tie"
+
+
 def _tp_plan(cfg, kind: str, kname: str, card: str, dev, acc: dict
              ) -> dict[str, int]:
-    """Phase 17 on one shipped plan; returns the launches of its first
-    mesh's run, pipelined and naive."""
+    """Phase 17 on one plan (chatglm3-6b's shipped plan, a MoE model's
+    searched one); returns the launches of its first mesh's run,
+    pipelined and naive."""
     import gc
     import torch
     from repro_torch.exec.compress import compress_params, prune_params
@@ -4448,7 +4514,10 @@ def _tp_plan(cfg, kind: str, kname: str, card: str, dev, acc: dict
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import Model
 
-    one = 7 * cfg.n_layers * (1 + GEN)     # one device's launches a run
+    moe = cfg.moe is not None
+    tag = f"tp {cfg.name} {kind}" if moe else f"tp {kind}"
+    # one device's launches a run: the plan's kernel at each kernel role
+    one = len(_kernel_roles(cfg)) * cfg.n_layers * (1 + GEN)
     secs: dict[str, float] = {}            # wall seconds by part
     t0 = time.perf_counter()
 
@@ -4458,7 +4527,8 @@ def _tp_plan(cfg, kind: str, kname: str, card: str, dev, acc: dict
         secs[part] = secs.get(part, 0.0) + now - t0
         t0 = now
 
-    plan = shipped_plan(cfg, kind)
+    plan = serve._fast_plan(cfg, 64, serve.PLAN_SPARSITY[kind]) if moe \
+        else shipped_plan(cfg, kind)
     params = Model(cfg).init(seed=0, device=dev)
     pruned = prune_params(params, plan, cfg)
     del params
@@ -4478,24 +4548,43 @@ def _tp_plan(cfg, kind: str, kname: str, card: str, dev, acc: dict
 
     def only(counts, name, n, label):
         if counts[name] != n or sum(counts.values()) != n:
-            _fail(f"tp {kind} {label}: launch counts {counts}; expected "
+            _fail(f"{tag} {label}: launch counts {counts}; expected "
                   f"{n} of {name} only")
 
-    def fp32_share(groups) -> float:
+    def fp32_share(groups, t: int) -> tuple[float, dict]:
         """The groups' fp32 prefill logits against the dense model's on
-        the same pruned weights, as a share of 1e-3 max|logits|."""
+        the same pruned weights, as a share of 1e-3 max|logits|; a MoE
+        model's on the rows whose routing does not part at a near tie
+        (:func:`_held_rows`: its shards must route alike), with the rows
+        that part."""
         L.COMPUTE_DTYPE = torch.float32
+        rc, rd = [], []
         try:
-            lc = groups.prefill(groups.params, prompts, PROMPT)[0]
-            ld = Model(cfg).prefill(pruned, prompts, PROMPT)[0]
+            with _routes(rc):
+                lc = groups.prefill(groups.params, prompts, PROMPT)[0]
+            with _routes(rd):
+                ld = Model(cfg).prefill(pruned, prompts, PROMPT)[0]
         finally:
             L.COMPUTE_DTYPE = torch.bfloat16
+        if moe:
+            # each shard's routes lie on its own device: compare on one
+            if len(rc) != t * len(rd) or any(
+                    not torch.equal(rc[j][0].to(dev), rc[j - j % t][0].to(dev))
+                    for j in range(len(rc))):
+                _fail(f"{tag}: the shards' routing differs")
+            share, _, parted = _held_rows(f"{tag} fp32", lc.to(ld.device),
+                                          ld, rc[::t], rd)
+            return share, parted
         share = (lc.to(ld.device) - ld).abs().max().item() \
             / (1e-3 * ld.abs().max().item())
         if not share <= 1:
             _fail(f"tp {kind}: fp32 prefill logits {share:.3f} of 1e-3 "
                   f"max|logits| from the dense model")
-        return share
+        return share, {}
+
+    def parted_note(parted: dict) -> str:
+        return (f" (rows whose routing parts at a near tie, row: (layer, "
+                f"token, gap): {parted})" if parted else "")
 
     base, *_ = run(cm)                     # one device, graphed (captures)
     lap("plan, prune, compress, one device")
@@ -4520,112 +4609,155 @@ def _tp_plan(cfg, kind: str, kname: str, card: str, dev, acc: dict
         only(counts, f"{kname}_naive", 2 * one, f"{label} naive")
         launches.setdefault(f"{kname}_naive", counts[f"{kname}_naive"])
         if not torch.equal(nt, toks):
-            _fail(f"tp {kind} {label}: the naive kernels' tokens differ")
+            _fail(f"{tag} {label}: the naive kernels' tokens differ")
         lap("runs")
-        share = fp32_share(groups)
+        share, parted = fp32_share(groups, 2)
         lap("fp32")
-        bits = [tpm.Layout(cfg, 2).cut(r, 1) for r in ("attn.wq",
-                                                       "ffn.w_down")]
-        print(f"[tp {kind}] {label}: split in {built:.1f} s (shard 1 cuts "
-              f"wq at columns {bits[0][1:]}, w_down at rows {bits[1][1:]}); "
+        if moe:
+            cut = (f"shard 1 holds experts {tp.layout.experts(1)} of "
+                   f"{cfg.moe.n_experts} and "
+                   + (f"embedding rows {tp.layout.vocab_rows(1)}"
+                      if tp.layout.vocab_split else
+                      f"the whole embedding ({cfg.vocab} rows)"))
+        else:
+            bits = [tpm.Layout(cfg, 2).cut(r, 1) for r in ("attn.wq",
+                                                           "ffn.w_down")]
+            cut = (f"shard 1 cuts wq at columns {bits[0][1:]}, w_down at "
+                   f"rows {bits[1][1:]}")
+        print(f"[{tag}] {label}: split in {built:.1f} s ({cut}); "
               + (f"every shard role's kernels within the tolerance of the "
                  f"plain version at M={M_DECODE} / {M_PREFILL}, fp32 / bf16 "
                  f"(largest share {worst:.4f}), naive == pipelined; "
                  if worst is not None else "")
-              + f"{2 * one} launches of {kname} (2 x 7 x {cfg.n_layers} x "
-              f"(1 + {GEN})), the naive kernels' too with the same tokens; "
+              + f"{2 * one} launches of {kname} (2 x "
+              f"{len(_kernel_roles(cfg))} x {cfg.n_layers} x (1 + {GEN})), "
+              f"the naive kernels' too with the same tokens; "
               f"greedy agreement with one device {agree:.4f}"
               + (f", tokens {'' if torch.equal(toks, first) else 'not '}"
                  f"equal to the first mesh's" if n else "")
               + f"; fp32 prefill logits {share:.4f} of 1e-3 max|logits| "
-              f"from the dense model; on {card}")
+              f"from the dense model{parted_note(parted)}; on {card}")
         if n == 0:
+            agreement = _tp_fp32_agreement(tag, groups, cm, pruned, prompts)
+            print(f"[{tag}] {label}: {agreement}; on {card}")
+            lap("fp32 greedy")
             _tp_guarded(cfg, kind, kname, groups, toks, prompts, one, card,
                         dev)
             lap("guarded")
-        _tp_timing(kind, label, cm, groups, run, card)
+        _tp_timing(tag, label, cm, groups, run, card, one_eager=not moe)
         lap("timing")
         del groups, tp
         gc.collect()
         torch.cuda.empty_cache()
     if kind == "nm":
-        for shape in ((2, 2), (1, 4)):
+        for shape in ((1, 4),) if moe else ((2, 2), (1, 4)):
             groups = data_parallel.serving_replicas(
                 cm, pruned, _tp_mesh(dev, *shape), dev, "phase 17")
             toks, _, _, counts = run(groups)
             only(counts, kname, shape[0] * shape[1] * one, f"{shape}")
             agree = (toks == base).float().mean().item()
-            share = fp32_share(groups)
-            print(f"[tp {kind}] {shape} repeating {dev}: "
-                  f"{counts[kname]} launches of {kname}; greedy agreement "
-                  f"with one device {agree:.4f}; fp32 prefill logits "
-                  f"{share:.4f} of 1e-3 max|logits| from the dense model; "
-                  f"on {card}")
+            share, parted = fp32_share(groups, shape[1])
+            held = (f"; each shard holds {cfg.moe.n_experts // shape[1]} "
+                    f"experts" if moe else "")
+            print(f"[{tag}] {shape} repeating {dev}: "
+                  f"{counts[kname]} launches of {kname}{held}; greedy "
+                  f"agreement with one device {agree:.4f}; fp32 prefill "
+                  f"logits {share:.4f} of 1e-3 max|logits| from the dense "
+                  f"model{parted_note(parted)}; on {card}")
             del groups
             gc.collect()
             torch.cuda.empty_cache()
-        lap("(2, 2) and (1, 4)")
-    print(f"[tp {kind}] wall seconds: " + ", ".join(
+        lap("(1, 4)" if moe else "(2, 2) and (1, 4)")
+    print(f"[{tag}] wall seconds: " + ", ".join(
         f"{part} {v:.1f}" for part, v in secs.items()))
     return launches
 
 
 def _tp_guarded(cfg, kind: str, kname: str, groups, toks, prompts,
                 one: int, card: str, dev) -> None:
-    """Guarded serving over the groups: healthy, and with one shard's
-    payload bit flipped."""
+    """Guarded serving over the groups: healthy, and with one bit flipped
+    in the store of one shard (a dense stack's shard 1, in its first
+    planned role; a MoE model's in the last layer's last expert's
+    ``moe.w_up`` entry, on the shard that holds that expert)."""
     import torch
     from repro_torch.exec.dispatch import CompressedModel
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve
+    from repro_torch.launch import data_parallel, serve
     from repro_torch.launch import tensor_parallel as tpm
-    from repro_torch.runtime import guard, inject
+    from repro_torch.runtime import guard, inject, integrity
 
+    tag = f"tp {cfg.name} {kind}" if cfg.moe else f"tp {kind}"
     ops.reset_launch_counts()
     gt, rep = guard.guarded_generate(groups, None, prompts, GEN, device=dev)
     counts = ops.launch_counts()
     if counts[kname] != 2 * one or sum(counts.values()) != 2 * one or \
             not rep.healthy or not torch.equal(gt, toks):
-        _fail(f"tp {kind} guarded: launches {counts}, healthy="
+        _fail(f"{tag} guarded: launches {counts}, healthy="
               f"{rep.healthy}, tokens "
               f"{'equal' if torch.equal(gt, toks) else 'differ'}")
     tp = groups.models[0]
-    role = tp.shards[0].store.plan.ops[0].role
+    if cfg.moe:
+        where = dict(role="moe.w_up", layer=cfg.n_layers - 1,
+                     expert=cfg.moe.n_experts - 1)
+        s = next(i for i in range(len(tp.shards))
+                 if where["expert"] < tp.layout.experts(i)[1])
+        # the experts run dense: demoting their role moves no launch
+        want = 2 * one
+    else:
+        where = dict(role=tp.shards[0].store.plan.ops[0].role)
+        s = 1
+        want = 2 * 6 * cfg.n_layers * (1 + GEN)
+    role = where["role"]
     shards = list(tp.shards)
-    shards[1] = CompressedModel(shards[1].model, inject.bitflip_payload(
-        shards[1].store, role))
+    shards[s] = CompressedModel(shards[s].model, inject.bitflip_payload(
+        shards[s].store, **where))
     flipped = groups.each(lambda m: m)
     flipped.models[0] = tpm.TensorParallel(shards, tp.layout, tp.devices)
+    if cfg.moe:
+        found = [integrity.verify_report(st)[role]
+                 for st in data_parallel.stores(flipped)]
+        if found != ["checksum_mismatch" if i == s else "ok"
+                     for i in range(len(found))]:
+            _fail(f"{tag}: shard {s}'s flipped {role} entry: the shards' "
+                  f"stores report {found}")
     ops.reset_launch_counts()
     ft, frep = guard.guarded_generate(flipped, None, prompts, GEN,
                                       device=dev)
     counts = ops.launch_counts()
-    want = 2 * 6 * cfg.n_layers * (1 + GEN)
     dt, *_ = serve.generate(groups.each(lambda m: m.demoted([role])), None,
                             prompts, GEN, PROMPT + GEN, device=dev)
     if counts[kname] != want or frep.verify[role] != "checksum_mismatch" \
             or [f["code"] for f in frep.fallbacks] != \
-            ["integrity_violation"] or not torch.equal(ft, dt):
-        _fail(f"tp {kind} bit flip on shard 1: launches {counts}, "
+            ["integrity_violation"] or not torch.equal(ft, dt) or \
+            (cfg.moe and not torch.equal(ft, toks)):
+        _fail(f"{tag} bit flip on shard {s}: launches {counts}, "
               f"{frep.stable_dict()}, tokens "
               f"{'equal' if torch.equal(ft, dt) else 'differ'}")
-    print(f"[tp {kind}] guarded healthy: tokens equal, {2 * one} launches; "
-          f"shard 1's {role} bit flipped: checksum_mismatch, the role "
-          f"demoted on both shards ({want} launches), the demoted model's "
-          f"tokens; on {card}")
+    what = (f"layer {where['layer']} expert {where['expert']}'s {role} "
+            f"entry bit flipped on shard {s}, the one that holds it "
+            f"(every other shard's store verifies): checksum_mismatch, the "
+            f"role demoted on every shard ({want} launches), the healthy "
+            f"run's tokens" if cfg.moe else
+            f"shard 1's {role} bit flipped: checksum_mismatch, the role "
+            f"demoted on both shards ({want} launches), the demoted model's "
+            f"tokens")
+    print(f"[{tag}] guarded healthy: tokens equal, {2 * one} launches; "
+          f"{what}; on {card}")
 
 
-def _tp_timing(kind: str, label: str, cm, groups, run, card: str) -> None:
+def _tp_timing(tag: str, label: str, cm, groups, run, card: str,
+               one_eager: bool = True) -> None:
     """``TP_RUNS`` runs a mode in turns: the groups (eager: no graph is
-    captured for a tensor-parallel step) against one device graphed and
-    eager; then the peak memory of each shard device over a run."""
+    captured for a tensor-parallel step) against one device graphed (and
+    with ``one_eager``, eager); then the peak memory of each shard device
+    over a run."""
     import torch
-    rec: dict = {"tp eager": [], "one device graphed": [],
-                 "one device eager": []}
+    modes = [("tp eager", groups, True), ("one device graphed", cm, True)]
+    if one_eager:
+        modes.append(("one device eager", cm, False))
+    rec: dict = {mode: [] for mode, _, _ in modes}
     for _ in range(TP_RUNS):
-        for mode, model, graphed in (("tp eager", groups, True),
-                                     ("one device graphed", cm, True),
-                                     ("one device eager", cm, False)):
+        for mode, model, graphed in modes:
             _, tp_, tg, _ = run(model, graphed)
             rec[mode].append((tp_, tg))
     devs = sorted({d for m in groups.models for d in m.devices}, key=str)
@@ -4634,12 +4766,34 @@ def _tp_timing(kind: str, label: str, cm, groups, run, card: str) -> None:
     run(groups)
     peaks = ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**30:.2f}"
                       f" GiB" for d in devs)
-    print(f"[tp {kind}] {label}: bf16, {TP_RUNS} runs a mode in turns, "
+    print(f"[{tag}] {label}: bf16, {TP_RUNS} runs a mode in turns, "
           f"prefill ms / decode ms/token, median (min-max): " + "; ".join(
               f"{mode} {_spread([t[0] for t in r])} / "
               f"{_spread([t[1] for t in r])}" for mode, r in rec.items())
           + f"; peak over a tp run (both shards' devices): {peaks}; on "
           f"{card}")
+
+
+def _tp_moe(card: str, dev, acc: dict) -> dict[str, int]:
+    """Phase 17's MoE part: ``TP_MOE_ARCH`` cut to ``TP_MOE_LAYERS``
+    layers on both plans.  Returns kernel -> launches of its first mesh's
+    runs."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    moe = dataclasses.replace(get_config(TP_MOE_ARCH),
+                              n_layers=TP_MOE_LAYERS)
+    launches: dict[str, int] = {}
+    for kind, kname in (("bitmap", "bitmap_spmm"), ("nm", "nm_spmm")):
+        for name, n in _tp_plan(moe, kind, kname, card, dev, acc).items():
+            launches[name] = launches.get(name, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[tp] the MoE part ({moe.name}, {moe.n_layers} of "
+          f"{get_config(TP_MOE_ARCH).n_layers} layers) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def phase_tensor_parallel(cfg, card: str, dev, acc: dict) -> dict[str, int]:
@@ -4653,6 +4807,8 @@ def phase_tensor_parallel(cfg, card: str, dev, acc: dict) -> dict[str, int]:
         launches.update(_tp_plan(cfg, kind, kname, card, dev, acc))
         gc.collect()
         torch.cuda.empty_cache()
+    for name, n in _tp_moe(card, dev, acc).items():
+        launches[name] = launches.get(name, 0) + n
     print(f"[tp] phase 17 took {time.perf_counter() - t_all:.1f} s")
     return launches
 
@@ -4686,14 +4842,15 @@ def main() -> None:
     guarded_launches = timed("7", phase_guarded, dataclasses.replace(
         cfg, n_layers=GUARD_LAYERS), card, dev)
     forwards: dict[str, dict] = {}
+    gqa_cfg = dataclasses.replace(cfg, n_layers=GQA_LAYERS)
 
     def calibration_forwards(kind, cm, pruned, prompts):
         kname = "bitmap_spmm" if kind == "bitmap" else "nm_spmm"
-        forwards[kind] = _calibration_forwards(cfg, kind, kname, cm, pruned,
-                                               prompts, card, dev)
+        forwards[kind] = _calibration_forwards(gqa_cfg, kind, kname, cm,
+                                               pruned, prompts, card, dev)
 
-    gqa_launches = timed("8 (+ 10's forwards)", phase_gqagroup, cfg, card,
-                         dev, then=calibration_forwards)
+    gqa_launches = timed("8 (+ 10's forwards)", phase_gqagroup, gqa_cfg,
+                         card, dev, then=calibration_forwards)
     telemetry_launches = timed("9", phase_telemetry, cfg, card, dev)
     timed("10", phase_search, cfg, card, forwards)
     families_launches = timed("11", phase_families, card, dev, acc)

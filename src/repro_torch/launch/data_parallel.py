@@ -43,7 +43,7 @@ from repro_torch.device import device_ctx
 from repro_torch.exec.dispatch import CompressedModel
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import tensor_parallel as tp_mod
-from repro_torch.launch.tensor_parallel import Shards, TensorParallel
+from repro_torch.launch.tensor_parallel import Shards, TensorParallel, _to
 
 
 def data_devices(mesh: mesh_mod.Mesh, what: str = "data_devices"
@@ -52,24 +52,6 @@ def data_devices(mesh: mesh_mod.Mesh, what: str = "data_devices"
     then ``data``): the order the reference splits a batch's rows in."""
     mesh_mod.check_data_only(mesh, what)
     return [torch.device(d) for d in mesh.devices.flat]
-
-
-def _to(x: Any, dev: torch.device, clone: bool) -> Any:
-    """``x`` with every tensor on ``dev`` (a copy of its own with
-    ``clone``), through dicts, lists, tuples and dataclasses."""
-    if isinstance(x, torch.Tensor):
-        return x.to(dev, copy=True) if clone else x.to(dev)
-    if isinstance(x, dict):
-        return type(x)((k, _to(v, dev, clone)) for k, v in x.items())
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_to(v, dev, clone) for v in x))
-    if isinstance(x, (list, tuple)):
-        return type(x)(_to(v, dev, clone) for v in x)
-    if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return dataclasses.replace(x, **{
-            f.name: _to(getattr(x, f.name), dev, clone)
-            for f in dataclasses.fields(x) if f.init})
-    return x
 
 
 def replicate(tree: Any, devices: list[torch.device]) -> list:

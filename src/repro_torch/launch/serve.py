@@ -234,11 +234,12 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
     serve replicas built once (its own params then serve).  A mesh whose
     ``model`` axis is larger than 1 serves tensor-parallel: each row of
     its grid is one group of shards
-    (:mod:`repro_torch.launch.tensor_parallel`: heads, ``d_ff`` and the
-    vocab split over the shards, each compressed shard on the kernels over
-    its own store), the rows replicas of one another; a group decodes
-    eagerly.  A uniform full-attention stack with no optflag on serves
-    so; anything else raises ``NotImplementedError`` before any work.  A
+    (:mod:`repro_torch.launch.tensor_parallel`: heads, ``d_ff`` or a MoE
+    layer's experts, and the vocab where it divides, split over the
+    shards, each compressed shard on the kernels over its own store), the
+    rows replicas of one another; a group decodes eagerly.  A uniform
+    full-attention stack (dense, MoE, vlm) with no optflag on serves so;
+    anything else raises ``NotImplementedError`` before any work.  A
     mesh of one device serves as ``None`` does.  ``device`` must be of the
     mesh's device type.
 

@@ -2,22 +2,28 @@
 driving every shard: the counterpart of what GSPMD does for the reference
 under ``partition.param_specs`` (Megatron-style: ``wq`` / ``wk`` / ``wv`` /
 ``w_gate`` / ``w_up`` split by columns, ``wo`` / ``w_down`` by rows, the
-embedding by vocab rows, the norms replicated).
+embedding by vocab rows where t divides the vocab and whole elsewhere, the
+norms replicated; a MoE layer's expert stacks split on their expert axis,
+its router replicated).
 
 * :class:`Layout` — how a uniform full-attention stack splits over t
-  shards: query heads, ``d_ff`` and the vocab in t contiguous pieces; each
-  shard holds the KV heads its query heads group to (t = 4 on
+  shards: query heads, ``d_ff`` (or a MoE layer's experts: shard s holds
+  experts ``[s·E/t, (s+1)·E/t)``) and the vocab in t contiguous pieces;
+  each shard holds the KV heads its query heads group to (t = 4 on
   chatglm3-6b's two KV heads: KV head ``s // 2``, duplicated on two
   shards).  Where t divides ``n_kv_heads`` that is ``param_specs``' split;
   elsewhere it is the ``replkv`` idea restricted to the heads a shard
-  uses.  A t that does not divide the heads, ``d_ff`` or the vocab, or
-  whose head groups straddle shards, raises ``ValueError``.
+  uses.  A vocab that t does not divide is not split: every shard holds
+  the whole embedding (granite-moe-3b-a800m's 49,155 rows).  A t that
+  does not divide the heads, ``d_ff`` or the experts, or whose head groups
+  straddle shards, raises ``ValueError``.
 * :func:`shard_params` / :func:`shard_store` — a shard's params and its
   compressed store, every tensor a contiguous copy of its own.  A stored
   bitmap block that a shard's boundary crosses is cut (its block shape
   becomes the gcd of the block and the cut); N:M groups are cut on group
   boundaries only.  A shard's store decompresses to the slice of the full
-  store, bit for bit, and records its own checksums.
+  store, bit for bit, holds the whole expert entries of its experts under
+  their global expert index, and records its own checksums.
 * :func:`all_reduce` / :func:`all_gather` — the collectives, in shard
   order: a left fold ``((p0 + p1) + p2) + ...`` in the activation's dtype
   on the first shard's device, the sum copied to every shard's device; a
@@ -27,17 +33,21 @@ embedding by vocab rows, the norms replicated).
   ``verify``, ``demoted``, ``cfg``).  Layer by layer and shard by shard
   it runs each sublayer's partial output
   (:func:`repro_torch.models.transformer.attn_out` / ``ffn_out`` /
-  ``attn_step_out`` / ``ffn_step_out``), all-reduces it and adds the
-  residual; the embedding is a masked lookup in each shard's vocab rows,
-  all-reduced (one row plus zeros: exact); the logits are each shard's
-  vocab slice, all-gathered.  Each shard's cache holds its KV heads; each
-  compressed shard dispatches its projections to the kernels over its own
-  store.  Its decode runs eagerly: no CUDA graph is captured.
+  ``attn_step_out`` / ``ffn_step_out``; a MoE shard routes over every
+  expert and sums over its own), all-reduces it and adds the residual;
+  the embedding is a masked lookup in each shard's vocab rows,
+  all-reduced (one row plus zeros: exact), and the logits each shard's
+  vocab slice, all-gathered; a whole embedding is looked up by each shard
+  itself and gives the logits on the first shard.  Each shard's cache
+  holds its KV heads; each compressed shard dispatches its attention and
+  dense FFN projections to the kernels over its own store (a MoE layer's
+  experts run dense, as on one device).  Its decode runs eagerly: no
+  CUDA graph is captured.
 
-Served: the uniform full-attention stacks (``dense``, ``vlm``; dense
-``Model`` or ``CompressedModel``) with no optflag on.  MoE (expert
-parallelism), ring windows, the recurrent, SSM and encoder-decoder
-families and any optflag raise ``NotImplementedError`` before any work.
+Served: the uniform full-attention stacks (``dense``, ``moe``, ``vlm``;
+dense ``Model`` or ``CompressedModel``) with no optflag on.  Ring windows,
+the recurrent, SSM and encoder-decoder families and any optflag raise
+``NotImplementedError`` before any work.
 """
 
 from __future__ import annotations
@@ -47,7 +57,7 @@ import contextlib
 import dataclasses
 import itertools
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -74,11 +84,9 @@ class Shards(dict):
 def unserved(cfg: ModelConfig) -> Optional[str]:
     """Why a ``model`` axis does not serve ``cfg`` (with the optflags now
     on), or ``None`` when it does."""
-    if cfg.moe is not None or cfg.family not in ("dense", "vlm") \
-            or cfg.hybrid is not None:
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.hybrid is not None:
         return (f"{cfg.name} is family {cfg.family!r}"
-                + (" with a hybrid pattern" if cfg.hybrid else "")
-                + (" (experts: expert parallelism)" if cfg.moe else ""))
+                + (" with a hybrid pattern" if cfg.hybrid else ""))
     if cfg.window:
         return f"{cfg.name} attends over a window of {cfg.window} (a ring)"
     flags = optflags.active()
@@ -108,8 +116,10 @@ class Layout:
         cfg, t = self.cfg, self.t
         if t < 1:
             raise ValueError(f"a model axis of {t} shards")
-        for name in ("n_heads", "d_ff", "vocab"):
-            extent = getattr(cfg, name)
+        extents = [("n_heads", cfg.n_heads)]
+        extents += [("n_experts", cfg.moe.n_experts)] if cfg.moe \
+            else [("d_ff", cfg.d_ff)]
+        for name, extent in extents:
             if extent % t:
                 raise ValueError(f"{cfg.name}: {name} = {extent} does not "
                                  f"split over {t} shards")
@@ -137,9 +147,24 @@ class Layout:
         """Shard ``s``'s KV heads: (first, count)."""
         return s * self.heads // self.group, max(self.heads // self.group, 1)
 
+    @property
+    def vocab_split(self) -> bool:
+        """Whether the embedding splits by vocab rows (t divides the
+        vocab); else every shard holds it whole, as ``param_specs``
+        replicates it."""
+        return self.cfg.vocab % self.t == 0
+
+    def experts(self, s: int) -> tuple[int, int]:
+        """Shard ``s``'s experts ``[lo, hi)`` of a MoE layer."""
+        e = self.cfg.moe.n_experts // self.t
+        return s * e, (s + 1) * e
+
     def cut(self, role: str, s: int) -> tuple[int, int, int]:
         """(axis, lo, hi): shard ``s``'s slice of a weight ``(..., n, k)``
-        of ``role`` along ``axis`` (-1 columns, -2 rows)."""
+        of ``role`` along ``axis`` (-1 columns, -2 rows; -3 the expert
+        axis of a MoE expert stack ``(..., E, n, k)``)."""
+        if role in ("moe.w_gate", "moe.w_up", "moe.w_down"):
+            return (-3, *self.experts(s))
         hd, f = self.cfg.head_dim, self.cfg.d_ff // self.t
         q = (s * self.heads * hd, (s + 1) * self.heads * hd)
         if role == "attn.wq":
@@ -156,18 +181,24 @@ class Layout:
         raise ValueError(f"no tensor-parallel split for role {role!r}")
 
     def vocab_rows(self, s: int) -> tuple[int, int]:
+        """Shard ``s``'s rows of the embedding (all of them where the
+        vocab does not split)."""
+        if not self.vocab_split:
+            return 0, self.cfg.vocab
         v = self.cfg.vocab // self.t
         return s * v, (s + 1) * v
 
     def shard_cfg(self) -> ModelConfig:
-        """A shard's config: its heads, KV heads, ``d_ff`` and vocab, with
-        ``d_head`` pinned (``head_dim`` would follow ``d_model //
-        n_heads``)."""
+        """A shard's config: its heads, KV heads, ``d_ff`` and vocab rows,
+        with ``d_head`` pinned (``head_dim`` would follow ``d_model //
+        n_heads``).  A MoE shard keeps ``moe`` whole (it routes over every
+        expert) and ``d_ff``, which no MoE layer reads."""
         cfg = self.cfg
+        v0, v1 = self.vocab_rows(0)
         return dataclasses.replace(
             cfg, n_heads=self.heads, n_kv_heads=self.kv_heads(0)[1],
-            d_ff=cfg.d_ff // self.t, vocab=cfg.vocab // self.t,
-            d_head=cfg.head_dim)
+            d_ff=cfg.d_ff if cfg.moe else cfg.d_ff // self.t,
+            vocab=v1 - v0, d_head=cfg.head_dim)
 
 
 def _own(x: torch.Tensor, device=None) -> torch.Tensor:
@@ -179,17 +210,23 @@ def _own(x: torch.Tensor, device=None) -> torch.Tensor:
 
 
 def _role_leaves(blocks: dict):
-    """(role, group, leaf) of every projection in a layer stack."""
+    """(role, group, leaf) of every projection in a layer stack; a MoE
+    layer's FFN leaves are the ``moe.*`` roles (its router
+    ``moe.router``)."""
     for group in ("attn", "ffn"):
+        prefix = "moe" if group == "ffn" and "router" in blocks[group] \
+            else group
         for leaf in blocks[group]:
-            yield f"{group}.{leaf}", group, leaf
+            yield f"{prefix}.{leaf}", group, leaf
 
 
 def shard_params(params: dict, layout: Layout, s: int, device=None) -> dict:
     """Shard ``s``'s params on ``device`` (the params' by default): column
     slices of ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up``, row slices
-    of ``wo`` / ``w_down``, rows ``[s·V/t, (s+1)·V/t)`` of ``embed``, the
-    norms whole; each a contiguous copy of its own."""
+    of ``wo`` / ``w_down``, a MoE layer's expert stacks cut to its experts
+    and its router whole, rows ``[s·V/t, (s+1)·V/t)`` of ``embed`` (all of
+    them where the vocab does not split), the norms whole; each a
+    contiguous copy of its own."""
     blocks = params["blocks"]
     extra = set(params) - {"embed", "final_norm", "blocks"} | \
         set(blocks) - {"ln1", "ln2", "attn", "ffn"}
@@ -202,6 +239,9 @@ def shard_params(params: dict, layout: Layout, s: int, device=None) -> dict:
                         "attn": {}, "ffn": {}}
     for role, group, leaf in _role_leaves(blocks):
         w = blocks[group][leaf]
+        if role == "moe.router":
+            out_blocks[group][leaf] = _own(w, device)
+            continue
         axis, lo, hi = layout.cut(role, s)
         out_blocks[group][leaf] = _own(w.narrow(w.ndim + axis, lo, hi - lo),
                                        device)
@@ -293,21 +333,44 @@ def _cut_nm(d: NMCompressed, role: str, axis: int, lo: int, hi: int,
         indices=_own(d.indices[r0:r1], device), n=hi - lo)
 
 
+def _to(x: Any, dev: Optional[torch.device], clone: bool) -> Any:
+    """``x`` with every tensor on ``dev`` (its own device for ``None``; a
+    copy of its own with ``clone``), through dicts, lists, tuples and
+    dataclasses."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, copy=True) if clone else x.to(dev)
+    if isinstance(x, dict):
+        return type(x)((k, _to(v, dev, clone)) for k, v in x.items())
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to(v, dev, clone) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev, clone) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _to(getattr(x, f.name), dev, clone)
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
 def shard_store(store: CompressedStore, plan: ExecPlan, cfg: ModelConfig,
                 layout: Layout, s: int, device=None) -> CompressedStore:
     """Shard ``s``'s :class:`CompressedStore` on ``device`` (the store's by
     default): each entry of ``store`` cut to the shard's columns (column
-    roles) or rows (row roles), its stored bits recounted; its plan is
+    roles) or rows (row roles), its stored bits recounted; the whole
+    expert entries of the shard's experts, under their global expert
+    index (so a fault names the expert one device names); its plan is
     ``plan`` with the shard's own checksums, recorded as
     ``compress_params`` records them."""
     if layout.cfg != cfg:
         raise ValueError(f"shard_store: the layout is of {layout.cfg.name}, "
                          f"not of {cfg.name}")
     entries: dict = {}
+    lo_e, hi_e = layout.experts(s) if cfg.moe else (0, 0)
     for key, e in store.entries.items():
         if e.expert >= 0:
-            raise NotImplementedError(f"shard_store: expert entries "
-                                      f"({e.role})")
+            if lo_e <= e.expert < hi_e:
+                entries[key] = _to(e, device, clone=True)
+            continue
         axis, lo, hi = layout.cut(e.role, s)
         d = e.data
         if e.kind == "bitmap":
@@ -426,8 +489,20 @@ class TensorParallel:
     def _check(self) -> None:
         check_served(self.cfg, self.layout.t, "TensorParallel")
 
+    def _experts(self, s: int):
+        """Shard ``s``'s expert range (``None`` for a dense FFN)."""
+        return self.layout.experts(s) if self.cfg.moe else None
+
     def _embed(self, params: Shards, tokens: list) -> list:
-        """Each shard's masked lookup in its vocab rows, all-reduced."""
+        """Each shard's masked lookup in its vocab rows, all-reduced; with
+        the whole embedding on every shard, each shard's own lookup (the
+        sum of t copies would be t times the row)."""
+        if not self.layout.vocab_split:
+            out = []
+            for s, tok in enumerate(tokens):
+                with self._on(s):
+                    out.append(params[s]["embed"][tok].to(L.COMPUTE_DTYPE))
+            return out
         parts = []
         for s, tok in enumerate(tokens):
             v0, v1 = self.layout.vocab_rows(s)
@@ -448,12 +523,16 @@ class TensorParallel:
         return [x + a for x, a in zip(xs, all_reduce(outs))]
 
     def _logits(self, params: Shards, xs: list, head) -> torch.Tensor:
+        """Each shard's vocab slice of the logits, all-gathered; the first
+        shard's own where it holds the whole embedding."""
+        if not self.layout.vocab_split:
+            xs = xs[:1]
         parts = []
         for s, x in enumerate(xs):
             with self._on(s):
                 x = L.rms_norm(x, params[s]["final_norm"], self.cfg.norm_eps)
                 parts.append(head(x, params[s]["embed"]))
-        return all_gather(parts, -1)
+        return parts[0] if len(parts) == 1 else all_gather(parts, -1)
 
     def init_cache(self, batch: int, max_len: int, device=None) -> Shards:
         """Each shard's cache of its KV heads on its device (``device`` is
@@ -485,7 +564,8 @@ class TensorParallel:
                     return a
                 xs = self._sublayer(xs, attn_part)
                 xs = self._sublayer(xs, lambda j, x: T.ffn_out(
-                    x, T._take(params[j]["blocks"], i), scfg))
+                    x, T._take(params[j]["blocks"], i), scfg,
+                    self._experts(j)))
         logits = self._logits(params, xs, lambda x, e: torch.matmul(
             x, e.to(L.COMPUTE_DTYPE).t()).float())
         return logits, cache
@@ -508,7 +588,8 @@ class TensorParallel:
                     poss[j], cache[j]["self"]["k"][i],
                     cache[j]["self"]["v"][i], poss[j]))
                 xs = self._sublayer(xs, lambda j, x: T.ffn_step_out(
-                    x, T._take(params[j]["blocks"], i), scfg))
+                    x, T._take(params[j]["blocks"], i), scfg,
+                    self._experts(j)))
         return self._logits(params, xs, L.logits_head), cache
 
 

@@ -9,6 +9,12 @@ one.  Tokens route in groups of ``router_group``; each expert takes at most
 dropped.  The expert matmuls are dense, as in the reference: an expert's
 plan entry is compressed and accounted for, never dispatched to a kernel.
 
+Under expert parallelism (:mod:`repro_torch.launch.tensor_parallel`) a
+shard holds the expert stacks of a contiguous range of experts and passes
+it as ``experts=(lo, hi)``: it routes over all ``n_experts`` as one device
+does (the same gates, slots and drops) and returns the part of ``y`` its
+experts give, which the shards' all-reduce sums.
+
 Where the reference relies on JAX's semantics the port spells them out:
 ``jax.lax.top_k`` puts the lower index first among equal gates (a stable
 descending sort here; ``torch.topk`` promises no order among ties, and the
@@ -63,11 +69,26 @@ def _route(xg: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
     return gates, topw, tope
 
 
-def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, d) → (B, S, d).  Top-k routing with capacity dropping."""
+def _expert_range(p: dict, cfg: ModelConfig, experts) -> tuple[int, int]:
+    """``experts`` as (lo, hi), all of them by default; its width must be
+    the expert stacks' (``p["w_gate"].shape[-3]``)."""
+    lo, hi = (0, cfg.moe.n_experts) if experts is None else experts
+    held = p["w_gate"].shape[-3]
+    if not 0 <= lo < hi <= cfg.moe.n_experts or hi - lo != held:
+        raise ValueError(f"moe: experts [{lo}, {hi}) of "
+                         f"{cfg.moe.n_experts} over expert stacks of {held}")
+    return lo, hi
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
+              experts: tuple[int, int] | None = None) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d).  Top-k routing with capacity dropping.
+    With ``experts=(lo, hi)``, ``p``'s expert stacks are experts
+    ``[lo, hi)`` and the result is their part of the sum over experts."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
+    lo, hi = _expert_range(p, cfg, experts)
     grp = min(m.router_group, s)
     if (b * s) % grp:
         # the reference's reshape into whole routing groups fails here
@@ -99,6 +120,8 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     disp = torch.einsum("gtke,gtkc->gtec", oh, cap_oh * keep[..., None].to(cd))
     comb = torch.einsum("gtke,gtkc->gtec", oh,
                         cap_oh * (topw * keep).to(cd)[..., None])
+    if hi - lo != e:                                         # a shard's
+        disp, comb, e = disp[:, :, lo:hi], comb[:, :, lo:hi], hi - lo
 
     xe = torch.einsum("gtd,gtec->gecd", xg, disp)            # (g, E, C, d)
     xe = xe.transpose(0, 1).reshape(e, ng * cap, d)          # (E, g·C, d)
@@ -111,8 +134,9 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     return y.reshape(b, s, d)
 
 
-def moe_decode(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+def moe_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+               experts: tuple[int, int] | None = None) -> torch.Tensor:
     """Single-token MoE: x (B, d).  s = 1 makes each token its own routing
     group, so capacity dropping degenerates to pure top-k (no drops) and
     every expert runs its ``_capacity(1) = 4`` slots."""
-    return moe_block(x[:, None, :], p, cfg)[:, 0, :]
+    return moe_block(x[:, None, :], p, cfg, experts)[:, 0, :]

@@ -104,9 +104,9 @@ def _check_served(cfg: ModelConfig) -> None:
         raise NotImplementedError(reason)
 
 
-def _ffn_apply(x, p, cfg: ModelConfig):
+def _ffn_apply(x, p, cfg: ModelConfig, experts=None):
     if cfg.moe:
-        return moe_mod.moe_block(x, p, cfg)
+        return moe_mod.moe_block(x, p, cfg, experts)
     return L.mlp(x, p)
 
 
@@ -129,10 +129,12 @@ def attn_out(x, p, cfg: ModelConfig, freqs, positions, causal=True,
                                 return_kv=return_kv)
 
 
-def ffn_out(x, p, cfg: ModelConfig):
-    """A layer's FFN sublayer before its residual add: ``ffn(ln2(x))``."""
+def ffn_out(x, p, cfg: ModelConfig, experts=None):
+    """A layer's FFN sublayer before its residual add: ``ffn(ln2(x))``;
+    a MoE layer's over the expert range ``experts`` (all by default:
+    :func:`repro_torch.models.moe.moe_block`)."""
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return _ffn_apply(h, p["ffn"], cfg)
+    return _ffn_apply(h, p["ffn"], cfg, experts)
 
 
 def _attn_half(x, p, cfg: ModelConfig, freqs, positions, causal=True,
@@ -167,11 +169,12 @@ def attn_step_out(h, p, cfg: ModelConfig, freqs, pos, kc, vc, cache_pos):
                                        vc, cache_pos)
 
 
-def ffn_step_out(h, p, cfg: ModelConfig):
-    """A decode step's FFN sublayer before its residual add."""
+def ffn_step_out(h, p, cfg: ModelConfig, experts=None):
+    """A decode step's FFN sublayer before its residual add (``experts``
+    as :func:`ffn_out`'s)."""
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     if cfg.moe:
-        return moe_mod.moe_decode(hn, p["ffn"], cfg)
+        return moe_mod.moe_decode(hn, p["ffn"], cfg, experts)
     if "payload_gate" in p["ffn"]:
         return L.sparse_mlp_decode(hn, p["ffn"])
     return L.mlp(hn, p["ffn"])

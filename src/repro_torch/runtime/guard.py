@@ -236,10 +236,12 @@ def guarded_generate(model, params, prompts, gen: int,
     logits are non-finite on any replica is retried, and switched to the
     dense model, as a whole; the deadline and the report are global.  A
     mesh whose ``model`` axis is larger than 1 serves each replica as a
-    tensor-parallel group (:mod:`repro_torch.launch.tensor_parallel`):
-    the store it was split from and every shard's store are verified, a
-    role that fails on any of them is demoted on every shard of every
-    replica, a step non-finite on any shard is retried whole, and
+    tensor-parallel group (:mod:`repro_torch.launch.tensor_parallel`; a
+    MoE model's experts split over the shards, each expert entry on the
+    shard that holds the expert): the store it was split from and every
+    shard's store are verified, a role that fails on any of them is
+    demoted on every shard of every replica, a step non-finite on any
+    shard is retried whole, and
     ``dense_model`` degrades to the dense model split as the groups are.
     What a ``model`` axis does not serve raises ``NotImplementedError``
     before anything is verified or served; a mesh of one device serves as

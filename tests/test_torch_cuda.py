@@ -1439,6 +1439,76 @@ def test_tensor_parallel_serves_on_the_kernels(card, kind, monkeypatch):
             1e-4 * want_lg.abs().max().item()
 
 
+def _tp_moe(kind):
+    """Reduced granite-moe-3b-a800m on its searched plan, and its groups
+    on a (1, 2) mesh repeating the card: (cfg, cm, pruned, groups)."""
+    from repro_torch.launch import data_parallel, mesh
+    cfg, cm, pruned = _moe_served("granite-moe-3b-a800m", kind)
+    card = torch.device("cuda", 0)
+    m = mesh.Mesh(("data", "model"), (1, 2), mesh.grid([card] * 2, (1, 2)))
+    return cfg, cm, pruned, data_parallel.serving_replicas(
+        cm, pruned, m, card, "test"), m
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_tensor_parallel_moe_shard_roles_match_plain(card, kind):
+    """Every attention entry of both shards' stores (their cuts of the
+    heads; the experts run dense and have none on the kernels), M = 4, 16
+    and 512, x fp32 and bf16: both variants within the kernel tolerance
+    of the plain version, naive == pipelined bit for bit."""
+    _, _, _, groups, _ = _tp_moe(kind)
+    gen = torch.Generator(device=card).manual_seed(36)
+    seen = 0
+    for shard in groups.models[0].shards:
+        for e in shard.store:
+            if e.expert >= 0:
+                continue
+            c = e.data
+            if kind == "bitmap":
+                kernel, plain = ops.bitmap_spmm, (
+                    lambda x, c=c: ref.bitmap_spmm_ref(
+                        x, c.blocks, c.counts, c.row_ids, c.n, c.k))
+            else:
+                kernel, plain = ops.nm_spmm, (
+                    lambda x, c=c: ref.nm_spmm_ref(
+                        x, c.values, c.indices, c.n_sel, c.m_group))
+            for m in (4, 16, 512):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, c.n), generator=gen,
+                                    device=card).to(dtype)
+                    y = kernel(x, c)
+                    _close(y, plain(x))
+                    assert torch.equal(kernel(x, c, pipeline=False), y)
+            seen += 1
+    assert seen == 2 * 4 * 2          # two shards, four roles, two layers
+
+
+@pytest.mark.parametrize("kind", ["bitmap", "nm"])
+def test_tensor_parallel_moe_tokens_equal_one_devices(card, kind,
+                                                      monkeypatch):
+    """fp32 on (1, 2) repeating the card: the plan's kernel only, twice
+    one device's launches (4 attention roles a layer and shard), naive
+    and pipelined, and the tokens of one device."""
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    cfg, cm, pruned, groups, m = _tp_moe(kind)
+    prompts = _prompts(cfg, b=4, s=16)
+    gen = 6
+    one = 4 * cfg.n_layers * (1 + gen)
+    kname = "bitmap_spmm" if kind == "bitmap" else "nm_spmm"
+    want, _, _ = serve.generate(cm, pruned, prompts, gen, 16 + gen)
+    for pipeline in (True, False):
+        name = kname if pipeline else f"{kname}_naive"
+        with ops.pipeline_default(pipeline):
+            ops.reset_launch_counts()
+            toks, _, _ = serve.generate(groups, None, prompts, gen, 16 + gen,
+                                        mesh=m)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == {name: 2 * one}
+        assert torch.equal(toks, want)
+
+
 # ---------------------------------------------------------------------------
 # The search plane on the card's host
 # ---------------------------------------------------------------------------

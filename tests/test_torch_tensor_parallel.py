@@ -25,8 +25,6 @@ and what a ``model`` axis does not serve.
 
 import dataclasses
 import json
-import math
-import os
 import pathlib
 import subprocess
 import sys
@@ -51,25 +49,12 @@ from repro_torch.models import optflags, sharding
 from repro_torch.models.transformer import Model, step_writes
 from repro_torch.runtime import guard, inject
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "tests"))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import _data_parallel_reference as ref  # noqa: E402
-
-CPU = torch.device("cpu")
-KINDS = ("dense", "bitmap", "nm")
-MESHES = ((1, 2), (1, 4), (2, 2))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def fp32_one_thread():
-    """fp32 compute, and one intra-op thread for this module's many small
-    ops (the suite runs several workers on the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(L, "COMPUTE_DTYPE", torch.float32)
-        yield
-    torch.set_num_threads(n)
+from _tp_common import (  # noqa: E402,F401
+    CPU, KINDS, MESHES, ROOT, assert_within_spread, at as _at, bf16_ulp,
+    cpu_mesh, fp32_one_thread, greedy_logits, reference_env,
+    walk as _walk)
 
 
 @pytest.fixture(scope="module")
@@ -77,25 +62,16 @@ def reference(tmp_path_factory):
     """The reference's runs (arrays, and ``meta``: plans, reports and the
     errors of its sharded attempts)."""
     path = tmp_path_factory.mktemp("tp") / "reference.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
-                                           os.environ.get("PYTHONPATH", "")]))
     run = subprocess.run(
         [sys.executable,
          str(ROOT / "tests" / "_tensor_parallel_reference.py"), str(path)],
-        capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
+        capture_output=True, text=True, env=reference_env(), timeout=600,
+        cwd=ROOT)
     assert run.returncode == 0, run.stderr[-3000:]
     with np.load(path) as data:
         out = {k: data[k] for k in data.files}
     out["meta"] = json.loads(str(out["meta"]))
     return out
-
-
-def cpu_mesh(data: int, model: int) -> mesh.Mesh:
-    """A (data, model) mesh over the CPU device repeated."""
-    return mesh.Mesh(("data", "model"), (data, model),
-                     mesh.grid([CPU] * (data * model), (data, model)))
 
 
 @pytest.fixture(scope="module")
@@ -120,20 +96,6 @@ def served(reference, rparams):
 def _prompts(cfg, ragged=False):
     return torch.from_numpy(ref.ragged(cfg.vocab) if ragged
                             else ref.prompts(cfg.vocab))
-
-
-def _walk(tree, path=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _walk(v, path + (k,))
-    else:
-        yield path, tree
-
-
-def _at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -340,14 +302,11 @@ def test_generate_over_a_model_axis_equals_the_reference(kind, shape, served,
     # the prefill's last logits and every decode step's
     groups = data_parallel.serving_replicas(model, params, m, CPU, "test")
     assert [len(g.shards) for g in groups.models] == [shape[1]] * shape[0]
-    last = groups.prefill(groups.params, prompts,
-                          ref.PLEN + ref.GEN)[0][:, -1]
-    greedy, steps = compiled.greedy(groups.step(compiled.CompiledStep),
-                                    groups, groups.params, prompts, ref.GEN)
+    greedy, got = greedy_logits(groups, prompts, ref.GEN,
+                                ref.PLEN + ref.GEN)
     np.testing.assert_array_equal(greedy.numpy(),
                                   reference[f"{kind}/tokens"])
     want = reference[f"{kind}/logits"]
-    got = torch.stack([last] + steps).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
 
@@ -368,11 +327,6 @@ def test_ragged_prompts_with_eos_over_a_model_axis_equal_the_reference(
     assert (want[0, 2:] == -3).all()           # row 0 ended on its EOS
 
 
-def _bf16_ulp(x: float) -> float:
-    """The spacing of bf16 values (8 significant bits) at magnitude x."""
-    return 2.0 ** (math.floor(math.log2(x)) - 7)
-
-
 @pytest.mark.parametrize("kind", KINDS)
 def test_bf16_over_a_model_axis_is_within_the_references_spread(
         kind, served, reference, monkeypatch):
@@ -389,28 +343,13 @@ def test_bf16_over_a_model_axis_is_within_the_references_spread(
     want = reference[f"bf16/{kind}/logits"]
     spread = np.abs(reference["bf16/dense_jit"]
                     - reference["bf16/dense_eager"]).max()
-    bound = spread + 2 * cfg.n_layers * _bf16_ulp(np.abs(want).max())
+    bound = spread + 2 * cfg.n_layers * bf16_ulp(np.abs(want).max())
     groups = data_parallel.serving_replicas(model, params, cpu_mesh(1, 2),
                                             CPU, "test")
     prompts = _prompts(cfg)
-    last = groups.prefill(groups.params, prompts,
-                          ref.PLEN + ref.GEN)[0][:, -1]
-    toks, steps = compiled.greedy(groups.step(compiled.CompiledStep),
-                                  groups, groups.params, prompts, ref.GEN)
-    got = torch.stack([last] + steps).float().numpy()
-    rtoks = reference[f"bf16/{kind}/tokens"]
-    alive = np.ones(rtoks.shape[0], bool)
-    compared = 0
-    for i in range(ref.GEN):
-        err = np.abs(got[i] - want[i]).max(axis=-1)
-        assert (err[alive] <= bound).all(), (i, err, bound)
-        compared += alive.sum()
-        top2 = np.sort(want[i], axis=-1)[:, -2:]
-        sure = top2[:, 1] - top2[:, 0] > 2 * bound
-        same = toks[:, i].numpy() == rtoks[:, i]
-        assert same[alive & sure].all(), (i, same, sure)
-        alive &= same
-    assert compared >= rtoks.shape[0] * ref.GEN // 2
+    toks, got = greedy_logits(groups, prompts, ref.GEN, ref.PLEN + ref.GEN)
+    assert_within_spread(got, toks, want, reference[f"bf16/{kind}/tokens"],
+                         bound)
 
 
 @pytest.mark.parametrize("scenario", ["healthy", "bitflip", "bitflip_shard",
@@ -560,9 +499,8 @@ def test_shard_sees_its_local_view_inside_the_driver(served, monkeypatch):
 # what a model axis does not serve
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "gemma3-27b",
-                                  "recurrentgemma-2b", "mamba2-780m",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "recurrentgemma-2b",
+                                  "mamba2-780m", "whisper-tiny"])
 @pytest.mark.parametrize("entry", ["generate", "guarded_generate"])
 def test_an_unserved_family_raises_before_any_work(arch, entry, monkeypatch):
     cfg = get_config(arch).reduced()

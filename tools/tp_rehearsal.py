@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Rehearse ``chip_smoke.py``'s phase 17 (tensor-parallel serving) on the
-CPU, at reduced chatglm3-6b.
+CPU, at reduced chatglm3-6b and, for its MoE part, reduced
+granite-moe-3b-a800m.
 
     python3 tools/tp_rehearsal.py
 
 Runs ``chip_smoke.phase_tensor_parallel`` with what a machine without a
 card lacks put in: counting stand-ins for ``ops._bitmap`` / ``ops._nm``
 (the plain versions, each call counted as a launch of the pipelined or
-the naive kernel, as the wrappers count on the card),
+the naive kernel, as the wrappers count on the card), ``get_config``
+giving the MoE part's model reduced,
 ``torch.cuda.synchronize`` and the memory statistics stubbed,
 ``exec.plans.shipped_plan`` giving the reduced bitmap plan (and that plan
 with every sparse role 2:4 for "nm"), and the batch, prompt, generated
 tokens and timed runs cut (``BATCH, PROMPT, GEN = 4, 8, 4``, ``M_PREFILL =
 32``, ``TP_RUNS = 1``).  It checks the phase's control flow, launch counts
 and tolerances before a chip call; its times are the CPU's and mean
-nothing.  About 10 s.
+nothing.  About 20 s.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import repro_torch.configs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.exec import plans  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -60,6 +63,9 @@ def main() -> None:
     plans.shipped_plan = lambda cfg, kind="bitmap": (
         shipped(cfg, "bitmap") if kind == "bitmap"
         else _as_nm(shipped(cfg, "bitmap")))
+    repro_torch.configs.get_config = lambda name: (
+        get_config(name).reduced() if name == cs.TP_MOE_ARCH
+        else get_config(name))
     ops._bitmap = _counting("bitmap", "bitmap_spmm")
     ops._nm = _counting("nm", "nm_spmm")
     for stub in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
