@@ -320,7 +320,7 @@ non-zero exit code when it fails:
    launch;
 17. tensor parallelism over a mesh's ``model`` axis
    (``repro_torch.launch.tensor_parallel``): chatglm3-6b at full width
-   cut to ``TP_LAYERS`` (8) layers on both shipped plans, batch 4 x 128,
+   cut to ``TP_LAYERS`` (4) layers on both shipped plans, batch 4 x 128,
    16 tokens, bf16, through ``serve.generate`` on a (1, 2) mesh repeating
    ``cuda:0`` (and, on a host of two or more cards, over the first two;
    else it prints that this is untried): every shard's role at M = 4 and
@@ -348,7 +348,22 @@ non-zero exit code when it fails:
    run's flipped bit in the last layer's last expert's ``moe.w_up`` entry
    on the shard that holds it (the role demoted on every shard, the
    healthy run's tokens), 3 runs a mode in turns (the mesh, eager; one
-   device graphed), and on 2:4 a (1, 4) mesh (10 experts a shard).
+   device graphed), and on 2:4 a (1, 4) mesh (10 experts a shard).  Then
+   ring caches: gemma3-27b at full width cut to ``TP_RING_LAYERS`` (8)
+   layers (one 5 local + 1 global period and the 2-layer tail), dense,
+   batch 4, a 32-token prompt ingested token by token through the group's
+   step, 16 tokens, bf16, on the (1, 2) meshes and a (1, 4) mesh
+   repeating ``cuda:0``: greedy agreement with one device printed; at
+   fp32 every ingest and decode step's logits along one device's tokens
+   within 1e-3 max|logits| of one device's eager step; on the first mesh
+   the wrap at the full window (1,024): batch 1, fp32, from one device's
+   seeded cache and its KV-head slices, ``TP_WRAP_BEFORE`` (3) positions
+   before the wrap to ``TP_WRAP_PAST`` (3) past it, each step within
+   1e-3 max|logits| of one device's eager step; ``guarded_generate``
+   healthy and with a NaN at a decode position once (retried, the
+   healthy run's tokens); 3 runs a mode in turns (the mesh, eager; one
+   device graphed) and each shard device's peak GiB.  None of the five
+   kernels may launch in this part.
 
 The line before the last is one JSON object describing every kernel (its
 launches in phases 5-11, 14, 16 and 17, each counted from zero before the
@@ -491,12 +506,21 @@ PEAK_SHORTFALL = 0.10
 MESH_LAYERS, MESH_RUNS = 6, 3
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3
 # phase 17: chatglm3-6b's layers served tensor-parallel, and the timed runs
-# a mode
-TP_LAYERS, TP_RUNS = 8, 3
+# a mode.  4 of 28 layers since the gemma3 part came: at 8 the script took
+# 672 s on an H100 80GB HBM3 at 700 W (phase 17 86.2 s of it), over its
+# 600 s aim
+TP_LAYERS, TP_RUNS = 4, 3
 # phase 17's MoE part: the model and its depth.  4 of 32 layers: at phase
 # 11's 8 the part took 43.7 and 49.2 s on an H100 80GB HBM3 at 700 W, over
 # its 45 s budget
 TP_MOE_ARCH, TP_MOE_LAYERS = "granite-moe-3b-a800m", 4
+# phase 17's gemma3 part: the model, its depth (phase 12's cut: one 5 local
+# + 1 global period and the 2-layer tail; its 62 layers' fp32 params, about
+# 108 GB, do not fit the card, and the shards hold a second copy), its
+# prompt, and the batch-1 fp32 steps held to one device around the rings'
+# wrap at the full window of 1,024: positions before it and past it
+TP_RING_ARCH, TP_RING_LAYERS, TP_RING_PROMPT = "gemma3-27b", 8, 32
+TP_WRAP_BEFORE, TP_WRAP_PAST = 3, 3
 # the bitmap kernels the naive entry launches as their NAIVE = true instances
 NAIVE_SWITCH = ("bitmap_spmm_small_m_kernel", "bitmap_spmm_prefill_kernel",
                 "bitmap_spmm_kernel")
@@ -4796,6 +4820,198 @@ def _tp_moe(card: str, dev, acc: dict) -> dict[str, int]:
     return launches
 
 
+def _tp_ring_wrap(tag: str, model, params, groups, dev) -> str:
+    """Batch 1, fp32: one device's cache seeded at random, each shard's
+    its KV-head slices of it; from ``TP_WRAP_BEFORE`` positions before
+    the rings' wrap to ``TP_WRAP_PAST`` past it, the group's step against
+    one device's eager step from the same cache, each step's logits
+    within 1e-3 max|logits|.  Returns the worst share."""
+    import torch
+    from repro_torch.models import layers as L
+    tp = groups.models[0]
+    win = model.cfg.window
+    first, n = win - TP_WRAP_BEFORE, TP_WRAP_BEFORE + TP_WRAP_PAST
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        one = model.init_cache(1, first + n, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        for group in one.values():
+            for leaf in group.values():
+                leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                       device=dev))
+        cache = tp.init_cache(1, first + n)
+        for s, shard in cache.items():
+            lo, k = tp.layout.kv_heads(s)
+            for g, group in shard.items():
+                if group["k"].shape[2] != one[g]["k"].shape[2]:
+                    _fail(f"{tag} wrap: shard {s}'s {g} cache is "
+                          f"{group['k'].shape[2]} long, one device's "
+                          f"{one[g]['k'].shape[2]}")
+                for name, leaf in group.items():
+                    leaf.copy_(one[g][name].narrow(3, lo, k))
+        toks = torch.randint(0, model.cfg.vocab, (n, 1), generator=gen,
+                             device=dev)
+        pos = torch.empty((), dtype=torch.long, device=dev)
+        worst = 0.0
+        for i in range(n):
+            want, one = model.decode_step(params, one, toks[i],
+                                          pos.fill_(first + i))
+            got, cache = tp.decode_step(groups.params[0], cache, toks[i],
+                                        pos)
+            scale = want.abs().max().item()
+            share = (got.to(want.device) - want).abs().max().item() \
+                / (1e-3 * scale)
+            worst = max(worst, share)
+            if not share <= 1:
+                _fail(f"{tag} wrap: position {first + i}: {share:.4f} of "
+                      f"1e-3 max|logits| from one device's step")
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    return (f"the wrap at the full window ({win}): batch 1, fp32, positions "
+            f"{first}..{first + n - 1} (ring slots {first % win}.."
+            f"{(first + n - 1) % win}) from one device's seeded cache and "
+            f"its KV-head slices, each step within {worst:.4f} of 1e-3 "
+            f"max|logits| of one device's eager step")
+
+
+def _tp_ring_guarded(tag: str, groups, toks, prompts, dev) -> str:
+    """``guarded_generate`` over the groups healthy, and with a NaN at a
+    decode position once (the failed step also writes NaN into every
+    shard's ring and global slot): retried, the healthy run's tokens."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.launch import tensor_parallel as tpm
+    from repro_torch.models.transformer import step_writes
+    from repro_torch.runtime import guard
+
+    @dc.dataclass(eq=False)
+    class NanOnce(tpm.TensorParallel):
+        at: int = -1
+
+        def decode_step(self, params, cache, tokens, pos):
+            logits, cache = super().decode_step(params, cache, tokens, pos)
+            if int(pos) == self.at:
+                self.at = -1
+                for t in step_writes(cache, int(pos)):
+                    t.fill_(float("nan"))
+                logits = torch.full_like(logits, float("nan"))
+            return logits, cache
+
+    gt, rep = guard.guarded_generate(groups, None, prompts, GEN, device=dev)
+    if not rep.healthy or not torch.equal(gt, toks):
+        _fail(f"{tag} guarded: {rep.stable_dict()}, tokens "
+              f"{'equal' if torch.equal(gt, toks) else 'differ'}")
+    at = prompts.shape[1] + GEN // 2
+    tp = groups.models[0]
+    faulty = groups.each(lambda m: m)
+    faulty.models[0] = NanOnce(tp.shards, tp.layout, tp.devices, at=at)
+    ft, frep = guard.guarded_generate(faulty, None, prompts, GEN,
+                                      device=dev)
+    if frep.retries != 1 or frep.switched_to_dense_at is not None or \
+            not torch.equal(ft, toks):
+        _fail(f"{tag} guarded NaN at {at}: {frep.stable_dict()}, tokens "
+              f"{'equal' if torch.equal(ft, toks) else 'differ'}")
+    return (f"guarded healthy: tokens equal; a NaN at decode position {at} "
+            f"(written into every shard's ring and global slot too): one "
+            f"retry, the healthy run's tokens")
+
+
+def _tp_gemma3(card: str, dev) -> None:
+    """Phase 17's gemma3 part: ``TP_RING_ARCH`` cut to ``TP_RING_LAYERS``
+    layers, dense (the compressed plane refuses it, as the reference's
+    does), its prompt ingested token by token through the group's step
+    (see the module docstring).  No kernel may launch."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compiled, data_parallel, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+
+    t0 = time.perf_counter()
+    full = get_config(TP_RING_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TP_RING_LAYERS)
+    tag = f"tp {cfg.name}"
+    ops.reset_launch_counts()
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    pg = torch.Generator(device=dev).manual_seed(6)
+    plen = TP_RING_PROMPT
+    prompts = torch.randint(0, cfg.vocab, (BATCH, plen), generator=pg,
+                            device=dev)
+
+    def run(m, graphed=True):
+        """One run: tokens, ingest ms (the prefill), decode ms/token."""
+        with contextlib.nullcontext() if graphed else compiled.disable():
+            toks, tp_, tg = serve.generate(m, params, prompts, GEN,
+                                           plen + GEN, device=dev)
+        return toks, 1e3 * tp_, 1e3 * tg / GEN, {}
+
+    base, *_ = run(model)                  # one device, graphed (captures)
+    seq = torch.cat([prompts, base[:, :-1].long()], dim=1)
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        want = _forced_steps(model.decode_step, model, params, seq)
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    print(f"[{tag}] full width (d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, window {cfg.window}), {cfg.n_layers} of "
+          f"{full.n_layers} layers, seeded random weights, dense; batch "
+          f"{BATCH}, prompt {plen} ingested token by token, {GEN} tokens, "
+          f"bf16; one device graphed first ({time.perf_counter() - t0:.1f} "
+          f"s with init); on {card}")
+    meshes = _tp_meshes(dev) + [(f"(1, 4) repeating {dev}",
+                                 _tp_mesh(dev, 1, 4))]
+    for n, (label, mesh_) in enumerate(meshes):
+        t1 = time.perf_counter()
+        groups = data_parallel.serving_replicas(model, params, mesh_, dev,
+                                                "phase 17")
+        tp = groups.models[0]
+        built = time.perf_counter() - t1
+        toks, *_ = run(groups)
+        agree = (toks == base).float().mean().item()
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            got = _forced_steps(groups.decode_step, groups, groups.params,
+                                seq)
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        share = max((g.to(w.device) - w).abs().max().item()
+                    / (1e-3 * w.abs().max().item())
+                    for g, w in zip(got, want))
+        if not share <= 1:
+            _fail(f"{tag} {label}: fp32 logits {share:.4f} of 1e-3 "
+                  f"max|logits| from one device's")
+        lo, k = tp.layout.kv_heads(len(tp.shards) - 1)
+        print(f"[{tag}] {label}: split in {built:.1f} s (the last shard "
+              f"holds {tp.shards[0].cfg.n_heads} query heads and KV heads "
+              f"{lo}..{lo + k - 1}, vocab rows "
+              f"{tp.layout.vocab_rows(len(tp.shards) - 1)}); bf16 greedy "
+              f"agreement with one device {agree:.4f}; fp32, the "
+              f"{len(want)} steps ({plen} ingest, {GEN - 1} decode) along "
+              f"one device's tokens within {share:.4f} of 1e-3 max|logits| "
+              f"of one device's eager step; on {card}")
+        if n == 0:
+            print(f"[{tag}] {label}: "
+                  f"{_tp_ring_wrap(tag, model, params, groups, dev)}; "
+                  f"{_tp_ring_guarded(tag, groups, toks, prompts, dev)}; "
+                  f"on {card}")
+        if n < len(meshes) - 1:
+            _tp_timing(tag, label, model, groups, run, card,
+                       one_eager=False)
+        del groups, tp
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    if sum(counts.values()):
+        _fail(f"{tag}: kernels launched: {counts}; gemma3 is served dense")
+    print(f"[tp] the gemma3 part ({cfg.name}, {cfg.n_layers} of "
+          f"{full.n_layers} layers) launched none of the five kernels and "
+          f"took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_tensor_parallel(cfg, card: str, dev, acc: dict) -> dict[str, int]:
     """Phase 17: serving over a mesh's ``model`` axis (see the module
     docstring).  Returns kernel -> launches of its first mesh's runs."""
@@ -4809,6 +5025,9 @@ def phase_tensor_parallel(cfg, card: str, dev, acc: dict) -> dict[str, int]:
         torch.cuda.empty_cache()
     for name, n in _tp_moe(card, dev, acc).items():
         launches[name] = launches.get(name, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tp_gemma3(card, dev)
     print(f"[tp] phase 17 took {time.perf_counter() - t_all:.1f} s")
     return launches
 

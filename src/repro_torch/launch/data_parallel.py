@@ -27,7 +27,9 @@ device, in mesh order, before it reads anything back.
   and :mod:`repro_torch.runtime.guard` serve it as they serve one model.
   Over a mesh whose ``model`` axis is larger than 1 each replica is a
   :class:`~repro_torch.launch.tensor_parallel.TensorParallel` group on
-  its row of the grid (:func:`tensor_groups`), which steps eagerly.
+  its row of the grid (:func:`tensor_groups`), which steps eagerly; a
+  group without a one-pass prefill (gemma3, a window) ingests its rows'
+  prompts through that step.
 """
 
 from __future__ import annotations

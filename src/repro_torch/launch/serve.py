@@ -237,11 +237,13 @@ def generate(model, params, prompts, gen: int, max_len: int, *,
     (:mod:`repro_torch.launch.tensor_parallel`: heads, ``d_ff`` or a MoE
     layer's experts, and the vocab where it divides, split over the
     shards, each compressed shard on the kernels over its own store), the
-    rows replicas of one another; a group decodes eagerly.  A uniform
-    full-attention stack (dense, MoE, vlm) with no optflag on serves so;
-    anything else raises ``NotImplementedError`` before any work.  A
-    mesh of one device serves as ``None`` does.  ``device`` must be of the
-    mesh's device type.
+    rows replicas of one another; a group decodes eagerly.  The uniform
+    attention stacks (dense, MoE, vlm; a ``window`` too) and gemma3's 5
+    local : 1 global stack, with no optflag on, serve so (gemma3 and a
+    window ingest the prompt token by token through the group's step);
+    recurrentgemma, mamba2, whisper and any optflag raise
+    ``NotImplementedError`` before any work.  A mesh of one device serves
+    as ``None`` does.  ``device`` must be of the mesh's device type.
 
     ``guarded=True`` routes through the robustness layer
     (:func:`repro_torch.runtime.guard.guarded_generate`: store

@@ -39,15 +39,21 @@ its router replicated).
   all-reduced (one row plus zeros: exact), and the logits each shard's
   vocab slice, all-gathered; a whole embedding is looked up by each shard
   itself and gives the logits on the first shard.  Each shard's cache
-  holds its KV heads; each compressed shard dispatches its attention and
-  dense FFN projections to the kernels over its own store (a MoE layer's
-  experts run dense, as on one device).  Its decode runs eagerly: no
-  CUDA graph is captured.
+  holds its KV heads (gemma3's local rings and global caches alike);
+  each compressed shard dispatches its attention and dense FFN
+  projections to the kernels over its own store (a MoE layer's experts
+  run dense, as on one device).  Its decode runs eagerly: no CUDA graph
+  is captured.
 
-Served: the uniform full-attention stacks (``dense``, ``moe``, ``vlm``;
-dense ``Model`` or ``CompressedModel``) with no optflag on.  Ring windows,
-the recurrent, SSM and encoder-decoder families and any optflag raise
-``NotImplementedError`` before any work.
+Served: the uniform attention stacks (``dense``, ``moe``, ``vlm``; dense
+``Model`` or ``CompressedModel``), a ``window`` too, and gemma3's 5 local
+: 1 global stack (dense only, as on one device), with no optflag on.
+gemma3 and a windowed stack have no one-pass prefill (``prefill`` raises
+``NotImplementedError``, as ``Model.prefill`` does): the serving loop
+ingests their prompts token by token through the group's
+``decode_step``.  The recurrent (recurrentgemma), SSM and
+encoder-decoder families and any optflag raise ``NotImplementedError``
+before any work.
 """
 
 from __future__ import annotations
@@ -84,11 +90,10 @@ class Shards(dict):
 def unserved(cfg: ModelConfig) -> Optional[str]:
     """Why a ``model`` axis does not serve ``cfg`` (with the optflags now
     on), or ``None`` when it does."""
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.hybrid is not None:
+    if cfg.family not in ("dense", "moe", "vlm") or \
+            (cfg.hybrid is not None and not T._gemma3(cfg)):
         return (f"{cfg.name} is family {cfg.family!r}"
                 + (" with a hybrid pattern" if cfg.hybrid else ""))
-    if cfg.window:
-        return f"{cfg.name} attends over a window of {cfg.window} (a ring)"
     flags = optflags.active()
     if flags:
         return f"optflags {sorted(flags)} are on"
@@ -102,7 +107,7 @@ def check_served(cfg: ModelConfig, t: int, what: str) -> None:
     if reason:
         raise NotImplementedError(
             f"{what}: tensor parallelism ({{'model': {t}}}) serves uniform "
-            f"full-attention stacks with no optflag on; {reason}")
+            f"attention stacks and gemma3 with no optflag on; {reason}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,7 +197,9 @@ class Layout:
         """A shard's config: its heads, KV heads, ``d_ff`` and vocab rows,
         with ``d_head`` pinned (``head_dim`` would follow ``d_model //
         n_heads``).  A MoE shard keeps ``moe`` whole (it routes over every
-        expert) and ``d_ff``, which no MoE layer reads."""
+        expert) and ``d_ff``, which no MoE layer reads; ``window`` and
+        ``hybrid`` stay, so a shard's model builds the rings and layer
+        stacks one device builds."""
         cfg = self.cfg
         v0, v1 = self.vocab_rows(0)
         return dataclasses.replace(
@@ -220,34 +227,64 @@ def _role_leaves(blocks: dict):
             yield f"{prefix}.{leaf}", group, leaf
 
 
+def _stacks(params: dict) -> list:
+    """(path, stack) of every layer stack of ``params``: ``blocks`` (a
+    uniform stack), or gemma3's local layers ``super/local`` ``(n_super,
+    5, ...)``, global ones ``super/global`` ``(n_super, ...)`` and local
+    ``tail`` ``(2, ...)``; ``ValueError`` for any other tree."""
+    top = set(params) - {"embed", "final_norm"}
+    if top == {"blocks"}:
+        stacks = [(("blocks",), params["blocks"])]
+    elif top == {"super", "tail"} and set(params["super"]) == {"local",
+                                                               "global"}:
+        stacks = [(("super", "local"), params["super"]["local"]),
+                  (("super", "global"), params["super"]["global"]),
+                  (("tail",), params["tail"])]
+    else:
+        raise ValueError(f"shard_params: no tensor-parallel split for "
+                         f"{sorted(top)}")
+    for _, stack in stacks:
+        extra = set(stack) - {"ln1", "ln2", "attn", "ffn"}
+        if extra:
+            raise ValueError(f"shard_params: no tensor-parallel split for "
+                             f"{sorted(extra)}")
+    return stacks
+
+
+def _shard_stack(blocks: dict, layout: Layout, s: int, device) -> dict:
+    """Shard ``s``'s cut of one layer stack (its leaves' leading layer
+    axes kept: every cut is on a trailing axis)."""
+    out: dict = {"ln1": _own(blocks["ln1"], device),
+                 "ln2": _own(blocks["ln2"], device), "attn": {}, "ffn": {}}
+    for role, group, leaf in _role_leaves(blocks):
+        w = blocks[group][leaf]
+        if role == "moe.router":
+            out[group][leaf] = _own(w, device)
+            continue
+        axis, lo, hi = layout.cut(role, s)
+        out[group][leaf] = _own(w.narrow(w.ndim + axis, lo, hi - lo),
+                                device)
+    return out
+
+
 def shard_params(params: dict, layout: Layout, s: int, device=None) -> dict:
     """Shard ``s``'s params on ``device`` (the params' by default): column
     slices of ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up``, row slices
     of ``wo`` / ``w_down``, a MoE layer's expert stacks cut to its experts
     and its router whole, rows ``[s·V/t, (s+1)·V/t)`` of ``embed`` (all of
     them where the vocab does not split), the norms whole; each a
-    contiguous copy of its own."""
-    blocks = params["blocks"]
-    extra = set(params) - {"embed", "final_norm", "blocks"} | \
-        set(blocks) - {"ln1", "ln2", "attn", "ffn"}
-    if extra:
-        raise ValueError(f"shard_params: no tensor-parallel split for "
-                         f"{sorted(extra)}")
+    contiguous copy of its own.  The layer stacks are ``blocks`` or
+    gemma3's ``super/local``, ``super/global`` and ``tail``, each cut
+    alike."""
     v0, v1 = layout.vocab_rows(s)
-    out_blocks: dict = {"ln1": _own(blocks["ln1"], device),
-                        "ln2": _own(blocks["ln2"], device),
-                        "attn": {}, "ffn": {}}
-    for role, group, leaf in _role_leaves(blocks):
-        w = blocks[group][leaf]
-        if role == "moe.router":
-            out_blocks[group][leaf] = _own(w, device)
-            continue
-        axis, lo, hi = layout.cut(role, s)
-        out_blocks[group][leaf] = _own(w.narrow(w.ndim + axis, lo, hi - lo),
-                                       device)
-    return {"embed": _own(params["embed"][v0:v1], device),
-            "final_norm": _own(params["final_norm"], device),
-            "blocks": out_blocks}
+    out: dict = {"embed": _own(params["embed"][v0:v1], device),
+                 "final_norm": _own(params["final_norm"], device)}
+    for path, stack in _stacks(params):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _shard_stack(stack, layout, s, device)
+    return out
 
 
 def _bitmap_of(blocks: torch.Tensor, counts: list, row_ids: list, n: int,
@@ -536,15 +573,27 @@ class TensorParallel:
 
     def init_cache(self, batch: int, max_len: int, device=None) -> Shards:
         """Each shard's cache of its KV heads on its device (``device`` is
-        the shards' own)."""
+        the shards' own), in one device's layout: a uniform stack's
+        ``{"self"}`` (``max_len`` long, a ``window`` too), gemma3's
+        ``{"local"}`` rings of ``min(window, max_len)`` and ``{"global"}``
+        caches."""
         return Shards((s, m.init_cache(batch, max_len, device=d))
                       for s, (m, d) in enumerate(zip(self.shards,
                                                      self.devices)))
 
     def prefill(self, params: Shards, tokens: torch.Tensor, max_len: int):
-        """(logits (B, S, V) float32, cache) as ``Model.prefill``."""
+        """(logits (B, S, V) float32, cache) as ``Model.prefill``: uniform
+        full-attention stacks only.  gemma3 and a stack with a ``window``
+        raise ``NotImplementedError``, as ``Model.prefill`` does: the
+        serving loop, the mixer's admission and the guard then ingest the
+        prompt token by token through :meth:`decode_step`, which writes
+        the rings (a one-pass body here would attend without them)."""
         self._check()
         cfg, scfg = self.cfg, self.shards[0].cfg
+        if not T._uniform_stack(cfg) or cfg.window:
+            raise NotImplementedError(
+                f"TensorParallel.prefill: uniform full-attention stacks "
+                f"only; {cfg.name} ingests its prompt token by token")
         b, s = tokens.shape
         if s > max_len:
             raise ValueError(f"prompt ({s}) exceeds max_len ({max_len})")
@@ -570,26 +619,69 @@ class TensorParallel:
             x, e.to(L.COMPUTE_DTYPE).t()).float())
         return logits, cache
 
+    def _layer_step(self, xs: list, p, kv, poss: list, cposs: list,
+                    freqs: list) -> list:
+        """One layer of a decode step on every shard: the attention half,
+        writing shard j's K / V into ``kv(j)`` at ``cposs[j]``, then the
+        FFN half, each partial output all-reduced (``p(j)``: shard j's
+        layer params)."""
+        scfg = self.shards[0].cfg
+
+        def attn(j, x):
+            kc, vc = kv(j)
+            return T.attn_step_out(x, p(j), scfg, freqs[j], poss[j], kc, vc,
+                                   cposs[j])
+        xs = self._sublayer(xs, attn)
+        return self._sublayer(xs, lambda j, x: T.ffn_step_out(
+            x, p(j), scfg, self._experts(j)))
+
     def decode_step(self, params: Shards, cache: Shards,
                     tokens: torch.Tensor, pos):
         """One token for the whole batch, as ``Model.decode_step``: each
-        shard's cache written in place; (logits (B, V), cache)."""
+        shard's cache written in place; (logits (B, V), cache).  A uniform
+        stack writes slot ``pos`` (``pos % S`` with a ``window``); gemma3
+        runs each super-block's 5 local layers into their rings at ``pos
+        % window`` and its global layer at ``pos``, then the local tail."""
         self._check()
-        cfg, scfg = self.cfg, self.shards[0].cfg
+        cfg = self.cfg
         pos = T.decode_pos(tokens, pos)
         toks = [tokens.to(d, non_blocking=True) for d in self.devices]
         poss = [pos.to(d, non_blocking=True) for d in self.devices]
         freqs = [L.rope_freqs(cfg, d) for d in self.devices]
         xs = self._embed(params, toks)
-        for i in range(cfg.n_layers):
-            with L.layer_ctx(i):
-                xs = self._sublayer(xs, lambda j, x: T.attn_step_out(
-                    x, T._take(params[j]["blocks"], i), scfg, freqs[j],
-                    poss[j], cache[j]["self"]["k"][i],
-                    cache[j]["self"]["v"][i], poss[j]))
-                xs = self._sublayer(xs, lambda j, x: T.ffn_step_out(
-                    x, T._take(params[j]["blocks"], i), scfg,
-                    self._experts(j)))
+        if T._gemma3(cfg):
+            win = cache[0]["local"]["k"].shape[2]
+            lposs = [p % win for p in poss]
+            n_super = cache[0]["global"]["k"].shape[0]
+
+            def ring(li):
+                return lambda j: (cache[j]["local"]["k"][li],
+                                  cache[j]["local"]["v"][li])
+            for i in range(n_super):
+                for jj in range(5):
+                    xs = self._layer_step(
+                        xs, lambda j: T._take(T._take(
+                            params[j]["super"]["local"], i), jj),
+                        ring(i * 5 + jj), poss, lposs, freqs)
+                xs = self._layer_step(
+                    xs, lambda j: T._take(params[j]["super"]["global"], i),
+                    lambda j: (cache[j]["global"]["k"][i],
+                               cache[j]["global"]["v"][i]),
+                    poss, poss, freqs)
+            for t in range(params[0]["tail"]["ln1"].shape[0]):
+                xs = self._layer_step(
+                    xs, lambda j: T._take(params[j]["tail"], t),
+                    ring(n_super * 5 + t), poss, lposs, freqs)
+        else:
+            size = cache[0]["self"]["k"].shape[2]
+            cposs = [p % size for p in poss] if cfg.window else poss
+            for i in range(cfg.n_layers):
+                with L.layer_ctx(i):
+                    xs = self._layer_step(
+                        xs, lambda j: T._take(params[j]["blocks"], i),
+                        lambda j: (cache[j]["self"]["k"][i],
+                                   cache[j]["self"]["v"][i]),
+                        poss, cposs, freqs)
         return self._logits(params, xs, L.logits_head), cache
 
 

@@ -241,11 +241,13 @@ def guarded_generate(model, params, prompts, gen: int,
     shard that holds the expert): the store it was split from and every
     shard's store are verified, a role that fails on any of them is
     demoted on every shard of every replica, a step non-finite on any
-    shard is retried whole, and
-    ``dense_model`` degrades to the dense model split as the groups are.
-    What a ``model`` axis does not serve raises ``NotImplementedError``
-    before anything is verified or served; a mesh of one device serves as
-    ``None`` does."""
+    shard is retried whole (what it wrote into every shard's cache, each
+    ring's slot too, put back first), and ``dense_model`` degrades to the
+    dense model split as the groups are.  A ``model`` axis serves the
+    uniform attention stacks (dense, MoE, vlm; a ``window`` too) and
+    gemma3; recurrentgemma, mamba2, whisper and any optflag raise
+    ``NotImplementedError`` before anything is verified or served; a mesh
+    of one device serves as ``None`` does."""
     from repro_torch.exec.dispatch import CompressedModel
     from repro_torch.launch import data_parallel as dp
 

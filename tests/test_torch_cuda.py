@@ -1509,6 +1509,34 @@ def test_tensor_parallel_moe_tokens_equal_one_devices(card, kind,
         assert torch.equal(toks, want)
 
 
+def test_tensor_parallel_gemma3_tokens_equal_one_devices(card, monkeypatch):
+    """Reduced gemma3-27b (rings of 64), fp32, on a (1, 2) mesh repeating
+    the card (and over the first two cards where there are two): the
+    prompt ingested through the group's step past the rings' wrap, the
+    tokens of one device, no kernel launched (gemma3 serves dense)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Model
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    cfg = get_config("gemma3-27b").reduced()
+    model = Model(cfg)
+    params = model.init(seed=0, device=card)
+    prompts = _prompts(cfg, b=4, s=60)
+    gen = 10
+    want, _, _ = serve.generate(model, params, prompts, gen, 60 + gen)
+    devs = [[card, card]]
+    if torch.cuda.device_count() >= 2:
+        devs.append([torch.device("cuda", 0), torch.device("cuda", 1)])
+    for d in devs:
+        m = mesh.Mesh(("data", "model"), (1, 2), mesh.grid(d, (1, 2)))
+        ops.reset_launch_counts()
+        toks, _, _ = serve.generate(model, params, prompts, gen, 60 + gen,
+                                    mesh=m)
+        assert sum(ops.launch_counts().values()) == 0
+        assert torch.equal(toks, want)
+
+
 # ---------------------------------------------------------------------------
 # The search plane on the card's host
 # ---------------------------------------------------------------------------

@@ -306,12 +306,13 @@ def test_kernel_timer_reads_device_events_at_exit(monkeypatch):
 def test_a_mesh_of_more_than_one_device_raises(entry, monkeypatch):
     """The reference shards over a (data, model) mesh with ``model`` > 1
     (tensor parallelism).  The port serves a ``model`` axis for the
-    uniform full-attention stacks with no optflag on
-    (``tests/test_torch_tensor_parallel.py``) and the MoE models
-    (``tests/test_torch_tensor_parallel_moe.py``), and raises
-    ``NotImplementedError`` for everything else before it serves
+    uniform attention stacks with no optflag on
+    (``tests/test_torch_tensor_parallel.py``), the MoE models
+    (``tests/test_torch_tensor_parallel_moe.py``) and gemma3 and the
+    windowed stacks (``tests/test_torch_tensor_parallel_ring.py``), and
+    raises ``NotImplementedError`` for everything else before it serves
     anything, never running unsharded in its place: here a reduced
-    gemma3-27b (ring windows under a ``model`` axis are not ported)
+    recurrentgemma-2b (RG-LRU under a ``model`` axis is not ported)
     through ``generate``, ``guarded_generate`` and ``serve --mesh``.
     Training takes a mesh's data axes only, and a bare ``shard(...,
     "model")`` outside the tensor-parallel driver raises.  A (2, 2) mesh
@@ -327,7 +328,7 @@ def test_a_mesh_of_more_than_one_device_raises(entry, monkeypatch):
     monkeypatch.setattr(mesh, "make_small_mesh", lambda *a, **k: tp)
     monkeypatch.setattr(serve, "make_serve_mesh", lambda *a, **k: tp)
     monkeypatch.setattr(mesh, "devices", lambda device="cuda": [cpu] * 4)
-    cfg = get_config("gemma3-27b").reduced()
+    cfg = get_config("recurrentgemma-2b").reduced()
     model = Model(cfg)
     params = model.init(seed=0, device="cpu")
     prompts = torch.zeros((4, 4), dtype=torch.long)
@@ -338,7 +339,7 @@ def test_a_mesh_of_more_than_one_device_raises(entry, monkeypatch):
             model, params, prompts, 2, 8, mesh=tp, guarded=True,
             device="cpu"),
         "serve --mesh": lambda: serve.main([
-            "--arch", "gemma3-27b", "--reduced", "--batch", "4",
+            "--arch", "recurrentgemma-2b", "--reduced", "--batch", "4",
             "--prompt-len", "4", "--gen", "2", "--mesh", "--device", "cpu"]),
         "train": lambda: train.main([
             "--arch", "chatglm3-6b", "--reduced", "--steps", "1",

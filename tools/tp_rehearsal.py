@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rehearse ``chip_smoke.py``'s phase 17 (tensor-parallel serving) on the
-CPU, at reduced chatglm3-6b and, for its MoE part, reduced
-granite-moe-3b-a800m.
+CPU, at reduced chatglm3-6b and, for its MoE and gemma3 parts, reduced
+granite-moe-3b-a800m and gemma3-27b (rings of 64).
 
     python3 tools/tp_rehearsal.py
 
@@ -9,14 +9,14 @@ Runs ``chip_smoke.phase_tensor_parallel`` with what a machine without a
 card lacks put in: counting stand-ins for ``ops._bitmap`` / ``ops._nm``
 (the plain versions, each call counted as a launch of the pipelined or
 the naive kernel, as the wrappers count on the card), ``get_config``
-giving the MoE part's model reduced,
+giving the MoE and gemma3 parts' models reduced,
 ``torch.cuda.synchronize`` and the memory statistics stubbed,
 ``exec.plans.shipped_plan`` giving the reduced bitmap plan (and that plan
 with every sparse role 2:4 for "nm"), and the batch, prompt, generated
 tokens and timed runs cut (``BATCH, PROMPT, GEN = 4, 8, 4``, ``M_PREFILL =
-32``, ``TP_RUNS = 1``).  It checks the phase's control flow, launch counts
-and tolerances before a chip call; its times are the CPU's and mean
-nothing.  About 20 s.
+32``, ``TP_RUNS = 1``, the gemma3 part's prompt 8).  It checks the phase's
+control flow, launch counts and tolerances before a chip call; its times
+are the CPU's and mean nothing.  About 30 s.
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ def main() -> None:
         shipped(cfg, "bitmap") if kind == "bitmap"
         else _as_nm(shipped(cfg, "bitmap")))
     repro_torch.configs.get_config = lambda name: (
-        get_config(name).reduced() if name == cs.TP_MOE_ARCH
-        else get_config(name))
+        get_config(name).reduced()
+        if name in (cs.TP_MOE_ARCH, cs.TP_RING_ARCH) else get_config(name))
     ops._bitmap = _counting("bitmap", "bitmap_spmm")
     ops._nm = _counting("nm", "nm_spmm")
     for stub in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
@@ -74,6 +74,7 @@ def main() -> None:
     cs.BATCH, cs.PROMPT, cs.GEN = 4, 8, 4
     cs.M_DECODE, cs.M_PREFILL = 4, 32
     cs.TP_RUNS = 1
+    cs.TP_RING_PROMPT = 8
     torch.set_num_threads(min(4, torch.get_num_threads()))
     acc = {name: cs._Acc() for name in ("bitmap_spmm", "bitmap_spmm_naive",
                                          "nm_spmm", "nm_spmm_naive")}
